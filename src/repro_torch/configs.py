@@ -1,0 +1,144 @@
+"""Architecture configs for the port: the attention-family fields of
+``repro/configs/base.py`` (``LayerSpec``, ``ArchConfig``, ``reduced``),
+kept as an own copy so the port never imports JAX.  The port has no
+``use_kernels``: it launches its kernels for every CUDA tensor and runs
+the plain versions for every CPU tensor.
+
+MoE, Mamba, xLSTM and encoder fields arrive with the slices that port
+those families; ``tests/test_torch_common.py`` holds every field here equal
+to the reference config, full and reduced.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple
+
+import torch
+
+MIXERS = ("attn",)
+FFNS = ("dense", "none")
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype for a config dtype string (``"bfloat16"`` ...)."""
+    return _DTYPES[name]
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One position inside the repeating block pattern."""
+
+    mixer: str = "attn"
+    window: Optional[int] = None  # sliding-window size for local attention
+    ffn: str = "dense"
+
+    def __post_init__(self):
+        if self.mixer not in MIXERS or self.ffn not in FFNS:
+            raise NotImplementedError(
+                f"{self.mixer}/{self.ffn} layers arrive with a later slice "
+                "of the port (dense slot pool, MoE, encoder)")
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    d_head: Optional[int] = None  # default d_model // n_heads
+
+    rope_theta: float = 10_000.0
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    attn_scale: Optional[float] = None      # override 1/sqrt(d_head)
+    double_norm: bool = False
+    head_pad: int = 0             # zero query heads added per GQA group
+
+    act: str = "silu"             # silu | gelu (tanh approximation)
+    glu: bool = True
+    norm: str = "rms"             # rms | ln
+    tie_embeddings: bool = False
+    embed_scale: bool = False
+
+    dtype: str = "bfloat16"       # activation/compute dtype
+    param_dtype: str = "float32"  # storage dtype (serving casts to dtype)
+
+    spec_enabled: bool = False    # speculative n-gram decode (serving policy)
+    spec_k: int = 4
+
+    source: str = ""
+
+    def __post_init__(self):
+        if self.n_layers % len(self.pattern):
+            raise ValueError(f"{self.name}: n_layers={self.n_layers} not "
+                             f"divisible by pattern length {len(self.pattern)}")
+        if self.d_head is None:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+
+    @property
+    def n_repeats(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 128; logits beyond ``vocab``
+        are masked to -1e30."""
+        return (self.vocab + 127) // 128 * 128
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    @property
+    def params_dtype(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family float32 config for CPU tests."""
+        pattern = tuple(replace(s, window=8 if s.window is not None else None)
+                        for s in self.pattern)
+        return replace(
+            self, name=self.name + "-reduced", n_layers=len(self.pattern),
+            d_model=64, n_heads=4,
+            n_kv_heads=(min(self.n_kv_heads, 2)
+                        if self.n_kv_heads < self.n_heads else 4),
+            d_head=16, d_ff=128 if self.d_ff else 0, vocab=512,
+            pattern=pattern, dtype="float32", param_dtype="float32")
+
+
+_REGISTRY: dict = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+# The paper's own testbed model: Meta-Llama-3-8B (GenTorrent §5.1).
+register(ArchConfig(
+    name="gentorrent-llama3-8b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=14336,
+    vocab=128256,
+    pattern=(LayerSpec(mixer="attn"),),
+    rope_theta=500_000.0,
+    source="paper §5.1 testbed (Meta-Llama-3-8B)",
+))

@@ -17,3 +17,9 @@ if importlib.util.find_spec("hypothesis") is None:
         if ("from hypothesis" in f.read_text() or
             "import hypothesis" in f.read_text())
         and "hypothesis-optional" not in f.read_text())
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels have no CPU "
+        "mode); the test skips itself, from a fixture, where torch sees none")

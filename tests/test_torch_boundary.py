@@ -1,0 +1,61 @@
+"""The port's boundary: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, and its entry points never drop to the
+CPU on their own."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    for name in _imported(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = [p.relative_to(ROOT / "src").with_suffix("").as_posix()
+            .replace("/", ".").removesuffix(".__init__")
+            for p in PORT_FILES[:-1]]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro')]\nassert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
+def test_entry_points_default_to_the_card():
+    """Without a card, the default device raises instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from repro_torch import configs
+    from repro_torch.models.lm import LM
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import RealEngine
+    cfg = configs.get_config("gentorrent-llama3-8b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        RealEngine(cfg, LM(cfg, device="cpu"), params)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        LM(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        init_params(cfg, torch.Generator())

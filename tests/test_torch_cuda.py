@@ -1,0 +1,162 @@
+"""The port's CUDA kernels on the card, against their plain versions, and
+the paged LM and scheduler on the card against the same code on the CPU.
+
+Every test here needs a CUDA card and skips itself from the ``card``
+fixture where torch sees none (the kernels have no CPU mode).  The file
+imports no JAX, so it runs on a card host that has none:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.paged_decode import ops as decode_ops  # noqa: E402
+from repro_torch.kernels.paged_decode import ref as decode_ref  # noqa: E402
+from repro_torch.models.lm import LM  # noqa: E402
+from repro_torch.params import init_params  # noqa: E402
+from repro_torch.serving.engine import RealEngine, Request  # noqa: E402
+from repro_torch.serving.scheduler import Scheduler  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+BLK = 32
+NAME = "gentorrent-llama3-8b"
+VARIANTS = [(None, None), (8, None), (None, 50.0), (8, 50.0)]
+# float32: the kernel and the plain version sum in different orders;
+# bfloat16: the kernel rounds its output to bf16, the plain version is f32
+TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
+       "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(rng, *shape):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+
+def _arena(rng, dev, P=200, Hkv=8, D=128, B=4, n_pg=32):
+    ka, va = _randn(rng, P, BLK, Hkv, D), _randn(rng, P, BLK, Hkv, D)
+    pt = torch.from_numpy(rng.integers(1, P, size=(B, n_pg)).astype(np.int32))
+    return ka.to(dev), va.to(dev), pt.to(dev)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,softcap", VARIANTS)
+def test_paged_decode_kernel_matches_plain(card, dtype, window, softcap):
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(6)
+    ka, va, pt = _arena(rng, card)
+    q = _randn(rng, 4, 32, 128).to(card)
+    lengths = torch.tensor([1000, 517, 0, 33], dtype=torch.int32, device=card)
+    x = [t.to(dt) for t in (q, ka, va)]
+    kw = dict(window=window, softcap=softcap)
+    n0 = decode_ops.paged_decode_attention.launches
+    got = decode_ops.paged_decode_attention(*x, pt, lengths, **kw)
+    want = decode_ref.paged_decode_attention_ref(*[t.float() for t in x], pt,
+                                                 lengths, **kw)
+    torch.cuda.synchronize()
+    assert decode_ops.paged_decode_attention.launches == n0 + 1
+    live = lengths > 0
+    torch.testing.assert_close(got.float()[live], want[live], **TOL[dtype])
+    assert not got[~live].any()                         # dead row: zeros
+
+
+def test_paged_decode_kernel_clamps_lengths_past_the_table(card):
+    """A length past the page table reads no page past it: the row attends
+    every position the table holds, as the plain version does."""
+    rng = np.random.default_rng(9)
+    ka, va, pt = _arena(rng, card, n_pg=4)
+    q = _randn(rng, 4, 32, 128).to(card)
+    lengths = torch.tensor([129, 500, 128, 1], dtype=torch.int32, device=card)
+    for window in (None, 8):
+        got = decode_ops.paged_decode_attention(q, ka, va, pt, lengths,
+                                                window=window)
+        want = decode_ref.paged_decode_attention_ref(q, ka, va, pt, lengths,
+                                                     window=window)
+        torch.cuda.synchronize()
+        live = lengths - (window or 0) < 128        # a visible position left
+        torch.testing.assert_close(got[live], want[live], **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [32, 5])
+@pytest.mark.parametrize("window,softcap", VARIANTS)
+def test_paged_flash_kernel_matches_plain(card, dtype, C, window, softcap):
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(7)
+    ka, va, pt = _arena(rng, card)
+    q = _randn(rng, 4, C, 32, 128).to(card)
+    pos0 = torch.tensor([0, 256, 512, 960] if C == 32 else [3, 300, 0, 1010],
+                        dtype=torch.int32, device=card)
+    active = torch.tensor([True, True, False, True], device=card)
+    x = [t.to(dt) for t in (q, ka, va)]
+    kw = dict(window=window, softcap=softcap)
+    got = flash_ops.paged_flash_attention(*x, pt, pos0, active, **kw)
+    want = flash_ref.paged_attention_ref(*[t.float() for t in x], pt, pos0,
+                                         active, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window,softcap", VARIANTS)
+def test_flash_kernel_matches_plain(card, dtype, causal, window, softcap):
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(8)
+    q = _randn(rng, 2, 32, 200, 128).to(card)
+    k, v = (_randn(rng, 2, 8, 200, 128).to(card) for _ in range(2))
+    x = [t.to(dt) for t in (q, k, v)]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = flash_ops.flash_attention(*x, **kw)
+    want = flash_ref.attention_ref(*[t.float() for t in x], **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_serving_on_card_matches_cpu(card, window):
+    """The reduced model served through the scheduler, with and without
+    speculation: the card (kernels) and the CPU (plain versions) give the
+    same tokens from the same weights."""
+    base = configs.get_config(NAME).reduced()
+    cfg = dataclasses.replace(base, n_layers=2, pattern=(
+        dataclasses.replace(base.pattern[0], window=window),))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rep = [5, 9, 2, 7] * 10
+    prompts = [rep, list(range(20)), rep[:36], [3] * 30, list(range(7, 51))]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, torch.device(dev))
+        for spec in (False, True):
+            scfg = dataclasses.replace(cfg, spec_enabled=spec, spec_k=4)
+            eng = RealEngine(scfg, LM(scfg, dev), p, max_len=128, device=dev)
+            s = Scheduler(eng, max_active=4)
+            for i, pr in enumerate(prompts):
+                s.submit(Request(i, pr, max_new=24))
+            outs[dev, spec] = {r.req_id: r.output for r in s.run()}
+    assert outs["cuda", False] == outs["cpu", False]
+    assert outs["cuda", True] == outs["cpu", True] == outs["cpu", False]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, dev) for v in tree)
+    return tree.to(dev)
