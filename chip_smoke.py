@@ -3,19 +3,29 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
-holds each against its plain PyTorch version at the serving path's shapes,
-serves ``gentorrent-llama3-8b`` through the port's scheduler (full width:
-two layers in float32 for token parity, all 32 layers in bf16 for the
-serving numbers) and prints one JSON line per phase.  Every phase must
-pass: any failure ends the run with a nonzero exit.  With no CUDA card it
-exits nonzero before printing any result.  ``--out DIR`` also writes the
-long outputs (compiler report, profile table, tokens) there.  Weights are
-random, made from ``--seed``.
+holds each against its plain PyTorch version at the serving paths' shapes,
+and drives the port's two serving paths through its scheduler, each at
+full width:
+
+* the paged KV pool with ``gentorrent-llama3-8b`` (two layers in float32
+  for token parity, all 32 layers in bf16 for the serving numbers);
+* the dense slot pool with ``jamba-v0.1-52b`` (Mamba + attention + MoE)
+  cut to one repeat of its 8-layer pattern (32 layers, ~104 GB in bf16, do
+  not fit in 80 GB): one Mamba and one attention layer, then the whole cut
+  model, in float32 against the CPU and for token parity; the cut model in
+  bf16 for the serving numbers; one 2048-token prefill.
+
+It prints one JSON line per phase.  Every phase must pass: any failure
+ends the run with a nonzero exit.  With no CUDA card it exits nonzero
+before printing any result.  ``--out DIR`` also writes the long outputs
+(compiler report, profile tables, tokens) there.  Weights are random, made
+from ``--seed``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -34,6 +44,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 NAME = "gentorrent-llama3-8b"
+JAMBA = "jamba-v0.1-52b"
 BLK = 32
 
 
@@ -42,7 +53,30 @@ def emit(obj):
 
 
 def time_ms(fn, iters=50, warmup=5):
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    """Device time of one call of ``fn``: the summed time of every kernel
+    (and copy) it runs on the card, from torch.profiler, averaged over
+    ``iters`` calls.  The host's gaps between launches do not count: at
+    the serving path's small shapes a kernel runs for less time than its
+    Python wrapper takes to launch it, and a loop timed by CUDA events
+    times the host (``event_ms``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    assert us > 0, "the profiler saw no device time"
+    return us / iters / 1e3
+
+
+def event_ms(fn, iters=50, warmup=5):
+    """Time of one call of ``fn`` in a loop of back-to-back calls, between
+    two CUDA events: the device's time or the host's, whichever is longer."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -64,6 +98,24 @@ def smi_line():
 def bound(nbytes, flops, dtype):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def close(got, want, dtype):
+    """``assert_close`` at ``TOL[dtype]``; returns the largest absolute
+    error and the worst ratio err / (atol + rtol * |want|), the share of
+    the tolerance the worst element uses (the check fails above 1)."""
+    tol = TOL[dtype]
+    got = got.float()
+    torch.testing.assert_close(got, want, **tol)
+    err = (got - want).abs()
+    return [err.max().item(),
+            (err / (tol["atol"] + tol["rtol"] * want.abs())).max().item()]
+
+
+def _summary(errs):
+    """max_abs_err and the worst tolerance ratio over a kernel's cases."""
+    return {"max_abs_err": max(e[0] for e in errs.values()),
+            "tol_ratio": max(e[1] for e in errs.values())}
 
 
 # --------------------------------------------------------------------------
@@ -105,13 +157,13 @@ def check_paged_decode(gen, dev):
             got = ops.paged_decode_attention(*x, pt, lengths, **kw)
             want = ref.paged_decode_attention_ref(*[t.float() for t in x], pt, lengths, **kw)
             torch.cuda.synchronize()
-            torch.testing.assert_close(got.float()[live], want[live], **TOL[dtype])
-            assert not got[~live].any(), "dead row must be zeros"
             errs[f"{str(dtype)[6:]}/w{window}/cap{softcap}"] = \
-                (got.float()[live] - want[live]).abs().max().item()
+                close(got[live], want[live], dtype)
+            assert not got[~live].any(), "dead row must be zeros"
     # timing at the serving dtype, no window or softcap (the model's case)
     x = [t.to(torch.bfloat16) for t in (q, ka, va)]
     ms = time_ms(lambda: ops.paged_decode_attention(*x, pt, lengths))
+    ev_ms = event_ms(lambda: ops.paged_decode_attention(*x, pt, lengths))
     plain_ms = time_ms(lambda: ref.paged_decode_attention_ref(*x, pt, lengths), iters=10)
     nbytes = _paged_decode_bytes(lengths, H, ka.shape[2], D, 2)
     visible = int(lengths.sum())
@@ -119,9 +171,9 @@ def check_paged_decode(gen, dev):
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/paged_decode/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/decode_attention/paged.py:94",
-            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            **_summary(errs), "ms": ms, "event_ms": ev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": "B=4 H=32 Hkv=8 D=128 BLOCK=32 n_pg=32 lengths=[1000,517,0,33] bf16",
+            "timed_at": "B=4 H=32 Hkv=8 D=128 BLOCK=32 n_pg=32 lengths=[1000,517,0,33] bf16",
             "errs": errs}
 
 
@@ -169,15 +221,15 @@ def check_paged_flash(gen, dev):
                 got = ops.paged_flash_attention(*x, pt, pos0, active, **kw)
                 want = ref.paged_attention_ref(*[t.float() for t in x], pt, pos0, active, **kw)
                 torch.cuda.synchronize()
-                torch.testing.assert_close(got.float()[valid], want[valid], **TOL[dtype])
-                assert not got[~active].any(), "dead row must be zeros"
                 errs[f"C{C}/{str(dtype)[6:]}/w{window}/cap{softcap}"] = \
-                    (got.float()[valid] - want[valid]).abs().max().item()
+                    close(got[valid], want[valid], dtype)
+                assert not got[~active].any(), "dead row must be zeros"
     # timing: the prefill chunk in bf16, the model's case
     q, ka, va, pt, pos0, n_tok = _flash_case(gen, dev, 32)
     active = n_tok > 0
     x = [t.to(torch.bfloat16) for t in (q, ka, va)]
     ms = time_ms(lambda: ops.paged_flash_attention(*x, pt, pos0, active))
+    ev_ms = event_ms(lambda: ops.paged_flash_attention(*x, pt, pos0, active))
     plain_ms = time_ms(lambda: ref.paged_attention_ref(*x, pt, pos0, active), iters=10)
     # library yardstick: the same attention as one SDPA call over the rows'
     # pages gathered densely beforehand (the gather is not timed)
@@ -194,42 +246,216 @@ def check_paged_flash(gen, dev):
     return {"name": "paged_flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
-            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            **_summary(errs), "ms": ms, "event_ms": ev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "shape": "B=4 C=32 H=32 Hkv=8 D=128 pos0=[0,256,512,960] active=[1,1,0,1] bf16",
+            "timed_at": "B=4 C=32 H=32 Hkv=8 D=128 pos0=[0,256,512,960] active=[1,1,0,1] bf16",
             "errs": errs}
 
 
+def _dense_flash_cost(B, H, Hkv, S, D, esize):
+    """q read and out written, K/V read once; the causal half of QK^T and PV."""
+    return (2 * (B * H * S * D + B * Hkv * S * D) * esize,
+            4 * B * H * D * S * (S + 1) // 2)
+
+
 def check_dense_flash(gen, dev):
+    """The slot pool's prefill attention as ``full_attention`` passes it:
+    (B, S, H, D) tensors viewed as (B, H, S, D).  The boot prefill's shape
+    (B=1, S=8, the engine's boot, and a shorter prompt's S=5) and a long
+    two-row prompt (B=2, S=1024, timed: its own launch count is 0 on the
+    serving run, 1 per 2048-token prefill)."""
     from repro_torch.kernels.flash_attention import ops, ref
-    B, H, Hkv, S, D = 2, 32, 8, 1024, 128
-    q = torch.randn(B, H, S, D, generator=gen, device=dev)
-    k = torch.randn(B, Hkv, S, D, generator=gen, device=dev)
-    v = torch.randn(B, Hkv, S, D, generator=gen, device=dev)
+    H, Hkv, D = 32, 8, 128
+
+    def inputs(B, S):
+        return [torch.randn(B, S, n, D, generator=gen, device=dev).transpose(1, 2)
+                for n in (H, Hkv, Hkv)]
+
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for causal, window, softcap in ((True, None, None), (True, 256, None),
-                                        (True, None, 50.0), (False, None, None)):
-            kw = dict(causal=causal, window=window, softcap=softcap)
-            x = [t.to(dtype) for t in (q, k, v)]
-            got = ops.flash_attention(*x, **kw)
-            want = ref.attention_ref(*[t.float() for t in x], **kw)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got.float(), want, **TOL[dtype])
-            errs[f"{str(dtype)[6:]}/causal{causal}/w{window}/cap{softcap}"] = \
-                (got.float() - want).abs().max().item()
-    x = [t.to(torch.bfloat16) for t in (q, k, v)]
-    ms = time_ms(lambda: ops.flash_attention(*x), iters=20)
-    plain_ms = time_ms(lambda: ref.attention_ref(*x), iters=5)
+    for B, S in ((1, 8), (1, 5), (2, 1024)):
+        q, k, v = inputs(B, S)
+        for dtype in (torch.float32, torch.bfloat16):
+            cases = ((True, None, None), (True, 256, None), (True, None, 50.0),
+                     (False, None, None)) if S > 8 else ((True, None, None),)
+            for causal, window, softcap in cases:
+                kw = dict(causal=causal, window=window, softcap=softcap)
+                x = [t.to(dtype) for t in (q, k, v)]
+                got = ops.flash_attention(*x, **kw)
+                want = ref.attention_ref(*[t.float() for t in x], **kw)
+                torch.cuda.synchronize()
+                errs[f"B{B}/S{S}/{str(dtype)[6:]}/causal{causal}/w{window}/cap{softcap}"] = \
+                    close(got, want, dtype)
+
+    def timed(B, S, iters, plain_iters):
+        x = [t.to(torch.bfloat16) for t in inputs(B, S)]
+        ms = time_ms(lambda: ops.flash_attention(*x), iters=iters)
+        ms = (ms, event_ms(lambda: ops.flash_attention(*x), iters=iters))
+        plain_ms = time_ms(lambda: ref.attention_ref(*x), iters=plain_iters)
+        return x, ms, plain_ms, bound(*_dense_flash_cost(B, H, Hkv, S, D, 2), torch.bfloat16)
+
+    B, S = 2, 1024
+    x, ms, plain_ms, (bound_ms, bound_by) = timed(B, S, 20, 5)
     kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in x[1:])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(x[0], kr, vr, is_causal=True), iters=20)
-    nbytes = 2 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
-    bound_ms, bound_by = bound(nbytes, 4 * B * H * D * S * (S + 1) // 2, torch.bfloat16)
-    return {"name": "flash_attention (dense entry, not on the serving path)",
-            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+    _, s_ms, s_plain_ms, (s_bound_ms, _) = timed(1, 8, 50, 10)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+            **_summary(errs), "ms": ms[0], "event_ms": ms[1], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "shape": "B=2 H=32 Hkv=8 S=1024 D=128 causal bf16", "errs": errs}
+            "timed_at": "B=2 H=32 Hkv=8 S=1024 D=128 causal bf16, (B,S,H,D) views",
+            "serving": {"shape": "B=1 S=8 H=32 Hkv=8 D=128 causal bf16 (the boot prefill)",
+                        "ms": s_ms[0], "event_ms": s_ms[1], "plain_ms": s_plain_ms,
+                        "bound_ms": s_bound_ms},
+            "errs": errs}
+
+
+def _decode_cost(lengths, H, Hkv, D, esize):
+    """Bytes and FLOPs of a dense decode call: q of live rows, every row's
+    output and length, and the visible K/V; QK^T and PV over it."""
+    lens = lengths.tolist()
+    visible = sum(lens)
+    nbytes = (sum(n > 0 for n in lens) * H * D * esize + len(lens) * H * D * esize
+              + 2 * visible * Hkv * D * esize + 4 * len(lens))
+    return nbytes, 4 * visible * H * D
+
+
+def check_dense_decode(gen, dev):
+    """The slot pool's decode at the shapes the serving run gives it: the
+    pool round at B=4 (lengths 1000/517/0/33, one dead row; timed) and the
+    teacher-forced batch-1 decodes of a prompt (B=1 at lengths 9, 100 and
+    600, 32 splits of which most are empty), all over a 1024-position
+    cache."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    H, Hkv, S, D = 32, 8, 1024, 128
+
+    def inputs(B):
+        return [torch.randn(B, *shape, generator=gen, device=dev)
+                for shape in ((H, D), (S, Hkv, D), (S, Hkv, D))]
+
+    errs = {}
+    pool = torch.tensor([1000, 517, 0, 33], dtype=torch.int32, device=dev)
+    cases = [(pool, inputs(4))] + [
+        (torch.tensor([n], dtype=torch.int32, device=dev), inputs(1)) for n in (9, 100, 600)]
+    for lengths, (q, k, v) in cases:
+        live = lengths > 0
+        for dtype in (torch.float32, torch.bfloat16):
+            for window, softcap in ((None, None), (256, None), (None, 50.0), (256, 50.0)):
+                kw = dict(window=window, softcap=softcap)
+                x = [t.to(dtype) for t in (q, k, v)]
+                got = ops.decode_attention(*x, lengths, **kw)
+                want = ref.decode_attention_ref(*[t.float() for t in x], lengths, **kw)
+                torch.cuda.synchronize()
+                errs[f"len{lengths.tolist()}/{str(dtype)[6:]}/w{window}/cap{softcap}"] = \
+                    close(got[live], want[live], dtype)
+                assert not got[~live].any(), "dead row must be zeros"
+
+    def timed(lengths, x):
+        ms = (time_ms(lambda: ops.decode_attention(*x, lengths)),
+              event_ms(lambda: ops.decode_attention(*x, lengths)))
+        plain_ms = time_ms(lambda: ref.decode_attention_ref(*x, lengths), iters=10)
+        return ms, plain_ms, bound(*_decode_cost(lengths, H, Hkv, D, 2), torch.bfloat16)
+
+    lengths, x = cases[0][0], [t.to(torch.bfloat16) for t in cases[0][1]]
+    B = len(lengths)
+    ms, plain_ms, (bound_ms, bound_by) = timed(lengths, x)
+    # library yardstick: one SDPA call over the cache expanded to (B, H, S,
+    # D) with a boolean length mask (the expansion is not timed)
+    kd, vd = (t.transpose(1, 2).repeat_interleave(H // Hkv, dim=1) for t in x[1:])
+    mask = (torch.arange(S, device=dev)[None] < lengths[:, None])[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(x[0][:, :, None], kd, vd, attn_mask=mask))
+    one = cases[2][0]
+    s_ms, s_plain_ms, (s_bound_ms, _) = timed(one, [t.to(torch.bfloat16) for t in cases[2][1]])
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+            **_summary(errs), "ms": ms[0], "event_ms": ms[1], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "timed_at": f"B=4 H=32 Hkv=8 S=1024 D=128 lengths=[1000,517,0,33] bf16 "
+                        f"n_splits={ops.n_splits(B, Hkv, S)}",
+            "serving": {"shape": f"B=1 H=32 Hkv=8 S=1024 D=128 length=100 bf16 "
+                                 f"n_splits={ops.n_splits(1, Hkv, S)} (a teacher-forced "
+                                 "prompt token)",
+                        "ms": s_ms[0], "event_ms": s_ms[1], "plain_ms": s_plain_ms,
+                        "bound_ms": s_bound_ms},
+            "errs": errs}
+
+
+def _scan_cost(B, S, H, P, N, L, esize, h0=True):
+    """Bytes and FLOPs of the chunked scan: xbar read and y written,
+    loga (f32), B and C, h0 read (if given) and the final state written
+    (f32); the
+    causal (lower-triangular) C.B^T and att.xbar products, the C.h and the
+    state-update products, per chunk and head."""
+    nbytes = 2 * B * S * H * P * esize + 4 * B * S * H + 2 * B * S * N * esize \
+        + (2 if h0 else 1) * 4 * B * H * N * P
+    flops = 0
+    for c in range(-(-S // L)):
+        n = min(L, S - c * L)
+        tri = n * (n + 1) // 2
+        flops += B * H * (2 * tri * N + 2 * tri * P + 4 * n * N * P)
+    return nbytes, flops
+
+
+def check_mamba_scan(gen, dev):
+    """The scan at the serving run's boot prefill (B=1, 8 tokens and a
+    shorter 5-token prompt: one chunk of L=S, no initial state), at the
+    full-width 2048-token prefill's shape (64 heads of 128, N=16, L=128, 16
+    chunks; timed), and at a ragged tail and short chunks with a state to
+    continue from."""
+    from repro_torch.kernels.mamba_scan import ops, ref
+
+    def inputs(B, S, H, P, N):
+        return ((torch.randn(B, S, H, P, generator=gen, device=dev) * 0.5),
+                -torch.nn.functional.softplus(
+                    torch.randn(B, S, H, generator=gen, device=dev)),
+                torch.randn(B, S, N, generator=gen, device=dev) * 0.5,
+                torch.randn(B, S, N, generator=gen, device=dev) * 0.5,
+                torch.randn(B, H, N, P, generator=gen, device=dev) * 0.1)
+
+    errs = {}
+    for B, S, H, P, N, chunk, with_h0 in (
+            (1, 8, 64, 128, 16, 128, False), (1, 5, 64, 128, 16, 128, False),
+            (1, 2048, 64, 128, 16, 128, True), (2, 300, 8, 128, 16, 128, True),
+            (2, 37, 2, 128, 8, 16, True)):
+        xbar, loga, Bm, Cm, h0 = inputs(B, S, H, P, N)
+        h0 = h0 if with_h0 else None
+        for dtype in (torch.float32, torch.bfloat16):
+            xb, bm, cm = (t.to(dtype) for t in (xbar, Bm, Cm))
+            y, h = ops.mamba_scan(xb, loga, bm, cm, h0, chunk=chunk)
+            wy, wh = ref.mamba_scan_ref(xb.float(), loga, bm.float(), cm.float(), h0,
+                                        chunk=chunk)
+            torch.cuda.synchronize()
+            ey, eh = close(y, wy, dtype), close(h, wh, dtype)
+            errs[f"B{B}/S{S}/H{H}/L{min(chunk, S)}/h0{with_h0}/{str(dtype)[6:]}"] = \
+                [max(ey[0], eh[0]), max(ey[1], eh[1])]
+
+    def timed(S, h0, iters, plain_iters):
+        B, H, P, N, L = 1, 64, 128, 16, 128
+        xbar, loga, Bm, Cm, h = inputs(B, S, H, P, N)
+        h = h if h0 else None
+        xb, bm, cm = (t.to(torch.bfloat16) for t in (xbar, Bm, Cm))
+        ms = (time_ms(lambda: ops.mamba_scan(xb, loga, bm, cm, h, chunk=L), iters=iters),
+              event_ms(lambda: ops.mamba_scan(xb, loga, bm, cm, h, chunk=L), iters=iters))
+        plain_ms = time_ms(lambda: ref.mamba_scan_ref(xb, loga, bm, cm, h, chunk=L),
+                           iters=plain_iters)
+        return ms, plain_ms, bound(*_scan_cost(B, S, H, P, N, L, 2, h0), torch.bfloat16)
+
+    ms, plain_ms, (bound_ms, bound_by) = timed(2048, True, 20, 5)
+    s_ms, s_plain_ms, (s_bound_ms, _) = timed(8, False, 50, 10)
+    return {"name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan/kernel.py:63",
+            **_summary(errs), "ms": ms[0], "event_ms": ms[1], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library": "none: no single PyTorch call computes the SSD scan",
+            "timed_at": "B=1 S=2048 H=64 P=128 N=16 L=128 bf16 with h0 (16 chunks)",
+            "serving": {"shape": "B=1 S=8 H=64 P=128 N=16 L=8 bf16, no h0 (the boot prefill)",
+                        "ms": s_ms[0], "event_ms": s_ms[1], "plain_ms": s_plain_ms,
+                        "bound_ms": s_bound_ms},
+            "errs": errs}
 
 
 # --------------------------------------------------------------------------
@@ -269,19 +495,25 @@ def _serve(eng, prompts, max_new, max_active=4):
     return {r.req_id: r for r in s.done}, s, wall, ttft
 
 
-def _reset_launches():
+def _wrappers():
+    from repro_torch.kernels.decode_attention import ops as dd
     from repro_torch.kernels.flash_attention import ops as f
+    from repro_torch.kernels.mamba_scan import ops as m
     from repro_torch.kernels.paged_decode import ops as d
-    for fn in (d.paged_decode_attention, f.paged_flash_attention, f.flash_attention):
+    return {"paged_decode_attention": d.paged_decode_attention,
+            "paged_flash_attention": f.paged_flash_attention,
+            "flash_attention": f.flash_attention,
+            "decode_attention": dd.decode_attention,
+            "mamba_scan": m.mamba_scan}
+
+
+def _reset_launches():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def _launches():
-    from repro_torch.kernels.flash_attention import ops as f
-    from repro_torch.kernels.paged_decode import ops as d
-    return {"paged_decode_attention": d.paged_decode_attention.launches,
-            "paged_flash_attention": f.paged_flash_attention.launches,
-            "flash_attention": f.flash_attention.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def f32_parity(seed, dev):
@@ -430,10 +662,11 @@ def serve_bf16(seed, dev, out):
             "launches": launches, "profile": profile}, launches
 
 
-def _profile(cfg, params, prompts, dev, out):
-    """Device time by kernel over a short non-speculative serve (4
-    requests, 16 new tokens each): the device's busy share of the wall
-    time, and the kernels that take it (full table under ``--out``)."""
+def _profile(cfg, params, prompts, dev, out, fname="profile_bf16.txt", max_new=16):
+    """Device time by kernel over a short non-speculative serve of
+    ``prompts`` (``max_new`` new tokens each): the device's busy share of
+    the wall time, and the kernels that take it (full table under
+    ``--out``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.lm import LM
@@ -441,14 +674,14 @@ def _profile(cfg, params, prompts, dev, out):
     eng = RealEngine(cfg, LM(cfg, dev), params, max_len=1024, device=dev)
     _serve(eng, prompts[:1], 2)                               # warm-up
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, s, wall, _ = _serve(eng, prompts, 16)
+        _, s, wall, _ = _serve(eng, prompts, max_new)
     # device-side events only: a CPU op also reports the time of the
     # kernels it launched, which would count them twice
     rows = sorted(((e.self_device_time_total, e.key, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   reverse=True)
-    _write(out, "profile_bf16.txt", "\n".join(
+    _write(out, fname, "\n".join(
         f"{us / 1e3:12.3f} ms {n:8d}x  {k}" for us, k, n in rows))
     busy = sum(us for us, _, _ in rows) / 1e6
     return {"wall_s": wall, "device_busy_s": busy,
@@ -456,6 +689,180 @@ def _profile(cfg, params, prompts, dev, out):
             "decode_calls": s.metrics["decode_calls"],
             "prefill_dispatches": eng.prefill_dispatches,
             "top": [[k, us / 1e3, n] for us, k, n in rows[:12]]}
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+JAMBA_CUT = ["n_layers 32 -> 8: one repeat of the 8-layer pattern (1 attention, "
+             "7 Mamba, 4 MoE and 4 dense FFNs at full width); 32 layers are "
+             "~104 GB in bf16 and do not fit in 80 GB"]
+
+
+def _jamba(**kw):
+    from repro_torch import configs
+    cfg = configs.get_config(JAMBA)
+    return dataclasses.replace(cfg, n_layers=len(cfg.pattern), **kw)
+
+
+@torch.inference_mode()
+def jamba_layer_parity(seed, dev):
+    """One Mamba layer (pattern position 0) and the attention layer
+    (position 4) of jamba at full width in float32, on the card and on the
+    CPU (plain versions): ``layer_prefill`` over 8 tokens (the engine's
+    boot prefill) and over 300 tokens, each followed by 4 ``layer_decode``
+    steps; outputs and caches within 2e-4."""
+    from repro_torch.models import lm
+    from repro_torch.params import init_params
+    base = _jamba()
+    cfg = dataclasses.replace(base, n_layers=2, pattern=(base.pattern[0], base.pattern[4]),
+                              dtype="float32", param_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    blocks = [lm._layer_slice(b, 0) for b in params["blocks"]]
+    del params
+    rng = np.random.default_rng(seed)
+    B, max_len, d = 2, 512, cfg.d_model
+    lens = (8, 300)
+    x0 = {S: rng.normal(size=(B, S, d)).astype(np.float32) for S in lens}
+    xs = rng.normal(size=(4, B, 1, d)).astype(np.float32)
+    outs = {}
+    _reset_launches()
+    for name, dv in (("card", dev), ("cpu", torch.device("cpu"))):
+        res = []
+        for spec, p in zip(cfg.pattern, blocks):
+            p = _to(p, dv)
+            for S in lens:
+                x, cache = lm.layer_prefill(cfg, spec, p, torch.from_numpy(x0[S]).to(dv),
+                                            torch.arange(S, device=dv), max_len)
+                res.append((f"{spec.mixer}/S{S}/prefill", x))
+                pos = torch.full((B,), S, dtype=torch.int32, device=dv)
+                for t in range(4):
+                    y = lm.layer_decode(cfg, spec, p, torch.from_numpy(xs[t]).to(dv), pos,
+                                        cache)
+                    res.append((f"{spec.mixer}/S{S}/decode", y))
+                    pos = pos + 1
+                res += [(f"{spec.mixer}/S{S}/cache_{n}", c) for n, c in cache.items()]
+        outs[name] = [(k, v.float().cpu()) for k, v in res]
+        if name == "card":
+            launches = _launches()
+    assert launches["mamba_scan"] == 2 and launches["flash_attention"] == 2
+    assert launches["decode_attention"] == 8
+    errs = {}
+    for (k, a), (_, b) in zip(outs["card"], outs["cpu"]):
+        assert torch.isfinite(a).all(), f"{k}: non-finite"
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4, msg=k)
+        errs[k] = max(errs.get(k, 0.0), (a - b).abs().max().item())
+    return {"phase": "jamba_layer_parity", "config": f"{JAMBA} layers 0 (mamba) and 4 (attn), "
+            "full width, float32", "tokens": list(lens), "decode_steps": 4,
+            "card_launches": launches, "card_vs_cpu_max_abs_err": errs,
+            "tol": "atol=rtol=2e-4"}
+
+
+def _jamba_prompts(seed, vocab, n, lo, hi):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))).tolist()
+            for _ in range(n)]
+
+
+def jamba_f32_parity(seed, dev):
+    """``tests/test_batched_decode.py::test_batched_matches_sequential_recurrent``
+    at full width: the cut jamba in float32 (~53 GB of weights), the slot
+    pool (max_active=2) against sequential ``generate``, 3 prompts of 40
+    tokens, 8 new tokens each."""
+    from repro_torch.models.lm import LM
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import RealEngine, Request
+    cfg = _jamba(dtype="float32", param_dtype="float32")
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    prompts = _jamba_prompts(seed, cfg.vocab, 3, 40, 40)
+    _reset_launches()
+    seq = RealEngine(cfg, LM(cfg, dev), params, max_len=128, device=dev)
+    ref = {i: seq.generate(Request(i, p, max_new=8)).output for i, p in enumerate(prompts)}
+    eng = RealEngine(cfg, LM(cfg, dev), params, max_len=128, device=dev)
+    done, s, wall, _ = _serve(eng, prompts, 8, max_active=2)
+    launches = _launches()
+    out = {i: r.output for i, r in done.items()}
+    assert not eng.paged and out == ref, "slot pool != sequential"
+    assert eng.batched_traces == 1, "pool decode saw more than one shape"
+    assert all(launches[k] > 0 for k in ("decode_attention", "mamba_scan", "flash_attention"))
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    return {"phase": "jamba_f32_parity", "config": f"{JAMBA} float32", "reduced": JAMBA_CUT,
+            "weight_bytes": weights, "init_s": init_s, "pool_equals_sequential": True,
+            "batched_traces": eng.batched_traces, "metrics": s.metrics,
+            "launches": launches, "tokens": out}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def jamba_serve_bf16(seed, dev, out):
+    """The cut jamba in bf16 (~26.5 GB) served from the dense slot pool:
+    8 requests of 64-192 random tokens, 32 new tokens each, 4 slots; then
+    one 2048-token ``LM.prefill`` (the scan at L=128 over 16 chunks)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import RealEngine
+    cfg = _jamba()
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    prompts = _jamba_prompts(seed, cfg.vocab, 8, 64, 192)
+    _reset_launches()
+    eng = RealEngine(cfg, LM(cfg, dev), params, max_len=1024, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    done, s, wall, ttft = _serve(eng, prompts, 32)
+    launches = _launches()
+    gen = sum(len(r.output) for r in done.values())
+    assert not eng.paged and len(done) == len(prompts) and gen == 32 * len(prompts)
+    assert len(ttft) == len(prompts)
+    assert all(launches[k] > 0 for k in ("decode_attention", "mamba_scan", "flash_attention"))
+    prefill = sorted(r.ttft for r in done.values())
+    ttft = sorted(ttft.values())
+    run = {"wall_s": wall, "generated_tokens": gen, "tokens_per_s": gen / wall,
+           "prompt_tokens": sum(len(p) for p in prompts),
+           "ttft_s_mean": sum(ttft) / len(ttft), "ttft_s_max": ttft[-1],
+           "admission_prefill_s_mean": sum(prefill) / len(prefill),
+           "admission_prefill_s_max": prefill[-1],
+           "decode_calls": s.metrics["decode_calls"], "rounds": s.metrics["rounds"],
+           "batched_traces": eng.batched_traces,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "pool_kv_bytes": s.kv_bytes_in_use()}
+    _write(out, "jamba_bf16_tokens.json", json.dumps({i: r.output for i, r in done.items()}))
+    del eng, s, done
+    profile = _profile(cfg, params, prompts[:2], dev, out, "profile_jamba_bf16.txt", 8)
+
+    # one long prompt through the normal prefill entry point
+    model = LM(cfg, dev)
+    tok = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, size=(1, 2048)).astype(np.int32)).to(dev)
+    model.prefill(params, tok[:, :256], max_len=2048)           # warm-up
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, cache = model.prefill(params, tok, max_len=2048)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    long_launches = _launches()
+    assert logits.shape == (1, cfg.padded_vocab) and torch.isfinite(logits[:, :cfg.vocab]).all()
+    assert long_launches["mamba_scan"] == 7 and long_launches["flash_attention"] == 1
+    return {"phase": "jamba_serve_bf16", "config": f"{JAMBA} bf16", "reduced": JAMBA_CUT,
+            "init_s": init_s, "requests": len(prompts),
+            "prompt_lens": [len(p) for p in prompts], "max_new": 32, "max_active": 4,
+            "run": run, "launches": launches, "profile": profile,
+            "prefill_2048": {"seconds": prefill_s, "launches": long_launches,
+                             "tokens_per_s": 2048 / prefill_s}}, launches
 
 
 def main():
@@ -485,22 +892,36 @@ def main():
                     if "Used" in ln]})
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    kernels = [check_paged_decode(gen, dev), check_paged_flash(gen, dev)]
-    dense = check_dense_flash(gen, dev)
+    kernels = [check_paged_decode(gen, dev), check_paged_flash(gen, dev),
+               check_dense_flash(gen, dev), check_dense_decode(gen, dev),
+               check_mamba_scan(gen, dev)]
     emit({"phase": "kernels", "tol": {"float32": "atol=rtol=2e-5",
                                       "bfloat16": "atol=rtol=2e-2 vs f32 plain on bf16 inputs"},
-          "kernels": kernels, "dense_flash": dense})
+          "errs": "per case [max abs error, worst err / (atol + rtol * |plain|)]",
+          "kernels": kernels})
+    _free()
 
+    # the paged pool's path (llama): its launches count the paged kernels
     emit(f32_parity(args.seed, dev))
-    torch.cuda.empty_cache()
+    _free()
+    line, paged_launches = serve_bf16(args.seed, dev, args.out)
+    emit(line)
+    _free()
 
-    line, launches = serve_bf16(args.seed, dev, args.out)
+    # the dense slot pool's path (jamba): the dense decode, the scan and
+    # the flash kernel's dense entry
+    emit(jamba_layer_parity(args.seed, dev))
+    _free()
+    emit(jamba_f32_parity(args.seed, dev))
+    _free()
+    line, dense_launches = jamba_serve_bf16(args.seed, dev, args.out)
     emit(line)
 
     for k in kernels:
         k.pop("errs")
-        k.pop("shape")
-        k["launches"] = launches[k["name"]]
+        k.pop("library", None)
+        path = paged_launches if k["name"].startswith("paged_") else dense_launches
+        k["launches"] = path[k["name"]]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

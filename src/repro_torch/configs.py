@@ -1,12 +1,12 @@
-"""Architecture configs for the port: the attention-family fields of
-``repro/configs/base.py`` (``LayerSpec``, ``ArchConfig``, ``reduced``),
-kept as an own copy so the port never imports JAX.  The port has no
-``use_kernels``: it launches its kernels for every CUDA tensor and runs
-the plain versions for every CPU tensor.
+"""Architecture configs for the port: the attention, MoE and Mamba fields
+of ``repro/configs/base.py`` (``LayerSpec``, ``MoESpec``, ``MambaSpec``,
+``ArchConfig``, ``reduced``), kept as an own copy so the port never
+imports JAX.  The port has no ``use_kernels``: it launches its kernels for
+every CUDA tensor and runs the plain versions for every CPU tensor.
 
-MoE, Mamba, xLSTM and encoder fields arrive with the slices that port
-those families; ``tests/test_torch_common.py`` holds every field here equal
-to the reference config, full and reduced.
+xLSTM and encoder fields arrive with the slices that port those families;
+``tests/test_torch_common.py`` holds every field here equal to the
+reference config, full and reduced.
 """
 from __future__ import annotations
 
@@ -15,8 +15,8 @@ from typing import Optional, Tuple
 
 import torch
 
-MIXERS = ("attn",)
-FFNS = ("dense", "none")
+MIXERS = ("attn", "mamba")
+FFNS = ("dense", "moe", "none")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -39,7 +39,24 @@ class LayerSpec:
         if self.mixer not in MIXERS or self.ffn not in FFNS:
             raise NotImplementedError(
                 f"{self.mixer}/{self.ffn} layers arrive with a later slice "
-                "of the port (dense slot pool, MoE, encoder)")
+                "of the port (xLSTM, encoder)")
+
+
+@dataclass(frozen=True)
+class MoESpec:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared: int = 0           # shared (always-on) experts
+    capacity_factor: float = 1.25  # E/k => lossless (no token drops)
+
+
+@dataclass(frozen=True)
+class MambaSpec:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    chunk: int = 128              # SSD chunk length
 
 
 @dataclass(frozen=True)
@@ -68,6 +85,9 @@ class ArchConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False
 
+    moe: Optional[MoESpec] = None
+    mamba: Optional[MambaSpec] = None
+
     dtype: str = "bfloat16"       # activation/compute dtype
     param_dtype: str = "float32"  # storage dtype (serving casts to dtype)
 
@@ -94,6 +114,10 @@ class ArchConfig:
         return (self.vocab + 127) // 128 * 128
 
     @property
+    def d_inner_mamba(self) -> int:
+        return self.mamba.expand * self.d_model if self.mamba else 0
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
 
@@ -105,13 +129,20 @@ class ArchConfig:
         """Tiny same-family float32 config for CPU tests."""
         pattern = tuple(replace(s, window=8 if s.window is not None else None)
                         for s in self.pattern)
+        kw = {}
+        if self.moe:      # lossless capacity: reproducible smoke tests
+            kw["moe"] = MoESpec(num_experts=4, top_k=2, d_ff_expert=64,
+                                num_shared=min(self.moe.num_shared, 1),
+                                capacity_factor=2.0)
+        if self.mamba:
+            kw["mamba"] = MambaSpec(d_state=8, d_conv=4, expand=2, chunk=16)
         return replace(
             self, name=self.name + "-reduced", n_layers=len(self.pattern),
             d_model=64, n_heads=4,
             n_kv_heads=(min(self.n_kv_heads, 2)
                         if self.n_kv_heads < self.n_heads else 4),
             d_head=16, d_ff=128 if self.d_ff else 0, vocab=512,
-            pattern=pattern, dtype="float32", param_dtype="float32")
+            pattern=pattern, dtype="float32", param_dtype="float32", **kw)
 
 
 _REGISTRY: dict = {}
@@ -141,4 +172,29 @@ register(ArchConfig(
     pattern=(LayerSpec(mixer="attn"),),
     rope_theta=500_000.0,
     source="paper §5.1 testbed (Meta-Llama-3-8B)",
+))
+
+
+def _jamba_pos(i: int) -> LayerSpec:
+    """Attention at position 4 of 8, Mamba elsewhere (1:7); MoE on odd
+    positions, dense FFN on even ones."""
+    return LayerSpec(mixer="attn" if i == 4 else "mamba",
+                     ffn="moe" if i % 2 == 1 else "dense")
+
+
+# Hybrid Mamba + attention with MoE (arXiv:2403.19887).
+register(ArchConfig(
+    name="jamba-v0.1-52b",
+    family="hybrid",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=14336,
+    vocab=65536,
+    pattern=tuple(_jamba_pos(i) for i in range(8)),
+    moe=MoESpec(num_experts=16, top_k=2, d_ff_expert=14336, num_shared=0),
+    mamba=MambaSpec(d_state=16, d_conv=4, expand=2, chunk=128),
+    rope_theta=10_000.0,
+    source="arXiv:2403.19887; hf",
 ))

@@ -1,6 +1,9 @@
 // Blockwise online-softmax attention for Hopper (sm_90a), bound to Python
 // with ctypes.  Two entries share one kernel body:
-//   flash_attention        dense q (B, H, S, D) x k, v (B, Hkv, Skv, D)
+//   flash_attention        dense q (B, H, S, D) x k, v (B, Hkv, Skv, D), any
+//                          strides with unit stride along D (the slot
+//                          pool's prefill passes (B, S, H, D) tensors
+//                          viewed as (B, H, S, D), with no copy)
 //   paged_flash_attention  q (B, Sq, H, D) at positions pos0[b] + i, K/V read
 //                          from the arena (P, BLOCK, Hkv, D) through the
 //                          page table, with a per-row `active` mask
@@ -60,7 +63,9 @@ struct Args {
   int tq;                 // query indices per block (rows = G * tq)
   int causal, window;     // window <= 0: none
   float softcap, scale;
-  long long q_sb, q_ss, q_sh;  // q / o strides (elements) for batch, query, head
+  long long q_sb, q_ss, q_sh;     // q strides (elements) for batch, query, head
+  long long o_sb, o_ss, o_sh;     // o strides
+  long long kv_sb, kv_ss, kv_sh;  // dense k / v strides for batch, key, head
 };
 
 __device__ __forceinline__ float dot4(const float4& a, const float4& b, float s) {
@@ -84,15 +89,19 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
   T* o = static_cast<T*>(a.o);
 
   // row r: query head g*G + r / tq, query index q_lo + r % tq
-  auto qo_off = [&](int r) -> long long {
+  auto q_off = [&](int r) -> long long {
     return (long long)b * a.q_sb + (long long)(q_lo + r % a.tq) * a.q_ss +
            (long long)(g * G + r / a.tq) * a.q_sh;
+  };
+  auto o_off = [&](int r) -> long long {
+    return (long long)b * a.o_sb + (long long)(q_lo + r % a.tq) * a.o_ss +
+           (long long)(g * G + r / a.tq) * a.o_sh;
   };
 
   if (PAGED && a.active != nullptr && a.active[b] == 0) {
     for (int i = tid; i < R * D; i += kThreads) {
       const int r = i / D;
-      if (r % a.tq < q_n) store(o + qo_off(r) + (i - r * D), 0.f);
+      if (r % a.tq < q_n) store(o + o_off(r) + (i - r * D), 0.f);
     }
     return;
   }
@@ -117,13 +126,13 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
   const int t_begin = a.window > 0 ? max(0, lo_pos - a.window + 1) / kBk : 0;
 
   // K/V tile j: rows [j*kBk, j*kBk + rows) of this (row, KV head)
-  const long long row_stride = PAGED ? (long long)a.Hkv * D : D;
+  const long long row_stride = PAGED ? (long long)a.Hkv * D : a.kv_ss;
   auto tile_base = [&](int j) -> long long {
     if (PAGED) {  // a page id past the arena is clamped, as the reference's gather
       const int phys = min(max(a.page_table[(long long)b * a.n_pg + j], 0), a.P - 1);
       return ((long long)phys * kBk * a.Hkv + g) * D;
     }
-    return (((long long)b * a.Hkv + g) * a.Skv + (long long)j * kBk) * D;
+    return (long long)b * a.kv_sb + (long long)g * a.kv_sh + (long long)j * kBk * a.kv_ss;
   };
   auto tile_rows = [&](int j) { return PAGED ? kBk : min(kBk, a.Skv - j * kBk); };
   kv_tile::TileRegs<kMaxVec> regs;
@@ -134,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
   for (int i = tid; i < R4 * D; i += kThreads) {
     const int r = i / D;
     q_s[i] = (r < R && r % a.tq < q_n)
-                 ? to_float(q[qo_off(r) + (i - r * D)]) * a.scale : 0.f;
+                 ? to_float(q[q_off(r) + (i - r * D)]) * a.scale : 0.f;
     acc_s[i] = 0.f;
   }
   for (int i = tid; i < R; i += kThreads) {
@@ -244,7 +253,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
   }
   for (int i = tid; i < R * D; i += kThreads) {
     const int r = i / D;
-    if (r % a.tq < q_n) store(o + qo_off(r) + (i - r * D), acc_s[i] / fmaxf(l_s[r], 1e-20f));
+    if (r % a.tq < q_n) store(o + o_off(r) + (i - r * D), acc_s[i] / fmaxf(l_s[r], 1e-20f));
   }
 }
 
@@ -273,20 +282,25 @@ int dispatch(const Args& a, int B, int dtype, void* stream) {
 
 }  // namespace
 
-// q, o (B, H, S, D); k, v (B, Hkv, Skv, D).  Query i sits at position i and
-// key t at position t.  window <= 0: none; softcap <= 0: none; dtype 0 =
-// float32, 1 = bfloat16.  tq: query indices per block.  The wrapper
-// guarantees D a multiple of 8 and at most 256, and 16-byte aligned rows.
-// Returns cudaGetLastError() after the launch (0 = success).
+// q, o (B, H, S, D); k, v (B, Hkv, Skv, D), with the strides (elements)
+// for batch, position and head given as q_st, o_st and kv_st (k and v share
+// theirs; each tensor's D elements are contiguous).  Query i sits at
+// position i and key t at position t.  window <= 0: none; softcap <= 0:
+// none; dtype 0 = float32, 1 = bfloat16.  tq: query indices per block.  The
+// wrapper guarantees D a multiple of 8 and at most 256, and 16-byte aligned
+// K/V rows.  Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                int H, int Hkv, int S, int Skv, int D, int tq, int causal,
-                               int window, float softcap, float scale, int dtype,
-                               void* stream) {
+                               int window, float softcap, float scale,
+                               const long long* q_st, const long long* o_st,
+                               const long long* kv_st, int dtype, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.H = H; a.Hkv = Hkv; a.D = D; a.Sq = S; a.Skv = Skv; a.n_pg = 0; a.tq = tq;
   a.causal = causal; a.window = window; a.softcap = softcap; a.scale = scale;
-  a.q_sb = (long long)H * S * D; a.q_ss = D; a.q_sh = (long long)S * D;
+  a.q_sb = q_st[0]; a.q_ss = q_st[1]; a.q_sh = q_st[2];
+  a.o_sb = o_st[0]; a.o_ss = o_st[1]; a.o_sh = o_st[2];
+  a.kv_sb = kv_st[0]; a.kv_ss = kv_st[1]; a.kv_sh = kv_st[2];
   return dispatch<false>(a, B, dtype, stream);
 }
 
@@ -306,5 +320,6 @@ extern "C" int paged_flash_attention(const void* q, const void* k, const void* v
   a.H = H; a.Hkv = Hkv; a.D = D; a.Sq = Sq; a.Skv = n_pg * kBk; a.n_pg = n_pg; a.P = P;
   a.tq = tq; a.causal = 1; a.window = window; a.softcap = softcap; a.scale = scale;
   a.q_sb = (long long)Sq * H * D; a.q_ss = (long long)H * D; a.q_sh = D;
+  a.o_sb = a.q_sb; a.o_ss = a.q_ss; a.o_sh = a.q_sh;
   return dispatch<true>(a, B, dtype, stream);
 }

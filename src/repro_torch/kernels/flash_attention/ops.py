@@ -16,7 +16,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_DENSE_ARGS = [_P] * 4 + [_I] * 9 + [_F, _F, _I, _P]
+_STRIDES = ctypes.c_longlong * 3
+_DENSE_ARGS = [_P] * 4 + [_I] * 9 + [_F, _F] \
+    + [ctypes.POINTER(ctypes.c_longlong)] * 3 + [_I, _P]
 _PAGED_ARGS = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -30,7 +32,7 @@ def _query_tile(G: int, Sq: int) -> int:
     return max(1, min(Sq, MAX_ROWS // G))
 
 
-def _check(q, tensors, H, Hkv, D):
+def _check(q, tensors, H, Hkv, D, contiguous=True):
     if q.dtype not in DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16, not {q.dtype}")
     for name, t in tensors.items():
@@ -38,31 +40,41 @@ def _check(q, tensors, H, Hkv, D):
             raise ValueError(f"{name} must match q's dtype and device")
     if H % Hkv or D > MAX_HEAD_DIM or D % 8 or H // Hkv > MAX_ROWS:
         raise ValueError(f"bad heads/dim: H={H} Hkv={Hkv} D={D}")
-    if not all(t.is_contiguous() for t in (q, *tensors.values())):
+    if contiguous and not all(t.is_contiguous() for t in (q, *tensors.values())):
         raise ValueError("flash attention needs contiguous inputs")
-    if any(t.data_ptr() % 16 for t in tensors.values()):
-        raise ValueError("K/V must be 16-byte aligned (16-byte loads)")
+    # K/V rows move as 16-byte loads
+    row = 16 // q.element_size()
+    if any(t.data_ptr() % 16 or any(st % row for st in t.stride()[:-1])
+           for t in tensors.values()):
+        raise ValueError("K/V rows must be 16-byte aligned (16-byte loads)")
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                     scale=None):
-    """q: (B, H, S, D); k, v: (B, Hkv, Skv, D) -> (B, H, S, D)."""
+    """q: (B, H, S, D); k, v: (B, Hkv, Skv, D) -> (B, H, S, D).  Any
+    strides with the D elements of each tensor contiguous (k and v sharing
+    theirs), so (B, S, H, D) tensors can come in as ``transpose(1, 2)``
+    views; the output has q's layout."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if not q.is_cuda:
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap, scale=scale)
     B, H, S, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    _check(q, {"k": k, "v": v}, H, Hkv, D)
+    _check(q, {"k": k, "v": v}, H, Hkv, D, contiguous=False)
     if k.shape != (B, Hkv, Skv, D) or v.shape != k.shape:
         raise ValueError("k / v shape does not match q")
-    out = torch.empty_like(q)
+    if v.stride() != k.stride() or any(t.stride(-1) != 1 for t in (q, k)):
+        raise ValueError("k and v must share strides, each with unit stride along D")
+    out = torch.empty_like(q)      # q's layout where q is a dense permutation
     if out.numel() == 0:
         return out
     fn = _build.function("flash_attention", "flash_attention", _DENSE_ARGS)
+    bsh = lambda t: _STRIDES(t.stride(0), t.stride(2), t.stride(1))  # noqa: E731
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, H, Hkv, S, Skv, D, _query_tile(H // Hkv, S), int(causal),
              window or 0, float(softcap or 0.0), float(scale),
+             bsh(q), bsh(out), bsh(k),
              DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1

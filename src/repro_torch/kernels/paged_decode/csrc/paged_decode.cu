@@ -32,7 +32,6 @@
 
 namespace {
 
-using kv_tile::kNegInf;
 using kv_tile::store;
 using kv_tile::to_float;
 
@@ -57,15 +56,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 
   extern __shared__ float smem[];
-  const int ldk = D + 1;              // padded K rows: the score loop reads
-  float* q_s = smem;                  // k_s down a column without bank conflicts
-  float* k_s = q_s + G * D;           // [blk][D + 1]
-  float* v_s = k_s + blk * ldk;       // [blk][D]
-  float* p_s = v_s + blk * D;         // [G][blk] scores, then probabilities
-  float* acc_s = p_s + G * blk;       // [G][D]
-  float* m_s = acc_s + G * D;         // [G] running max
-  float* l_s = m_s + G;               // [G] running sum
-  float* a_s = l_s + G;               // [G] rescale of this page
+  const kv_tile::DecodeSmem sm = kv_tile::decode_smem(smem, G, D, blk);
 
   const int first = window > 0 ? max(0, len - window) : 0;  // first visible position
   if (first / blk >= n_pg) {  // nothing of the row inside its table
@@ -83,67 +74,18 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   kv_tile::TileRegs<kMaxVec> regs;
   kv_tile::fetch_tile<kMaxVec, kThreads>(regs, k_arena, v_arena, page_base(j_begin), tok_stride,
                                          blk, D);
-  for (int i = tid; i < G * D; i += kThreads) {
-    q_s[i] = to_float(q[row + i]) * scale;
-    acc_s[i] = 0.f;
-  }
-  for (int i = tid; i < G; i += kThreads) {
-    m_s[i] = kNegInf;
-    l_s[i] = 0.f;
-  }
-  const int lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < G * D; i += kThreads) sm.q[i] = to_float(q[row + i]) * scale;
+  kv_tile::decode_state_init<kThreads>(sm, G, D);
 
   for (int j = j_begin; j < j_end; ++j) {
-    kv_tile::stash_tile<kMaxVec, kThreads, T>(regs, k_s, ldk, v_s, D, blk, blk, D);
+    kv_tile::stash_tile<kMaxVec, kThreads, T>(regs, sm.k, sm.ldk, sm.v, D, blk, blk, D);
     __syncthreads();
     if (j + 1 < j_end)  // in flight while this page is computed
       kv_tile::fetch_tile<kMaxVec, kThreads>(regs, k_arena, v_arena, page_base(j + 1),
                                              tok_stride, blk, D);
-    for (int i = tid; i < G * blk; i += kThreads) {
-      const int h = i / blk, t = i - h * blk;
-      const float* qh = q_s + h * D;
-      const float* kt = k_s + t * ldk;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(qh[d], kt[d], s);
-      if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-      const int pos = j * blk + t;
-      p_s[i] = (pos < len && pos >= first) ? s : kNegInf;
-    }
-    __syncthreads();
-    // online softmax: one warp per query head; every visited page holds at
-    // least one visible position, so the running max is finite after it
-    for (int h = warp; h < G; h += kThreads / 32) {
-      float* ph = p_s + h * blk;
-      float mx = kNegInf;
-      for (int t = lane; t < blk; t += 32) mx = fmaxf(mx, ph[t]);
-      for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[h];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < blk; t += 32) {
-        const float p = expf(ph[t] - m_new);
-        ph[t] = p;
-        sum += p;
-      }
-      for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[h] = alpha;
-        l_s[h] = l_s[h] * alpha + sum;
-        m_s[h] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int h = i / D, d = i - h * D;
-      const float* ph = p_s + h * blk;
-      float a = acc_s[i] * a_s[h];
-      for (int t = 0; t < blk; ++t) a = fmaf(ph[t], v_s[t * D + d], a);
-      acc_s[i] = a;
-    }
-    __syncthreads();  // k_s / v_s / p_s are rewritten by the next page
+    kv_tile::decode_tile_step<kThreads>(sm, G, D, blk, blk, j * blk, first, len, softcap);
   }
-  for (int i = tid; i < G * D; i += kThreads) store(o + i, acc_s[i] / l_s[i / D]);
+  for (int i = tid; i < G * D; i += kThreads) store(o + i, sm.acc[i] / sm.l[i / D]);
 }
 
 template <typename T>
@@ -151,9 +93,7 @@ int launch(const void* q, const void* k, const void* v, const void* page_table,
            const void* lengths, void* out, int B, int H, int Hkv, int D, int P, int blk,
            int n_pg, int window, float softcap, float scale, cudaStream_t stream) {
   const int G = H / Hkv;
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * G * D + (size_t)blk * (D + 1) + (size_t)blk * D +
-                       (size_t)G * blk + 3 * (size_t)G);
+  const size_t smem = sizeof(float) * kv_tile::decode_smem_floats(G, D, blk);
   static int smem_set[kv_tile::kMaxDevices] = {};
   const cudaError_t err = kv_tile::raise_smem_limit(paged_decode_kernel<T>, smem, smem_set);
   if (err != cudaSuccess) {

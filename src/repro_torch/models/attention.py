@@ -1,13 +1,13 @@
-"""GQA attention over the paged KV arena (port of the attention-family
-parts of ``repro/models/attention.py``).
+"""GQA attention over the paged KV arena and the dense slot pool (port of
+``repro/models/attention.py``).
 
-The plain versions (``full_attention``, ``decode_attention`` and the page
-gather) keep the reference's numerics, including its ``-2**30`` masks,
-and run for CPU tensors.  For CUDA tensors ``paged_decode_attention`` and
-``paged_prefill_attention`` launch the hand-written kernels
-(``kernels/paged_decode``, ``kernels/flash_attention``); there is no
-fallback.  Arena updates happen **in place** (indexed assignment), where
-the reference returns a new arena.
+Every attention goes through a kernel wrapper (``kernels/*/ops.py``):
+for CUDA tensors the hand-written kernel, with no fallback; for CPU
+tensors its plain version in ``kernels/*/ref.py``, the only CPU version.
+A dead row's output is garbage by contract, as in the reference: the
+kernels write zeros, the decode plain versions the reference's uniform
+average over masked keys.  Cache and arena updates happen **in
+place** (indexed assignment), where the reference returns new arrays.
 """
 from __future__ import annotations
 
@@ -16,12 +16,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import paged_flash_attention
+from repro_torch.kernels.decode_attention.ops import \
+    decode_attention as dense_decode_kernel
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     paged_flash_attention)
 from repro_torch.kernels.paged_decode.ops import \
     paged_decode_attention as paged_decode_kernel
 from repro_torch.models import common
-
-NEG_INF = -2.0 ** 30  # large-but-finite: keeps softmax well-defined in bf16
 
 
 def _scale(cfg) -> float:
@@ -69,63 +70,38 @@ def out_proj(cfg, p, o):
 
 
 # --------------------------------------------------------------------------
-# Plain attention (the reference's numerics)
+# Dense caches (the slot pool): (B, S, nkv, h) per layer
 # --------------------------------------------------------------------------
 
-def _expand_kv(k, n_heads):
-    g = n_heads // k.shape[2]
-    return k if g == 1 else k.repeat_interleave(g, dim=2)
+def full_attention(cfg, q, k, v, window: Optional[int] = None):
+    """Causal self-attention over a whole prompt (positions 0..S-1).  q:
+    (B, S, nq, h); k, v: (B, S, nkv, h) -> (B, S, nq, h), through the
+    dense entry of the flash attention kernel, which reads these layouts
+    through its strides (heads-before-positions views, no copies)."""
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True, window=window,
+                        softcap=cfg.attn_softcap or None, scale=_scale(cfg))
+    return o.transpose(1, 2)
 
 
-def _gqa_scores(q, k, scale, cap):
-    """q: (B, Sq, H, h); k: (B, Skv, H, h) -> (B, H, Sq, Skv) float32."""
-    s = torch.einsum("bqhd,bthd->bhqt", q, k) * scale
-    return common.softcap(s.float(), cap)
+def decode_attention(cfg, q, k_cache, v_cache, lengths):
+    """One-token decode over a dense cache.  q: (B, 1, nq, h); caches: (B,
+    S, nkv, h); lengths: (B,), row b attending to cache slots [0, len) (0 =
+    dead row, output discarded)."""
+    o = dense_decode_kernel(q[:, 0].contiguous(), k_cache, v_cache,
+                            lengths.to(torch.int32).contiguous(),
+                            softcap=cfg.attn_softcap or None,
+                            scale=_scale(cfg))
+    return o[:, None]
 
 
-def _gqa_out(probs, v):
-    return torch.einsum("bhqt,bthd->bqhd", probs, v)
-
-
-def full_attention(cfg, q, k, v, q_positions, kv_positions,
-                   causal: bool = True, window: Optional[int] = None):
-    """q: (B, Sq, nq, h); k, v: (B, Skv, nkv, h); q_positions: (B, Sq) or
-    (Sq,); kv_positions: (B, Skv) or (Skv,).  Unlike the reference it does
-    not chunk over query blocks: it serves chunk-sized queries only."""
-    B, Sq, nq, _ = q.shape
-    k = _expand_kv(k, nq)
-    v = _expand_kv(v, nq)
-    q_positions = q_positions.expand(B, Sq)
-    kv_positions = kv_positions.expand(B, k.shape[1])
-    s = _gqa_scores(q, k, _scale(cfg), cfg.attn_softcap)
-    m = torch.ones(B, Sq, k.shape[1], dtype=torch.bool, device=q.device)
-    if causal:
-        m &= kv_positions[:, None, :] <= q_positions[:, :, None]
-    if window is not None:
-        m &= (q_positions[:, :, None] - kv_positions[:, None, :]) < window
-    s = torch.where(m[:, None], s, NEG_INF)
-    probs = torch.softmax(s, dim=-1).to(v.dtype)
-    return _gqa_out(probs, v)
-
-
-def decode_attention(cfg, q, k_cache, v_cache, kv_positions, pos,
-                     window: Optional[int] = None, active=None):
-    """One-token decode.  q: (B, 1, nq, h); caches: (B, S, nkv, h);
-    kv_positions: (B, S) absolute positions (-1 = empty); pos: (B,);
-    active: optional (B,) bool — a dead row gets a fully masked score row
-    and its output is discarded by the caller."""
-    nq = q.shape[2]
-    kc = _expand_kv(k_cache, nq)
-    vc = _expand_kv(v_cache, nq)
-    s = _gqa_scores(q, kc, _scale(cfg), cfg.attn_softcap)
-    valid = (kv_positions >= 0) & (kv_positions <= pos[:, None])
-    if window is not None:
-        valid &= (pos[:, None] - kv_positions) < window
-    if active is not None:
-        valid &= active[:, None]
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    probs = torch.softmax(s, dim=-1).to(vc.dtype)
-    return _gqa_out(probs, vc)
+def update_cache(k_cache, v_cache, k_new, v_new, slot):
+    """Write (B, 1, nkv, h) new K/V **in place** at per-row cache index
+    ``slot`` (B,)."""
+    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
+    k_cache[rows, slot.long()] = k_new[:, 0]
+    v_cache[rows, slot.long()] = v_new[:, 0]
+    return k_cache, v_cache
 
 
 # --------------------------------------------------------------------------
@@ -133,15 +109,6 @@ def decode_attention(cfg, q, k_cache, v_cache, kv_positions, pos,
 # Physical page 0 is scratch: masked rows write there and it is never read
 # unmasked.
 # --------------------------------------------------------------------------
-
-def gather_pages(arena, page_table):
-    """arena: (P, BLOCK, nkv, h); page_table: (B, n_pg) -> (B, n_pg *
-    BLOCK, nkv, h): logical position j of row b lives at
-    arena[page_table[b, j // BLOCK], j % BLOCK]."""
-    B, n_pg = page_table.shape
-    g = arena[page_table.reshape(-1).long()]
-    return g.reshape(B, n_pg * arena.shape[1], *arena.shape[2:])
-
 
 def update_paged_cache(k_arena, v_arena, k_new, v_new, page_table, pos):
     """Write (B, 1, nkv, h) new K/V **in place** at each row's write page
@@ -183,48 +150,27 @@ def update_paged_cache_window(k_arena, v_arena, k_new, v_new, page_table,
 def paged_decode_attention(cfg, q, k_arena, v_arena, page_table, pos,
                            window: Optional[int] = None, active=None):
     """One-token decode over paged KV.  q: (B, 1, nq, h); arenas: (P,
-    BLOCK, nkv, h); page_table: (B, n_pg) int32; pos: (B,).
-
-    CUDA tensors go through the paged decode kernel, which gathers pages
-    inside the kernel (a dead row's output is zeros); CPU tensors gather
-    the pages and run ``decode_attention``."""
-    if q.is_cuda:
-        lengths = pos + 1 if active is None else torch.where(active, pos + 1, 0)
-        o = paged_decode_kernel(q[:, 0].contiguous(), k_arena, v_arena,
-                                page_table, lengths.to(torch.int32),
-                                window=window, softcap=cfg.attn_softcap or None,
-                                scale=_scale(cfg))
-        return o[:, None]
-    B = q.shape[0]
-    S = page_table.shape[1] * k_arena.shape[1]
-    kv_pos = torch.arange(S, device=q.device).expand(B, S)
-    return decode_attention(cfg, q, gather_pages(k_arena, page_table),
-                            gather_pages(v_arena, page_table), kv_pos, pos,
-                            window=window, active=active)
+    BLOCK, nkv, h); page_table: (B, n_pg) int32; pos: (B,); active:
+    optional (B,) bool (a dead row's output is discarded).  The paged
+    decode kernel gathers the pages itself."""
+    lengths = pos + 1 if active is None else torch.where(active, pos + 1, 0)
+    o = paged_decode_kernel(q[:, 0].contiguous(), k_arena, v_arena,
+                            page_table, lengths.to(torch.int32).contiguous(),
+                            window=window, softcap=cfg.attn_softcap or None,
+                            scale=_scale(cfg))
+    return o[:, None]
 
 
 def paged_prefill_attention(cfg, q, k_arena, v_arena, page_table,
                             q_positions, window: Optional[int] = None,
                             active=None):
     """Causal attention of a query chunk over paged KV (prefill chunks and
-    speculative verify windows): the chunk's own K/V must already be in
-    the arena.  q: (B, C, nq, h); q_positions: (B, C), consecutive per row
+    speculative verify windows), through the paged entry of the flash
+    attention kernel: the chunk's own K/V must already be in the arena.
+    q: (B, C, nq, h); q_positions: (B, C), consecutive per row
     (``q_positions[b, i] == q_positions[b, 0] + i``); active: optional
-    (B,) bool — a dead row's output is zeros.
-
-    CUDA tensors go through the paged entry of the flash attention kernel;
-    CPU tensors gather the pages and run ``full_attention``."""
-    if q.is_cuda:
-        return paged_flash_attention(
-            q.contiguous(), k_arena, v_arena, page_table,
-            q_positions[:, 0].to(torch.int32).contiguous(), active,
-            window=window, softcap=cfg.attn_softcap or None, scale=_scale(cfg))
-    B = q.shape[0]
-    S = page_table.shape[1] * k_arena.shape[1]
-    kv_pos = torch.arange(S, device=q.device).expand(B, S)
-    o = full_attention(cfg, q, gather_pages(k_arena, page_table),
-                       gather_pages(v_arena, page_table), q_positions, kv_pos,
-                       causal=True, window=window)
-    if active is not None:
-        o = torch.where(active[:, None, None, None], o, 0.0)
-    return o
+    (B,) bool — a dead row's output is zeros."""
+    return paged_flash_attention(
+        q.contiguous(), k_arena, v_arena, page_table,
+        q_positions[:, 0].to(torch.int32).contiguous(), active,
+        window=window, softcap=cfg.attn_softcap or None, scale=_scale(cfg))

@@ -1,12 +1,16 @@
-"""Decoder LM over the paged KV pool (port of the attention-family paged
-serving path of ``repro/models/lm.py``).
+"""Decoder LM over the paged KV pool and the dense slot pool (port of the
+serving paths of ``repro/models/lm.py`` for attention, Mamba and MoE
+layers).
 
 Params are the reference's nested dicts: ``cfg.pattern`` positions are a
 tuple in ``params["blocks"]``, each leaf stacked over ``cfg.n_repeats`` on
 axis 0.  The reference's ``lax.scan`` over repeats is a Python loop here.
-The arena keeps the reference layout, a tuple over pattern positions of
-``{"k", "v"}`` tensors ``(R, P, BLOCK, nkv, dh)``, and is updated **in
-place**: each entry point returns the same arena object it was given.
+Paged arenas and dense caches keep the reference layouts, tuples over
+pattern positions of dicts of tensors stacked over repeats: an arena's
+``{"k", "v"}`` are ``(R, P, BLOCK, nkv, dh)``; a dense cache holds, per
+attention layer, ``{"k", "v"}`` of ``(R, B, size, nkv, dh)`` (size =
+window or max_len) and, per Mamba layer, ``{"conv", "h"}``.  Both are
+updated **in place**: each entry point returns the object it was given.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch import require_device
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, mamba, moe
 
 
 def ffn_forward(cfg, p, x):
@@ -29,18 +33,132 @@ def ffn_forward(cfg, p, x):
 def _ffn_block(cfg, spec, p, x):
     if spec.ffn == "none":
         return x
-    h = ffn_forward(cfg, p["ffn"], common.apply_norm(cfg, p["norm2"], x))
+    h = common.apply_norm(cfg, p["norm2"], x)
+    if spec.ffn == "dense":
+        h = ffn_forward(cfg, p["ffn"], h)
+    else:
+        h = moe.moe_ffn(cfg, p["ffn"], h)
     if cfg.double_norm:
         h = common.apply_norm(cfg, p["norm2b"], h)
     return x + h
 
 
-def _mixer_out(cfg, spec, p, x, o):
-    """Output projection, optional post-norm, residual, then the FFN."""
-    h = attention.out_proj(cfg, p["mixer"], o)
+def _residual(cfg, spec, p, x, h):
+    """Optional post-norm of the mixer output, residual, then the FFN."""
     if cfg.double_norm:
         h = common.apply_norm(cfg, p["norm1b"], h)
     return _ffn_block(cfg, spec, p, x + h)
+
+
+def _mixer_out(cfg, spec, p, x, o):
+    """Attention output projection, then ``_residual``."""
+    return _residual(cfg, spec, p, x, attention.out_proj(cfg, p["mixer"], o))
+
+
+# --------------------------------------------------------------------------
+# Dense caches (the slot pool)
+# --------------------------------------------------------------------------
+
+def _cache_size(spec, max_len):
+    return min(spec.window, max_len) if spec.window else max_len
+
+
+def _attn_prefill(cfg, spec, p, x, positions, max_len):
+    """Self-attention over the whole prompt plus its dense cache: the last
+    ``size`` positions' K/V (a ring by position for a windowed layer)."""
+    B, S, _ = x.shape
+    q, k, v = attention.project_qkv(cfg, p, x, positions)
+    out = attention.out_proj(cfg, p, attention.full_attention(
+        cfg, q, k, v, window=spec.window))
+    size = _cache_size(spec, max_len)
+    kc = k.new_zeros((B, size, cfg.n_kv_heads, cfg.d_head))
+    vc = torch.zeros_like(kc)
+    tail = min(S, size)
+    slots = positions[-tail:] % size if spec.window else positions[-tail:]
+    kc[:, slots] = k[:, -tail:]
+    vc[:, slots] = v[:, -tail:]
+    return out, {"k": kc, "v": vc}
+
+
+def layer_prefill(cfg, spec, p, x, positions, max_len):
+    """A whole prompt through one layer.  x: (B, S, d); positions: (S,)
+    = 0..S-1.  Returns (x, the layer's batch-B dense cache)."""
+    h = common.apply_norm(cfg, p["norm1"], x)
+    if spec.mixer == "attn":
+        h, cache = _attn_prefill(cfg, spec, p["mixer"], h, positions, max_len)
+    else:
+        h, cache = mamba.mamba_forward(cfg, p["mixer"], h, return_cache=True)
+    return _residual(cfg, spec, p, x, h), cache
+
+
+def _decode_lengths(spec, pos, size, active):
+    """Valid cache slots per row for the decode kernel.  A windowed ring
+    of ``size`` slots holds positions (pos - size, pos]: every filled slot
+    is inside the window and attention does not depend on key order, so
+    the row attends min(pos + 1, size) slots (the reference's
+    ``_ring_kv_positions`` mask); otherwise slots 0..pos."""
+    lengths = torch.minimum(pos + 1, torch.full_like(pos, size)) \
+        if spec.window else pos + 1
+    return lengths if active is None else torch.where(active, lengths, 0)
+
+
+def layer_decode(cfg, spec, p, x, pos, cache, active=None):
+    """One token per row.  x: (B, 1, d); pos: (B,) absolute position of
+    the new token; cache: the layer's batch-B dense cache, written in
+    place; active: optional (B,) slot-pool mask (a dead row's attention
+    output is discarded; its Mamba state advances, as in the reference, and
+    is overwritten at the next admission)."""
+    h = common.apply_norm(cfg, p["norm1"], x)
+    if spec.mixer == "attn":
+        q, k, v = attention.project_qkv(cfg, p["mixer"], h, pos[:, None])
+        size = cache["k"].shape[1]
+        attention.update_cache(cache["k"], cache["v"], k, v,
+                               pos % size if spec.window else pos)
+        o = attention.decode_attention(
+            cfg, q, cache["k"], cache["v"],
+            _decode_lengths(spec, pos, size, active))
+        h = attention.out_proj(cfg, p["mixer"], o)
+    else:
+        h, new = mamba.mamba_decode(cfg, p["mixer"], h, cache)
+        cache["conv"].copy_(new["conv"])
+        cache["h"].copy_(new["h"])
+    return _residual(cfg, spec, p, x, h)
+
+
+def layer_cache_zeros(cfg, spec, B, max_len, device):
+    if spec.mixer == "attn":
+        shape = (B, _cache_size(spec, max_len), cfg.n_kv_heads, cfg.d_head)
+        return {n: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+                for n in ("k", "v")}
+    return mamba.init_cache(cfg, B, device)
+
+
+def cache_slot_write(pool, single, slot):
+    """Copy a batch-1 cache into batch row ``slot`` of ``pool`` (leaves
+    (R, B, ...)), in place."""
+    for pl, sl in zip(pool, single):
+        for n in pl:
+            pl[n][:, slot] = sl[n][:, 0]
+    return pool
+
+
+def cache_slot_read(pool, slot):
+    """Batch row ``slot`` of ``pool`` as a new batch-1 cache.  A copy, not
+    a view: the pool row is overwritten by the next admission, and the
+    reference's read returns a new array."""
+    return tuple({n: t[:, slot:slot + 1].clone() for n, t in pl.items()}
+                 for pl in pool)
+
+
+def cache_copy(cache):
+    """A new cache with the same contents (a prefix-cache entry is decoded
+    from a copy, so the entry itself never changes)."""
+    return tuple({n: t.clone() for n, t in pl.items()} for pl in cache)
+
+
+# --------------------------------------------------------------------------
+# Paged KV
+# --------------------------------------------------------------------------
 
 
 def layer_decode_paged(cfg, spec, p, x, pos, arena, page_table,
@@ -119,13 +237,15 @@ class LM(nn.Module):
         self.cfg = cfg
         self.device = require_device(device)
 
-    def _layers(self, params, arena):
-        """(spec, layer params, layer arena) in execution order."""
+    def _layers(self, params, state=None):
+        """(spec, layer params, the layer's slice of ``state``) in execution
+        order; ``state`` is an arena or a dense cache (or None)."""
         cfg = self.cfg
         for r in range(cfg.n_repeats):
             for i, spec in enumerate(cfg.pattern):
                 yield (spec, _layer_slice(params["blocks"][i], r),
-                       {"k": arena[i]["k"][r], "v": arena[i]["v"][r]})
+                       None if state is None else
+                       {n: t[r] for n, t in state[i].items()})
 
     def _embed(self, params, tokens):
         cfg = self.cfg
@@ -146,7 +266,45 @@ class LM(nn.Module):
             self.cfg, params["final_norm"], x))
 
     def supports_paging(self) -> bool:
+        """Only attention KV has per-position state to page; recurrent
+        mixers keep the dense slot pool."""
         return all(s.mixer == "attn" for s in self.cfg.pattern)
+
+    # ---------------- dense slot pool ----------------
+    def cache_zeros(self, B, max_len):
+        """A dense cache for ``B`` rows of up to ``max_len`` positions:
+        per pattern position, leaves stacked over repeats (R, B, ...)."""
+        R = self.cfg.n_repeats
+        return tuple({n: torch.stack([t] * R) for n, t in layer_cache_zeros(
+            self.cfg, spec, B, max_len, self.device).items()}
+            for spec in self.cfg.pattern)
+
+    @torch.no_grad()
+    def prefill(self, params, tokens, max_len=None):
+        """A whole prompt, tokens (B, S), from position 0.  Returns the
+        last position's (B, V) logits and a new dense cache sized for
+        ``max_len`` (default S)."""
+        cfg = self.cfg
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=tokens.device)
+        x = self._embed(params, tokens)
+        caches = [[] for _ in cfg.pattern]          # [position][repeat]
+        for i, (spec, p, _) in enumerate(self._layers(params)):
+            x, c = layer_prefill(cfg, spec, p, x, positions, max_len or S)
+            caches[i % len(cfg.pattern)].append(c)
+        cache = tuple({n: torch.stack([c[n] for c in cs]) for n in cs[0]}
+                      for cs in caches)
+        return self._head(params, x[:, -1]), cache
+
+    @torch.no_grad()
+    def decode(self, params, cache, tokens, pos, active=None):
+        """tokens (B, 1), pos (B,) absolute position of the new token ->
+        ((B, V) logits, cache).  ``active``: optional (B,) bool slot-pool
+        mask (dead rows decode too, masked, instead of a new shape)."""
+        x = self._embed(params, tokens)
+        for spec, p, c in self._layers(params, cache):
+            x = layer_decode(self.cfg, spec, p, x, pos, c, active=active)
+        return self._head(params, x[:, -1]), cache
 
     def paged_arena_zeros(self, num_pages, block):
         """Node-wide paged KV arena: per pattern position separate {"k",

@@ -1,0 +1,79 @@
+"""Mixture-of-Experts FFN with sort-based dispatch (port of
+``repro/models/moe.py`` ``moe_ffn``, without the aux loss, which arrives
+with the training slice).
+
+Tokens are cut into G dispatch groups; per group the (token, k) slots are
+stably sorted by expert and written into a dense (E, C, d) buffer, slots
+past an expert's capacity C dropped; the experts run as batched products
+over that buffer, and each slot's output is gathered back, weighted by its
+renormalised gate.  Same numerics as the reference: the router in float32,
+the buffer and the experts in the compute dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.models import common
+
+
+def _n_groups(batch: int, target: int = 16) -> int:
+    """Dispatch groups: the reference's ``gcd(dp_extent or 16, batch)``; on
+    one device there is no data-parallel extent, so ``gcd(16, batch)``."""
+    return math.gcd(target, batch)
+
+
+def _glu(cfg, p, x, eq_in, eq_out):
+    dt = cfg.compute_dtype
+    act = common.act_fn(cfg.act)
+    g = torch.einsum(eq_in, x, p["w_gate"].to(dt))
+    u = torch.einsum(eq_in, x, p["w_up"].to(dt))
+    return torch.einsum(eq_out, act(g) * u, p["w_down"].to(dt))
+
+
+def moe_ffn(cfg, p, x, capacity_factor: Optional[float] = None):
+    """x: (B, S, d) -> (B, S, d)."""
+    m = cfg.moe
+    cf = m.capacity_factor if capacity_factor is None else capacity_factor
+    B, S, d = x.shape
+    T = B * S
+    E, k = m.num_experts, m.top_k
+    dt = cfg.compute_dtype
+    G = _n_groups(B)
+    Tg = T // G
+    C = max(1, math.ceil(Tg * k / E * cf))
+    xt = x.reshape(G, Tg, d)
+    dev = x.device
+
+    probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)  # (G,Tg,E)
+    gate_w, expert_ix = torch.topk(probs, k, dim=-1)                 # (G,Tg,k)
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat_e = expert_ix.reshape(G, Tg * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    tok_of_slot = order // k
+    starts = torch.searchsorted(sorted_e, torch.arange(E, device=dev)
+                                .expand(G, E).contiguous())
+    pos_in_e = torch.arange(Tg * k, device=dev) - torch.gather(starts, 1, sorted_e)
+    keep = pos_in_e < C                                 # capacity drop
+    # dropped slots land in a spare slot C of each expert (no host sync
+    # for a boolean index), which the experts never see
+    pos_c = torch.where(keep, pos_in_e, C)
+    g_ix = torch.arange(G, device=dev)[:, None].expand(G, Tg * k)
+    buf = torch.zeros((G, E, C + 1, d), dtype=dt, device=dev)
+    src = torch.gather(xt, 1, tok_of_slot[..., None].expand(G, Tg * k, d))
+    buf[g_ix, sorted_e, pos_c] = src.to(dt)
+    out_buf = _glu(cfg, p, buf[:, :, :C], "gecd,edf->gecf", "gecf,efd->gecd")
+
+    w_sorted = torch.gather(gate_w.reshape(G, Tg * k), 1, order).to(dt)
+    slot_out = torch.nn.functional.pad(out_buf, (0, 0, 0, 1))[g_ix, sorted_e, pos_c]
+    contrib = slot_out * (w_sorted * keep.to(dt))[..., None]
+    out = torch.zeros((G, Tg, d), dtype=dt, device=dev)
+    out.scatter_add_(1, tok_of_slot[..., None].expand(G, Tg * k, d), contrib)
+    out = out.reshape(T, d)
+    if m.num_shared:
+        out = out + _glu(cfg, p["shared"], x.reshape(T, d).to(dt),
+                         "td,df->tf", "tf,fd->td")
+    return out.reshape(B, S, d)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch import require_device
+from repro_torch.models.mamba import dims
 
 
 def from_jax_params(tree, device="cuda", dtype=None):
@@ -35,23 +36,28 @@ def from_jax_params(tree, device="cuda", dtype=None):
 
 def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
     """Random weights with the reference's init rules: truncated normal in
-    [-2, 2] scaled by 1/sqrt(fan_in) for projections, normal(0.02) for the
-    embedding and LM head, ones for norm scales.  ``generator`` must live
+    [-2, 2] scaled by 1/sqrt(fan_in) for projections (attention, dense and
+    expert FFNs, router, Mamba), normal(0.02) for the embedding and LM
+    head, ones for norm scales.  ``generator`` must live
     on ``device``; ``dtype`` defaults to ``cfg.params_dtype``.  The numbers
     differ from the reference's for the same seed (another generator)."""
     dev = require_device(device)
     dtype = dtype or cfg.params_dtype
     R, d = cfg.n_repeats, cfg.d_model
 
-    def dense(shape, fan_in):
-        """Stacked (R, *shape), one repeat at a time in float32 so a
-        full-width model needs no float32 copy of itself."""
+    def dense(shape, fan_in, per_expert=False):
+        """Stacked (R, *shape), one repeat (``per_expert``: one expert of
+        the leading axis) at a time in float32, so a full-width model never
+        holds a float32 copy of itself."""
         out = torch.empty((R, *shape), dtype=dtype, device=dev)
+        part = shape[1:] if per_expert else shape
         for r in range(R):
-            w = torch.empty(shape, dtype=torch.float32, device=dev)
-            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
-                                        generator=generator)
-            out[r] = w * (1.0 / math.sqrt(max(fan_in, 1)))
+            for e in range(shape[0] if per_expert else 1):
+                w = torch.empty(part, dtype=torch.float32, device=dev)
+                torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                            generator=generator)
+                w *= 1.0 / math.sqrt(max(fan_in, 1))
+                (out[r, e] if per_expert else out[r]).copy_(w)
         return out
 
     def embed():
@@ -66,20 +72,54 @@ def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
             p["bias"] = torch.zeros(shape, dtype=dtype, device=dev)
         return p
 
-    nq, nkv, dh, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
+    def glu(ff, shape=()):
+        return {"w_gate": dense((*shape, d, ff), d, bool(shape)),
+                "w_up": dense((*shape, d, ff), d, bool(shape)),
+                "w_down": dense((*shape, ff, d), ff, bool(shape))}
+
+    def attn():
+        nq, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        return {"wq": dense((d, nq, dh), d), "wk": dense((d, nkv, dh), d),
+                "wv": dense((d, nkv, dh), d), "wo": dense((nq, dh, d), nq * dh)}
+
+    def mamba():
+        """``repro/models/mamba.py`` ``init_mamba``: A = -exp(A_log) with
+        A_log = log(uniform(1, 16)) per head, D ones, dt_bias zeros."""
+        di, N, dc = cfg.d_inner_mamba, cfg.mamba.d_state, cfg.mamba.d_conv
+        H = dims(cfg)[1]
+        a = torch.empty((R, H), dtype=torch.float32, device=dev)
+        a.uniform_(1.0, 16.0, generator=generator)
+        return {"w_in": dense((d, 2 * di), d), "conv": dense((dc, di), dc),
+                "w_dt": dense((di, H), di),
+                "dt_bias": torch.zeros((R, H), dtype=dtype, device=dev),
+                "w_B": dense((di, N), di), "w_C": dense((di, N), di),
+                "A_log": a.log().to(dtype),
+                "D": torch.ones((R, H), dtype=dtype, device=dev),
+                "w_out": dense((di, d), di)}
+
+    def moe():
+        m = cfg.moe
+        p = {"router": dense((d, m.num_experts), d),
+             **glu(m.d_ff_expert, (m.num_experts,))}
+        if m.num_shared:
+            p["shared"] = glu(m.num_shared * m.d_ff_expert)
+        return p
+
     blocks = []
     for spec in cfg.pattern:
         p = {"norm1": norm(),
-             "mixer": {"wq": dense((d, nq, dh), d), "wk": dense((d, nkv, dh), d),
-                       "wv": dense((d, nkv, dh), d),
-                       "wo": dense((nq, dh, d), nq * dh)}}
+             "mixer": mamba() if spec.mixer == "mamba" else attn()}
         if cfg.double_norm:
             p["norm1b"] = norm()
-        if spec.ffn == "dense":
+        if spec.ffn != "none":
             p["norm2"] = norm()
-            p["ffn"] = ({"w_gate": dense((d, ff), d), "w_up": dense((d, ff), d),
-                         "w_down": dense((ff, d), ff)} if cfg.glu else
-                        {"w_in": dense((d, ff), d), "w_out": dense((ff, d), ff)})
+            if spec.ffn == "moe":
+                p["ffn"] = moe()
+            elif cfg.glu:
+                p["ffn"] = glu(cfg.d_ff)
+            else:
+                p["ffn"] = {"w_in": dense((d, cfg.d_ff), d),
+                            "w_out": dense((cfg.d_ff, d), cfg.d_ff)}
             if cfg.double_norm:
                 p["norm2b"] = norm()
         blocks.append(p)

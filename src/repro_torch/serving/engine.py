@@ -1,13 +1,17 @@
-"""Per-node LLM serving engine over the paged KV pool (port of the paged
-path of ``repro/serving/engine.py``).
+"""Per-node LLM serving engine (port of ``repro/serving/engine.py``
+without page export/import, which arrives with the overlay slice).
 
-``RealEngine`` serves a pure-attention model from a node-wide per-layer
-page arena (``models/lm.py`` ``paged_arena_zeros``) plus per-request page
-tables: a prefix-cache hit *aliases* the holder's pages with a refcount
-bump (``serving/page_pool``) instead of copying KV, so admission is
-O(suffix) and KV memory scales with live tokens.  The arena is updated in
-place by every dispatch.  The dense slot pool for recurrent families, and
-page export/import for cross-node migration, arrive with later slices.
+A pure-attention model is served from a node-wide per-layer page arena
+(``models/lm.py`` ``paged_arena_zeros``) plus per-request page tables: a
+prefix-cache hit *aliases* the holder's pages with a refcount bump
+(``serving/page_pool``) instead of copying KV, so admission is O(suffix)
+and KV memory scales with live tokens.  A model with recurrent mixers
+(Mamba), or any model with ``paged=False``, keeps the dense path: a
+request's state is a batch-1 dense cache (``LM.prefill`` / ``LM.decode``),
+admitted by a short boot prefill and a teacher-forced decode per prompt
+token, and the scheduler's pool is one dense cache with a row per slot.
+Arena and caches are updated in place by every dispatch, so a prefix-cache
+entry is decoded from a copy and never changes.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import require_device
+from repro_torch.models.lm import cache_copy
 from repro_torch.serving.page_pool import OutOfPages, PageAllocator, PagedHandle
 from repro_torch.serving.prefix_cache import BLOCK, PrefixCache
 
@@ -85,31 +90,32 @@ class NgramDrafter:
 
 @dataclass
 class PrefillState:
-    """Slot-ready request state positioned at ``pos``: the logits of the
-    last prompt token (a (1, padded_vocab) device tensor) and the
-    request's physical pages (its KV lives in the engine's arena)."""
+    """Slot-ready request state positioned at ``pos`` with the logits of
+    the last prompt token (a (1, padded_vocab) device tensor).  Dense
+    engines carry a batch-1 cache in ``cache``; paged engines carry the
+    request's physical pages in ``pages`` (the KV lives in the arena)."""
     logits: torch.Tensor
     pos: int
     matched: int        # prefix-cache tokens reused
-    pages: list
+    pages: Optional[list] = None
+    cache: object = None
 
 
 class RealEngine:
     def __init__(self, cfg, model, params, cache_bytes: int = 1 << 30,
-                 max_len: int = 1024, num_pages: Optional[int] = None,
-                 device="cuda"):
+                 max_len: int = 1024, paged: Optional[bool] = None,
+                 num_pages: Optional[int] = None, device="cuda"):
         self.device = require_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model on {model.device}, engine on {self.device}")
-        if not model.supports_paging():
-            raise NotImplementedError(
-                f"{cfg.name}: the dense slot pool (recurrent families) "
-                "arrives with a later slice of the port")
         self.cfg = cfg
         self.model = model
         self.params = params
         self.max_len = max_len
         self.prefix_cache = PrefixCache(cache_bytes)
+        # partial-prefix reuse needs a slot per position (attention KV); a
+        # recurrent state summarises the whole stream and cannot be cut
+        self.partial_reuse = all(s.mixer == "attn" for s in cfg.pattern)
         self.batched_traces = 0           # input shapes seen by the pool decode
         self.batched_prefill_traces = 0   # ... by batched admission prefill
         self.prefill_dispatches = 0       # prefill_paged calls issued
@@ -121,8 +127,17 @@ class RealEngine:
         self.spec_accepted = 0    # draft tokens accepted (== model argmax)
         self.spec_draftless_rounds = 0  # rounds served by the one-token
                                         # pool decode (no slot drafted)
-        self.spec = bool(cfg.spec_enabled and cfg.spec_k > 0)
+        self.paged = (model.supports_paging() if paged is None
+                      else bool(paged) and model.supports_paging())
+        # speculation rolls back by position: paged pool only
+        self.spec = bool(self.paged and cfg.spec_enabled and cfg.spec_k > 0)
         self.block = BLOCK
+        # the scheduler (and dispatch-count tests) treat "the one batched
+        # decode" under one name in both modes, as in the reference
+        if not self.paged:
+            self._decode_batched = self._traced("batched_traces",
+                                                model.decode)
+            return
         self.max_pages = -(-max_len // BLOCK)     # table width (ceil)
         # page 0 is scratch; the default arena fits ~16 max_len streams
         self.num_pages = num_pages or (1 + 16 * self.max_pages)
@@ -140,8 +155,6 @@ class RealEngine:
                                                    model.prefill_paged)
         self._verify_paged_batched = self._traced("spec_traces",
                                                   model.verify_paged)
-        # the scheduler (and dispatch-count tests) treat "the one batched
-        # decode" under this name, as in the reference
         self._decode_batched = self._traced("batched_traces",
                                             model.decode_paged)
 
@@ -158,6 +171,11 @@ class RealEngine:
                 setattr(self, counter, getattr(self, counter) + 1)
             return fn(params, arena, *args)
         return call
+
+    @staticmethod
+    def _cache_nbytes(cache) -> int:
+        return sum(t.numel() * t.element_size()
+                   for layer in cache for t in layer.values())
 
     def _query_paged(self, params, arena, pt, tok, pos):
         logits, _ = self.model.decode_paged(params, arena, pt, tok, pos,
@@ -222,9 +240,13 @@ class RealEngine:
     # admission
     # ------------------------------------------------------------------
     def prefill_request(self, req: Request) -> PrefillState:
-        """Paged admission of one request: alias a prefix hit's pages
-        (refcount bump, zero KV bytes move) and chunk-prefill the suffix,
-        one dispatch per BLOCK-token chunk."""
+        """Prefix-cache match + prefill of the uncached suffix, shared by
+        ``generate`` and the scheduler's admission.  Paged engines alias a
+        hit's pages and chunk-prefill the suffix; dense engines boot-prefill
+        up to 8 tokens (or start from a copy of a hit's cache) and decode
+        the rest of the prompt teacher-forced, one token per dispatch."""
+        if not self.paged:
+            return self._prefill_request_dense(req)
         toks = [int(t) for t in req.tokens]
         matched, pages = self._match_and_alias(toks)
         try:
@@ -235,7 +257,37 @@ class RealEngine:
             raise
         if logits_last is None:
             logits_last = self._replay_last_token(toks, pages, pos)
-        return PrefillState(logits_last, pos, matched, pages)
+        return PrefillState(logits_last, pos, matched, pages=pages)
+
+    def _tok(self, t) -> torch.Tensor:
+        return self.to_device(np.array([[t]], np.int32))
+
+    def _pos(self, p) -> torch.Tensor:
+        return self.to_device(np.array([p], np.int32))
+
+    def _prefill_request_dense(self, req: Request) -> PrefillState:
+        toks = [int(t) for t in req.tokens]
+        matched, entry = self.prefix_cache.match(toks)
+        if entry is not None and matched >= 8 and self.partial_reuse:
+            # decoding writes in place: never into the cached entry
+            cache, pos, suffix = cache_copy(entry.handle), matched, toks[matched:]
+        else:
+            matched = 0
+            boot = max(1, min(len(toks), 8))
+            _, cache = self.model.prefill(
+                self.params, self.to_device(np.array([toks[:boot]], np.int32)),
+                max_len=self.max_len)
+            pos, suffix = boot, toks[boot:]
+        logits = None
+        for t in suffix:              # teacher-forced decode of the suffix
+            logits, cache = self.model.decode(self.params, cache,
+                                              self._tok(t), self._pos(pos))
+            pos += 1
+        if logits is None:            # fully cached: replay the last token
+            logits, cache = self.model.decode(self.params, cache,
+                                              self._tok(toks[-1]),
+                                              self._pos(pos - 1))
+        return PrefillState(logits, pos, matched, cache=cache)
 
     def _match_and_alias(self, toks: list) -> tuple[int, list]:
         """Prefix-cache match + zero-copy alias of the hit's pages:
@@ -337,7 +389,7 @@ class RealEngine:
                 r["logits"] = self._replay_last_token(
                     r["toks"], r["pages"], r["pos"])
             out.append(PrefillState(r["logits"], r["pos"], r["matched"],
-                                    r["pages"]))
+                                    pages=r["pages"]))
         return out
 
     # ------------------------------------------------------------------
@@ -345,6 +397,8 @@ class RealEngine:
     # ------------------------------------------------------------------
     def generate(self, req: Request) -> Result:
         """One-slot sequential greedy decode."""
+        if not self.paged:
+            return self._generate_dense(req)
         t0 = time.monotonic()
         st = self.prefill_request(req)
         pages, logits, pos = st.pages, st.logits, st.pos
@@ -368,6 +422,28 @@ class RealEngine:
             self.insert_prefix(full, pages)  # zero-copy (page refs)
         finally:
             self.release_pages(pages)        # request's own reference
+        return Result(req.req_id, out, ttft=ttft,
+                      total=time.monotonic() - t0,
+                      cached_tokens=st.matched,
+                      prompt_tokens=len(req.tokens))
+
+    def _generate_dense(self, req: Request) -> Result:
+        t0 = time.monotonic()
+        st = self.prefill_request(req)
+        cache, logits, pos = st.cache, st.logits, st.pos
+        ttft = time.monotonic() - t0
+        out = []
+        for _ in range(req.max_new):
+            nxt = int(logits[0].argmax())
+            out.append(nxt)
+            if nxt == req.eos_id or pos >= self.max_len - 1:
+                break
+            logits, cache = self.model.decode(self.params, cache,
+                                              self._tok(nxt), self._pos(pos))
+            pos += 1
+        # pos counts exactly the tokens whose state is in the cache
+        full = ([int(t) for t in req.tokens] + out)[:pos]
+        self.prefix_cache.insert(full, cache, self._cache_nbytes(cache))
         return Result(req.req_id, out, ttft=ttft,
                       total=time.monotonic() - t0,
                       cached_tokens=st.matched,

@@ -1,13 +1,18 @@
-"""Continuous-batching scheduler over the paged KV pool (port of the paged
-path of ``repro/serving/scheduler.py``).
+"""Continuous-batching scheduler over the paged KV pool or the dense slot
+pool (port of ``repro/serving/scheduler.py``).
 
-The pool is a host-side ``(max_active, max_pages)`` page-table array over
-the engine's node-wide arena.  Every ``step()`` admits queued requests
-into all free slots through one shared-grid ``prefill_paged`` dispatch
-stream, then issues ONE batched dispatch for the whole pool: the one-token
-decode, or with speculation on, the ``(max_active, spec_k+1)`` verify
-window.  Dead rows are masked onto the scratch page.  Greedy argmax runs on
-the device; each dispatch's tokens cross to the host with one ``.cpu()``.
+With a paged engine the pool is a host-side ``(max_active, max_pages)``
+page-table array over the engine's node-wide arena, and every ``step()``
+admits queued requests into all free slots through one shared-grid
+``prefill_paged`` dispatch stream.  With a dense engine (recurrent mixers,
+or ``paged=False``) the pool is one dense cache ``cache_zeros(max_active,
+max_len)``, allocated once: each admission prefills one request and copies
+its batch-1 cache into a free row, and a finished row is copied out for the
+prefix cache.  Either way a round then issues ONE batched dispatch for the
+whole pool: the one-token decode, or with speculation on (paged only), the
+``(max_active, spec_k+1)`` verify window.  Dead rows are masked.  Greedy
+argmax runs on the device; each dispatch's tokens cross to the host with
+one ``.cpu()``.
 
 Admission prefers the longest prefix-cache match, probed read-only with
 ``PrefixCache.peek`` once at submit time.
@@ -22,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.models.lm import cache_slot_read, cache_slot_write
 from repro_torch.serving.engine import NgramDrafter, RealEngine, Request, Result
 
 
@@ -33,7 +39,7 @@ class _Slot:
     t_start: float = 0.0
     ttft: float = 0.0
     cached_tokens: int = 0
-    pages: list = field(default_factory=list)
+    pages: list = field(default_factory=list)   # paged engines only
     drafter: object = None                      # NgramDrafter (spec mode)
 
 
@@ -61,8 +67,14 @@ class Scheduler:
         # greedy next token of every slot, on the host (the reference keeps
         # the slots' logits and argmaxes them at the start of each round)
         self._next = np.zeros((max_active,), np.int64)
-        # page-table pool: 0 = scratch page (inactive / unallocated)
-        self._ptab = np.zeros((max_active, engine.max_pages), np.int32)
+        if engine.paged:
+            # page-table pool: 0 = scratch page (inactive / unallocated)
+            self._ptab = np.zeros((max_active, engine.max_pages), np.int32)
+            self._cache = None
+        else:
+            # dense pool: one batched cache for the engine's max_len
+            self._ptab = None
+            self._cache = engine.model.cache_zeros(max_active, engine.max_len)
 
     @property
     def active(self) -> list:
@@ -89,6 +101,19 @@ class Scheduler:
         q = self.queue[ix]
         del self.queue[ix]
         return q.req
+
+    def _admit_one(self):
+        """Dense admission of one request into the first free row."""
+        free = next(i for i, s in enumerate(self.slots) if s is None)
+        req = self._pick_request()
+        t0 = time.monotonic()
+        st = self.engine.prefill_request(req)
+        cache_slot_write(self._cache, st.cache, free)
+        self._next[free] = self._argmax([st.logits])[0]
+        self.slots[free] = _Slot(req, st.pos, t_start=t0,
+                                 ttft=time.monotonic() - t0,
+                                 cached_tokens=st.matched)
+        self.metrics["admitted"] += 1
 
     def _admit_batch(self):
         """Drain the queue into every free slot through ONE batched
@@ -128,7 +153,11 @@ class Scheduler:
     def step(self):
         """One continuous-batching round: admit into free slots, then ONE
         batched dispatch for every still-active slot."""
-        self._admit_batch()
+        if self.engine.paged:
+            self._admit_batch()
+        else:
+            while self.queue and any(s is None for s in self.slots):
+                self._admit_one()
         active_ix = [i for i, s in enumerate(self.slots) if s is not None]
         if not active_ix:
             return
@@ -173,12 +202,16 @@ class Scheduler:
             tok[i, 0] = nxt[i]
             pos[i] = s.pos
             act[i] = True
-            # the write position may cross into a new block
-            eng.ensure_page_for(s.pages, s.pos)
-            self._ptab[i, :len(s.pages)] = s.pages
-        logits, eng.arena = eng._decode_batched(
-            eng.params, eng.arena, eng.to_device(self._ptab),
-            eng.to_device(tok), eng.to_device(pos), eng.to_device(act))
+            if eng.paged:    # the write position may cross into a new block
+                eng.ensure_page_for(s.pages, s.pos)
+                self._ptab[i, :len(s.pages)] = s.pages
+        args = (eng.to_device(tok), eng.to_device(pos), eng.to_device(act))
+        if eng.paged:
+            logits, eng.arena = eng._decode_batched(
+                eng.params, eng.arena, eng.to_device(self._ptab), *args)
+        else:
+            logits, self._cache = eng._decode_batched(eng.params, self._cache,
+                                                      *args)
         self.metrics["decode_calls"] += 1
         greedy = self._argmax([logits])
         for i in cont:
@@ -266,9 +299,13 @@ class Scheduler:
         # s.pos counts exactly the tokens whose KV is in the slot (the
         # finishing token was appended but never decoded)
         full = ([int(t) for t in s.req.tokens] + s.out)[:s.pos]
-        eng.insert_prefix(full, s.pages)   # by reference, zero copy
-        eng.release_pages(s.pages)
-        self._ptab[i, :] = 0
+        if eng.paged:
+            eng.insert_prefix(full, s.pages)   # by reference, zero copy
+            eng.release_pages(s.pages)
+            self._ptab[i, :] = 0
+        else:                                  # a copy of the pool row
+            kv = cache_slot_read(self._cache, i)
+            eng.prefix_cache.insert(full, kv, eng._cache_nbytes(kv))
         self.done.append(Result(s.req.req_id, s.out, ttft=s.ttft,
                                 total=time.monotonic() - s.t_start,
                                 cached_tokens=s.cached_tokens,
@@ -284,5 +321,9 @@ class Scheduler:
 
     # ------------------------------------------------------------------
     def kv_bytes_in_use(self) -> int:
-        """Physical KV footprint of this pool: the live pages."""
-        return self.engine.live_kv_bytes()
+        """Physical KV footprint of this pool: the live pages of a paged
+        engine; the whole dense pool otherwise (it holds max_active x
+        max_len whatever the occupancy)."""
+        if self.engine.paged:
+            return self.engine.live_kv_bytes()
+        return self.engine._cache_nbytes(self._cache)

@@ -18,7 +18,10 @@ NAME = "gentorrent-llama3-8b"
 
 
 def _pair(kind):
-    jcfg, tcfg = base.get_config(NAME), configs.get_config(NAME)
+    name = NAME
+    if kind.startswith("jamba-"):
+        name, kind = "jamba-v0.1-52b", kind.removeprefix("jamba-")
+    jcfg, tcfg = base.get_config(name), configs.get_config(name)
     if kind == "reduced":
         return jcfg.reduced(), tcfg.reduced()
     if kind == "reduced-2l":
@@ -27,7 +30,8 @@ def _pair(kind):
     return jcfg, tcfg
 
 
-@pytest.mark.parametrize("kind", ["full", "reduced", "reduced-2l"])
+@pytest.mark.parametrize("kind", ["full", "reduced", "reduced-2l",
+                                  "jamba-full", "jamba-reduced"])
 def test_config_fields_equal_reference(kind):
     jcfg, tcfg = _pair(kind)
     for f in dataclasses.fields(tcfg):
@@ -35,9 +39,12 @@ def test_config_fields_equal_reference(kind):
         if f.name == "pattern":
             got = [dataclasses.astuple(s) for s in got]
             want = [(s.mixer, s.window, s.ffn) for s in want]
+        elif f.name in ("moe", "mamba") and want is not None:
+            got, want = dataclasses.astuple(got), dataclasses.astuple(want)
         assert got == want, f.name
     assert tcfg.n_repeats == jcfg.n_repeats
     assert tcfg.padded_vocab == jcfg.padded_vocab
+    assert tcfg.d_inner_mamba == jcfg.d_inner_mamba
     assert tcfg.compute_dtype == configs.torch_dtype(jcfg.dtype)
     assert str(jcfg.compute_dtype) == str(tcfg.compute_dtype).split(".")[1]
 

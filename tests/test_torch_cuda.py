@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-the paged LM and scheduler on the card against the same code on the CPU.
+the paged and dense-pool LM and scheduler on the card against the same
+code on the CPU.
 
 Every test here needs a CUDA card and skips itself from the ``card``
 fixture where torch sees none (the kernels have no CPU mode).  The file
@@ -16,9 +17,13 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dense_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as dense_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.paged_decode import ops as decode_ops  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.mamba_scan import ref as scan_ref  # noqa: E402
 from repro_torch.kernels.paged_decode import ref as decode_ref  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
@@ -127,6 +132,127 @@ def test_flash_kernel_matches_plain(card, dtype, causal, window, softcap):
     want = flash_ref.attention_ref(*[t.float() for t in x], **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [8, 5, 200])
+def test_flash_kernel_reads_strided_views(card, dtype, S):
+    """The slot pool's prefill passes (B, S, H, D) tensors viewed as (B, H,
+    S, D), as models/attention.py full_attention does; S = 8 is the
+    engine's boot prefill.  The output keeps q's layout."""
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(9)
+    q = _randn(rng, 1, S, 32, 128).to(card, dt).transpose(1, 2)
+    k, v = (_randn(rng, 1, S, 8, 128).to(card, dt).transpose(1, 2) for _ in range(2))
+    got = flash_ops.flash_attention(q, k, v)
+    want = flash_ref.attention_ref(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got.float(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [9, 100, 600])
+def test_dense_decode_kernel_at_batch_one(card, dtype, length):
+    """A teacher-forced prompt token: one row of jamba's attention (32 query
+    heads on 8 KV heads) over a 1024-position cache, 32 splits, most of
+    them empty."""
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(13)
+    q = _randn(rng, 1, 32, 128).to(card, dt)
+    k, v = (_randn(rng, 1, 1024, 8, 128).to(card, dt) for _ in range(2))
+    assert dense_ops.n_splits(1, 8, 1024) == 32
+    lengths = torch.tensor([length], dtype=torch.int32, device=card)
+    got = dense_ops.decode_attention(q, k, v, lengths)
+    want = dense_ref.decode_attention_ref(q.float(), k.float(), v.float(), lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1024, 1000])
+@pytest.mark.parametrize("window,softcap", VARIANTS)
+def test_dense_decode_kernel_matches_plain(card, dtype, S, window, softcap):
+    """The slot pool's layout (B, S, Hkv, D), a row longer than the cache
+    is clamped to it, a dead row writes zeros; S = 1000 leaves a ragged
+    last tile."""
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(10)
+    q = _randn(rng, 4, 32, 128).to(card, dt)
+    k, v = (_randn(rng, 4, S, 8, 128).to(card, dt) for _ in range(2))
+    lengths = torch.tensor([S + 24, 517, 0, 33], dtype=torch.int32, device=card)
+    kw = dict(window=window and 8 * window, softcap=softcap)
+    n0 = dense_ops.decode_attention.launches
+    got = dense_ops.decode_attention(q, k, v, lengths, **kw)
+    want = dense_ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                          lengths, **kw)
+    torch.cuda.synchronize()
+    assert dense_ops.decode_attention.launches == n0 + 1
+    live = lengths > 0
+    torch.testing.assert_close(got.float()[live], want[live], **TOL[dtype])
+    assert not got[~live].any()                         # dead row: zeros
+
+
+def test_dense_decode_kernel_one_row_many_splits(card):
+    """One row, one KV head: the most splits, most of them empty."""
+    rng = np.random.default_rng(11)
+    q = _randn(rng, 1, 4, 64).to(card)
+    k, v = (_randn(rng, 1, 2048, 1, 64).to(card) for _ in range(2))
+    assert dense_ops.n_splits(1, 1, 2048) == 64
+    for n in (1, 31, 32, 33, 700, 2048):
+        lengths = torch.tensor([n], dtype=torch.int32, device=card)
+        got = dense_ops.decode_attention(q, k, v, lengths)
+        want = dense_ref.decode_attention_ref(q, k, v, lengths)
+        torch.testing.assert_close(got, want, **TOL["float32"])
+
+
+# (B, S, H, P, N, chunk): the full-width prefill's chunk and head shape,
+# a ragged tail, chunks shorter than 128, a prompt shorter than a chunk,
+# and the engine's boot prefill at full width (8 tokens, one chunk of 8)
+SCAN_SHAPES = [(1, 512, 4, 128, 16, 128), (2, 300, 2, 128, 16, 128),
+               (2, 37, 2, 32, 8, 16), (1, 96, 4, 64, 16, 32),
+               (3, 5, 2, 128, 16, 128), (1, 8, 64, 128, 16, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_mamba_scan_kernel_matches_plain(card, dtype, with_h0, shape):
+    B, S, H, P, N, chunk = shape
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(12)
+    xbar = (_randn(rng, B, S, H, P) * 0.5).to(card, dt)
+    loga = -torch.nn.functional.softplus(_randn(rng, B, S, H)).to(card)
+    Bm, Cm = ((_randn(rng, B, S, N) * 0.5).to(card, dt) for _ in range(2))
+    h0 = (_randn(rng, B, H, N, P) * 0.1).to(card) if with_h0 else None
+    n0 = scan_ops.mamba_scan.launches
+    y, h = scan_ops.mamba_scan(xbar, loga, Bm, Cm, h0, chunk=chunk)
+    wy, wh = scan_ref.mamba_scan_ref(xbar.float(), loga, Bm.float(),
+                                     Cm.float(), h0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert scan_ops.mamba_scan.launches == n0 + 1
+    assert y.dtype == dt and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), wy, **TOL[dtype])
+    torch.testing.assert_close(h, wh, **TOL[dtype])
+
+
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", NAME])
+def test_dense_serving_on_card_matches_cpu(card, name):
+    """The dense slot pool on the card and on the CPU from the same
+    weights: reduced jamba (Mamba scan, dense decode, flash dense entry,
+    MoE) and reduced llama with paged=False give the same tokens."""
+    cfg = configs.get_config(name).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = [[5, 9, 2, 7] * 10, list(range(20)), [3] * 5, list(range(7, 77))]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = RealEngine(cfg, LM(cfg, dev), _to(params, torch.device(dev)),
+                         max_len=128, paged=False, device=dev)
+        s = Scheduler(eng, max_active=3)
+        for i, pr in enumerate(prompts):
+            s.submit(Request(i, pr, max_new=12))
+        outs[dev] = {r.req_id: r.output for r in s.run()}
+    assert outs["cuda"] == outs["cpu"]
 
 
 @pytest.mark.parametrize("window", [None, 8])

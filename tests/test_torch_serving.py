@@ -1,7 +1,9 @@
-"""Port parity on the CPU for paged serving: scenarios of
-``test_paged_kv.py``, ``test_batched_decode.py`` and ``test_spec_decode.py``
-re-run on the JAX engine and on the port's engine with the same weights.
-Tokens and engine counters must be identical."""
+"""Port parity on the CPU for serving: scenarios of ``test_paged_kv.py``,
+``test_batched_decode.py`` and ``test_spec_decode.py`` re-run on the JAX
+engine and on the port's engine with the same weights, on the paged pool
+and on the dense slot pool (``paged=False``, and the hybrid jamba, which
+cannot page).  Tokens, engine counters and scheduler metrics must be
+identical."""
 import dataclasses
 import types
 
@@ -29,10 +31,9 @@ COUNTERS = ("prefill_dispatches", "prefill_tokens", "spec_dispatches",
             "batched_prefill_traces", "spec_traces")
 
 
-@pytest.fixture(scope="module")
-def stacks():
-    jcfg = base.get_config(NAME).reduced()
-    tcfg = configs.get_config(NAME).reduced()
+def _stacks(name):
+    jcfg = base.get_config(name).reduced()
+    tcfg = configs.get_config(name).reduced()
     jparams = build_model(jcfg).init(jax.random.PRNGKey(0))
     tparams = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
 
@@ -55,13 +56,25 @@ def stacks():
     }
 
 
+@pytest.fixture(scope="module")
+def stacks():
+    return _stacks(NAME)
+
+
+@pytest.fixture(scope="module")
+def hybrid_stacks():
+    return _stacks("jamba-v0.1-52b")
+
+
 def _counters(eng, sched=None):
     c = {k: getattr(eng, k) for k in COUNTERS}
-    c["used_pages"] = eng.allocator.used_count
+    c["paged"] = eng.paged
+    if eng.paged:
+        c["used_pages"] = eng.allocator.used_count
+        eng.allocator.check()
     if sched is not None:
-        c["decode_calls"] = sched.metrics["decode_calls"]
-        c["rounds"] = sched.metrics["rounds"]
-    eng.allocator.check()
+        c.update(sched.metrics)
+        c["kv_bytes_in_use"] = sched.kv_bytes_in_use()
     return c
 
 
@@ -167,14 +180,87 @@ def midstream_and_near_max_len(st):
     return out, _counters(eng, s), near, c
 
 
+def dense_generate_vs_paged(st):
+    """test_paged_kv.py::test_paged_generate_matches_dense."""
+    dense = st.engine(max_len=128, paged=False)
+    paged = st.engine(max_len=128)
+    assert paged.paged and not dense.paged
+    outs = []
+    for i, p in enumerate(_prompts(st.cfg.vocab, 5, (20, 40, 36, 33, 64))):
+        rd = dense.generate(st.Request(i, p, max_new=8))
+        rp = paged.generate(st.Request(i, p, max_new=8))
+        assert rd.output == rp.output
+        outs.append((rd.output, rd.cached_tokens))
+    return outs, _counters(dense), _counters(paged)
+
+
+def dense_scheduler_vs_paged(st):
+    """test_paged_kv.py::test_paged_scheduler_matches_dense_scheduler."""
+    prompts = _prompts(st.cfg.vocab, 6, (20, 40, 36, 33, 64))
+    ref, c0 = _serve(st, st.engine(max_len=128, paged=False), prompts, 3, 8)
+    out, c1 = _serve(st, st.engine(max_len=128), prompts, 3, 8)
+    assert out == ref and c0["batched_traces"] == c1["batched_traces"] == 1
+    return out, c0, c1
+
+
+def dense_pool_memory(st):
+    """test_paged_kv.py::test_pool_memory_scales_with_live_tokens."""
+    sd = st.Scheduler(st.engine(max_len=128, paged=False), max_active=4)
+    sp = st.Scheduler(st.engine(max_len=128), max_active=4)
+    for s in (sd, sp):
+        s.submit(st.Request(0, [5] * 20, max_new=4))
+        s.step()                                       # one slot occupied
+    used = (sd.kv_bytes_in_use(), sp.kv_bytes_in_use())
+    assert used[1] < used[0] / 4
+    return used, [r.output for r in sd.run() + sp.run()]
+
+
 SCENARIOS = [batched_vs_sequential, prefix_hit_vs_cold, spec_vs_nonspec,
              spec_draftless_fallback, spec_prefix_hit_and_eos,
-             allocator_pressure, midstream_and_near_max_len]
+             allocator_pressure, midstream_and_near_max_len,
+             dense_generate_vs_paged, dense_scheduler_vs_paged,
+             dense_pool_memory]
+
+
+def recurrent_batched_vs_sequential(st):
+    """test_batched_decode.py::test_batched_matches_sequential_recurrent:
+    the slot pool gives the sequential engine's tokens, and its one pool
+    decode sees one input shape across occupancies."""
+    prompts = [[(11 * i + j) % st.cfg.vocab for j in range(12)]
+               for i in range(3)]
+    seq = st.engine(max_len=64)
+    ref = {i: seq.generate(st.Request(i, p, max_new=5)).output
+           for i, p in enumerate(prompts)}
+    out, c = _serve(st, st.engine(max_len=64), prompts, 2, 5)
+    assert out == ref and c["batched_traces"] == 1 and not c["paged"]
+    return out, c, _counters(seq)
+
+
+def recurrent_long_prompts_and_eos(st):
+    """Prompts past a block and past the Mamba chunk (boot prefill, then a
+    teacher-forced decode per token; a hybrid never reuses a prefix), a
+    short prompt fully covered by the boot, and an eos stop."""
+    prompts = [[(7 * i + 3 * j) % st.cfg.vocab for j in range(n)]
+               for i, n in enumerate((40, 5, 33, 70))]
+    eng = st.engine(max_len=128)
+    first, c = _serve(st, eng, prompts, 3, 6)
+    again, c2 = _serve(st, eng, prompts[:2], 2, 6)
+    eos, c3 = _serve(st, st.engine(max_len=128), prompts[:1], 2, 6,
+                     eos=first[0][2])
+    assert again == {i: first[i] for i in range(2)} and eos[0] == first[0][:3]
+    return first, c, c2, eos, c3
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
 def test_scenario_matches_reference(stacks, scenario):
     assert scenario(stacks["torch"]) == scenario(stacks["jax"])
+
+
+@pytest.mark.parametrize("scenario", [recurrent_batched_vs_sequential,
+                                      recurrent_long_prompts_and_eos],
+                         ids=lambda f: f.__name__)
+def test_hybrid_scenario_matches_reference(hybrid_stacks, scenario):
+    assert scenario(hybrid_stacks["torch"]) == scenario(hybrid_stacks["jax"])
 
 
 def test_step_issues_one_pool_dispatch(stacks):
@@ -202,7 +288,7 @@ def test_step_issues_one_pool_dispatch(stacks):
     assert eng.spec_traces == 1
 
 
-@pytest.mark.parametrize("mixer", ["mamba", "mlstm", "cross_attn"])
+@pytest.mark.parametrize("mixer", ["slstm", "mlstm", "cross_attn"])
 def test_unported_families_raise(mixer):
     with pytest.raises(NotImplementedError, match="later slice"):
         configs.LayerSpec(mixer=mixer)
