@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each against its plain PyTorch version at the serving paths' shapes,
-and drives the port's two serving paths through its scheduler, each at
+and drives the port's three serving paths through its scheduler, each at
 full width:
 
 * the paged KV pool with ``gentorrent-llama3-8b`` (two layers in float32
@@ -13,7 +13,11 @@ full width:
   cut to one repeat of its 8-layer pattern (32 layers, ~104 GB in bf16, do
   not fit in 80 GB): one Mamba and one attention layer, then the whole cut
   model, in float32 against the CPU and for token parity; the cut model in
-  bf16 for the serving numbers; one 2048-token prefill.
+  bf16 for the serving numbers; one 2048-token prefill;
+* the dense slot pool with ``xlstm-1.3b`` (mLSTM + sLSTM) at full width
+  and full depth (48 layers): one mLSTM and one sLSTM layer in float32
+  against the CPU; all 48 layers in float32 for token parity and in bf16
+  for the serving numbers; one 2048-token prefill.
 
 It prints one JSON line per phase.  Every phase must pass: any failure
 ends the run with a nonzero exit.  With no CUDA card it exits nonzero
@@ -43,8 +47,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,         # dense tensor-core bf16
               torch.float32: 67e12}           # fp32 outside the tensor cores
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# mLSTM's h in float32: a ratio whose denominator cancels, which magnifies
+# the different summation order of the kernel's and cuBLAS's sums over the
+# 1024-wide head; held at the JAX kernel test's 2e-4 (test_kernels.py:143)
+MLSTM_TOL_H = {torch.float32: dict(atol=2e-4, rtol=2e-4),
+               torch.bfloat16: TOL[torch.bfloat16]}
 NAME = "gentorrent-llama3-8b"
 JAMBA = "jamba-v0.1-52b"
+XLSTM = "xlstm-1.3b"
 BLK = 32
 
 
@@ -100,11 +110,12 @@ def bound(nbytes, flops, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def close(got, want, dtype):
-    """``assert_close`` at ``TOL[dtype]``; returns the largest absolute
-    error and the worst ratio err / (atol + rtol * |want|), the share of
-    the tolerance the worst element uses (the check fails above 1)."""
-    tol = TOL[dtype]
+def close(got, want, dtype, tol=None):
+    """``assert_close`` at ``tol`` (default ``TOL[dtype]``); returns the
+    largest absolute error and the worst ratio err / (atol + rtol *
+    |want|), the share of the tolerance the worst element uses (the check
+    fails above 1)."""
+    tol = tol or TOL[dtype]
     got = got.float()
     torch.testing.assert_close(got, want, **tol)
     err = (got - want).abs()
@@ -298,7 +309,9 @@ def check_dense_flash(gen, dev):
     kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in x[1:])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(x[0], kr, vr, is_causal=True), iters=20)
-    _, s_ms, s_plain_ms, (s_bound_ms, _) = timed(1, 8, 50, 10)
+    sx, s_ms, s_plain_ms, (s_bound_ms, _) = timed(1, 8, 50, 10)
+    skr, svr = (t.repeat_interleave(H // Hkv, dim=1) for t in sx[1:])
+    s_library_ms = time_ms(lambda: sdpa(sx[0], skr, svr, is_causal=True))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
@@ -307,7 +320,7 @@ def check_dense_flash(gen, dev):
             "timed_at": "B=2 H=32 Hkv=8 S=1024 D=128 causal bf16, (B,S,H,D) views",
             "serving": {"shape": "B=1 S=8 H=32 Hkv=8 D=128 causal bf16 (the boot prefill)",
                         "ms": s_ms[0], "event_ms": s_ms[1], "plain_ms": s_plain_ms,
-                        "bound_ms": s_bound_ms},
+                        "bound_ms": s_bound_ms, "library_ms": s_library_ms},
             "errs": errs}
 
 
@@ -366,8 +379,11 @@ def check_dense_decode(gen, dev):
     mask = (torch.arange(S, device=dev)[None] < lengths[:, None])[:, None, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(x[0][:, :, None], kd, vd, attn_mask=mask))
-    one = cases[2][0]
-    s_ms, s_plain_ms, (s_bound_ms, _) = timed(one, [t.to(torch.bfloat16) for t in cases[2][1]])
+    one, sx = cases[2][0], [t.to(torch.bfloat16) for t in cases[2][1]]
+    s_ms, s_plain_ms, (s_bound_ms, _) = timed(one, sx)
+    skd, svd = (t.transpose(1, 2).repeat_interleave(H // Hkv, dim=1) for t in sx[1:])
+    smask = (torch.arange(S, device=dev)[None] < one[:, None])[:, None, None]
+    s_library_ms = time_ms(lambda: sdpa(sx[0][:, :, None], skd, svd, attn_mask=smask))
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
@@ -379,7 +395,7 @@ def check_dense_decode(gen, dev):
                                  f"n_splits={ops.n_splits(1, Hkv, S)} (a teacher-forced "
                                  "prompt token)",
                         "ms": s_ms[0], "event_ms": s_ms[1], "plain_ms": s_plain_ms,
-                        "bound_ms": s_bound_ms},
+                        "bound_ms": s_bound_ms, "library_ms": s_library_ms},
             "errs": errs}
 
 
@@ -458,6 +474,85 @@ def check_mamba_scan(gen, dev):
             "errs": errs}
 
 
+def _mlstm_cost(B, S, H, dh, L, esize, state=True):
+    """Bytes and FLOPs of the chunkwise mLSTM: q, k, v read and h written,
+    the f32 gates read, the f32 start state read (if given) and the final
+    state written; the causal (lower-triangular) q k^T and att v, and q C
+    and the state update (dh x dh per step), per chunk and head, plus the
+    q n and n products."""
+    st = 4 * B * H * (dh * dh + dh + 1)
+    nbytes = 4 * B * S * H * dh * esize + 2 * 4 * B * S * H + (2 if state else 1) * st
+    flops = 0
+    for c in range(-(-S // L)):
+        n = min(L, S - c * L)
+        tri = n * (n + 1) // 2
+        flops += B * H * (4 * tri * dh + 4 * n * dh * dh + 4 * n * dh)
+    return nbytes, flops
+
+
+def check_mlstm(gen, dev):
+    """The chunkwise mLSTM at xlstm-1.3b's full width (H=4, dh=1024, L=64):
+    a 2048-token prefill with a start state (timed), the serving run's boot
+    prefill (B=1, 8 tokens, one chunk of L=8, no state; timed), a ragged
+    300-token prompt with a state, two rows of 130 tokens, and the reduced
+    model's width (dh=32, chunks of 16)."""
+    from repro_torch.kernels.mlstm import ops, ref
+
+    def inputs(B, S, H, dh, state):
+        q = torch.randn(B, S, H, dh, generator=gen, device=dev) / dh ** 0.5
+        k, v = (torch.randn(B, S, H, dh, generator=gen, device=dev) for _ in range(2))
+        log_i = torch.randn(B, S, H, generator=gen, device=dev) * 2
+        log_f = torch.nn.functional.logsigmoid(
+            torch.randn(B, S, H, generator=gen, device=dev) + 4)
+        st = None
+        if state:
+            st = (torch.randn(B, H, dh, dh, generator=gen, device=dev) * 0.1,
+                  torch.randn(B, H, dh, generator=gen, device=dev) * 0.1,
+                  torch.randn(B, H, generator=gen, device=dev))
+        return q, k, v, log_i, log_f, st
+
+    errs = {}
+    for B, S, H, dh, chunk, with_state in (
+            (1, 2048, 4, 1024, 64, True), (1, 8, 4, 1024, 64, False),
+            (1, 300, 4, 1024, 64, True), (2, 130, 4, 1024, 64, False),
+            (2, 37, 2, 32, 16, True)):
+        q, k, v, log_i, log_f, st = inputs(B, S, H, dh, with_state)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [t.to(dtype) for t in (q, k, v)]
+            h, fin = ops.mlstm_chunkwise(*x, log_i, log_f, st, chunk=chunk)
+            wh, wfin = ref.mlstm_ref(*[t.float() for t in x], log_i, log_f, st, chunk=chunk)
+            torch.cuda.synchronize()
+            e = [close(h, wh, dtype, MLSTM_TOL_H[dtype])] + \
+                [close(a, b, dtype) for a, b in zip(fin, wfin)]
+            errs[f"B{B}/S{S}/H{H}/dh{dh}/L{min(chunk, S)}/state{with_state}/{str(dtype)[6:]}"] = \
+                [max(r[0] for r in e), max(r[1] for r in e)]
+
+    def timed(S, state, iters, plain_iters):
+        B, H, dh, L = 1, 4, 1024, 64
+        q, k, v, log_i, log_f, st = inputs(B, S, H, dh, state)
+        x = [t.to(torch.bfloat16) for t in (q, k, v)]
+        ms = (time_ms(lambda: ops.mlstm_chunkwise(*x, log_i, log_f, st, chunk=L), iters=iters),
+              event_ms(lambda: ops.mlstm_chunkwise(*x, log_i, log_f, st, chunk=L), iters=iters))
+        plain_ms = time_ms(lambda: ref.mlstm_ref(*x, log_i, log_f, st, chunk=L),
+                           iters=plain_iters)
+        return ms, plain_ms, bound(*_mlstm_cost(B, S, H, dh, L, 2, state), torch.bfloat16)
+
+    ms, plain_ms, (bound_ms, bound_by) = timed(2048, True, 10, 3)
+    s_ms, s_plain_ms, (s_bound_ms, s_bound_by) = timed(8, False, 50, 10)
+    return {"name": "mlstm", "route": "cuda",
+            "source": "src/repro_torch/kernels/mlstm/csrc/mlstm.cu",
+            "replaces": "src/repro/kernels/mlstm/kernel.py:106",
+            **_summary(errs), "ms": ms[0], "event_ms": ms[1], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library": "none: no single PyTorch call computes the mLSTM",
+            "timed_at": "B=1 S=2048 H=4 dh=1024 L=64 bf16 with a start state (32 chunks)",
+            "serving": {"shape": "B=1 S=8 H=4 dh=1024 L=8 bf16, no state (the boot prefill)",
+                        "ms": s_ms[0], "event_ms": s_ms[1], "plain_ms": s_plain_ms,
+                        "bound_ms": s_bound_ms, "bound_by": s_bound_by},
+            "tol": "h in float32 at atol=rtol=2e-4 (MLSTM_TOL_H), the state at TOL",
+            "errs": errs}
+
+
 # --------------------------------------------------------------------------
 # serving phases
 # --------------------------------------------------------------------------
@@ -499,12 +594,14 @@ def _wrappers():
     from repro_torch.kernels.decode_attention import ops as dd
     from repro_torch.kernels.flash_attention import ops as f
     from repro_torch.kernels.mamba_scan import ops as m
+    from repro_torch.kernels.mlstm import ops as ml
     from repro_torch.kernels.paged_decode import ops as d
     return {"paged_decode_attention": d.paged_decode_attention,
             "paged_flash_attention": f.paged_flash_attention,
             "flash_attention": f.flash_attention,
             "decode_attention": dd.decode_attention,
-            "mamba_scan": m.mamba_scan}
+            "mamba_scan": m.mamba_scan,
+            "mlstm": ml.mlstm_chunkwise}
 
 
 def _reset_launches():
@@ -760,7 +857,7 @@ def jamba_layer_parity(seed, dev):
             "tol": "atol=rtol=2e-4"}
 
 
-def _jamba_prompts(seed, vocab, n, lo, hi):
+def _random_prompts(seed, vocab, n, lo, hi):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))).tolist()
             for _ in range(n)]
@@ -779,7 +876,7 @@ def jamba_f32_parity(seed, dev):
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
-    prompts = _jamba_prompts(seed, cfg.vocab, 3, 40, 40)
+    prompts = _random_prompts(seed, cfg.vocab, 3, 40, 40)
     _reset_launches()
     seq = RealEngine(cfg, LM(cfg, dev), params, max_len=128, device=dev)
     ref = {i: seq.generate(Request(i, p, max_new=8)).output for i, p in enumerate(prompts)}
@@ -818,7 +915,7 @@ def jamba_serve_bf16(seed, dev, out):
                          dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
-    prompts = _jamba_prompts(seed, cfg.vocab, 8, 64, 192)
+    prompts = _random_prompts(seed, cfg.vocab, 8, 64, 192)
     _reset_launches()
     eng = RealEngine(cfg, LM(cfg, dev), params, max_len=1024, device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -841,7 +938,11 @@ def jamba_serve_bf16(seed, dev, out):
            "pool_kv_bytes": s.kv_bytes_in_use()}
     _write(out, "jamba_bf16_tokens.json", json.dumps({i: r.output for i, r in done.items()}))
     del eng, s, done
-    profile = _profile(cfg, params, prompts[:2], dev, out, "profile_jamba_bf16.txt", 8)
+    # the profiler's post-processing grows with the events: a window of two
+    # prompts cut to 24 tokens (~39 decodes), not the whole 173 and 183
+    # (~349 decodes, ~4 minutes of post-processing on an H100 machine)
+    profile = _profile(cfg, params, [p[:24] for p in prompts[:2]], dev, out,
+                       "profile_jamba_bf16.txt", 8)
 
     # one long prompt through the normal prefill entry point
     model = LM(cfg, dev)
@@ -859,6 +960,166 @@ def jamba_serve_bf16(seed, dev, out):
     assert long_launches["mamba_scan"] == 7 and long_launches["flash_attention"] == 1
     return {"phase": "jamba_serve_bf16", "config": f"{JAMBA} bf16", "reduced": JAMBA_CUT,
             "init_s": init_s, "requests": len(prompts),
+            "prompt_lens": [len(p) for p in prompts], "max_new": 32, "max_active": 4,
+            "run": run, "launches": launches, "profile": profile,
+            "prefill_2048": {"seconds": prefill_s, "launches": long_launches,
+                             "tokens_per_s": 2048 / prefill_s}}, launches
+
+
+def _xlstm(**kw):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(XLSTM), **kw)
+
+
+@torch.inference_mode()
+def xlstm_layer_parity(seed, dev):
+    """One mLSTM layer (pattern position 0) and the sLSTM layer (position
+    7) of xlstm at full width in float32, on the card and on the CPU (plain
+    versions): ``layer_prefill`` over 8 tokens (the engine's boot prefill)
+    and over 300 tokens (four chunks of 64 and a ragged one), each followed
+    by 4 ``layer_decode`` steps; outputs and caches within 2e-4."""
+    from repro_torch.models import lm
+    from repro_torch.params import init_params
+    base = _xlstm()
+    cfg = dataclasses.replace(base, n_layers=2, pattern=(base.pattern[0], base.pattern[7]),
+                              dtype="float32", param_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    blocks = [lm._layer_slice(b, 0) for b in params["blocks"]]
+    del params
+    rng = np.random.default_rng(seed)
+    B, d = 2, cfg.d_model
+    lens = (8, 300)
+    x0 = {S: rng.normal(size=(B, S, d)).astype(np.float32) for S in lens}
+    xs = rng.normal(size=(4, B, 1, d)).astype(np.float32)
+    outs = {}
+    _reset_launches()
+    for name, dv in (("card", dev), ("cpu", torch.device("cpu"))):
+        res = []
+        for spec, p in zip(cfg.pattern, blocks):
+            p = _to(p, dv)
+            for S in lens:
+                x, cache = lm.layer_prefill(cfg, spec, p, torch.from_numpy(x0[S]).to(dv),
+                                            torch.arange(S, device=dv), S + 4)
+                res.append((f"{spec.mixer}/S{S}/prefill", x))
+                pos = torch.full((B,), S, dtype=torch.int32, device=dv)
+                for t in range(4):
+                    y = lm.layer_decode(cfg, spec, p, torch.from_numpy(xs[t]).to(dv), pos,
+                                        cache)
+                    res.append((f"{spec.mixer}/S{S}/decode", y))
+                    pos = pos + 1
+                res += [(f"{spec.mixer}/S{S}/cache_{n}", c) for n, c in cache.items()]
+        outs[name] = [(k, v.float().cpu()) for k, v in res]
+        if name == "card":
+            launches = _launches()
+    assert launches["mlstm"] == 2, launches
+    errs = {}
+    for (k, a), (_, b) in zip(outs["card"], outs["cpu"]):
+        assert torch.isfinite(a).all(), f"{k}: non-finite"
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4, msg=k)
+        errs[k] = max(errs.get(k, 0.0), (a - b).abs().max().item())
+    return {"phase": "xlstm_layer_parity", "config": f"{XLSTM} layers 0 (mlstm) and 7 "
+            "(slstm), full width, float32", "tokens": list(lens), "decode_steps": 4,
+            "card_launches": launches, "card_vs_cpu_max_abs_err": errs,
+            "tol": "atol=rtol=2e-4"}
+
+
+def xlstm_f32_parity(seed, dev):
+    """``tests/test_batched_decode.py::test_batched_matches_sequential_recurrent``
+    for xlstm at full width and depth: all 48 layers in float32 (~11.2 GB
+    of weights), the slot pool (max_active=2) against sequential
+    ``generate``, 3 prompts of 40 tokens, 8 new tokens each."""
+    from repro_torch.models.lm import LM
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import RealEngine, Request
+    cfg = _xlstm(dtype="float32", param_dtype="float32")
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    prompts = _random_prompts(seed, cfg.vocab, 3, 40, 40)
+    _reset_launches()
+    seq = RealEngine(cfg, LM(cfg, dev), params, max_len=128, device=dev)
+    ref = {i: seq.generate(Request(i, p, max_new=8)).output for i, p in enumerate(prompts)}
+    eng = RealEngine(cfg, LM(cfg, dev), params, max_len=128, device=dev)
+    done, s, wall, _ = _serve(eng, prompts, 8, max_active=2)
+    launches = _launches()
+    out = {i: r.output for i, r in done.items()}
+    assert not eng.paged and out == ref, "slot pool != sequential"
+    assert eng.batched_traces == 1, "pool decode saw more than one shape"
+    assert launches["mlstm"] > 0
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    return {"phase": "xlstm_f32_parity", "config": f"{XLSTM} float32, all 48 layers",
+            "reduced": [], "weight_bytes": weights, "init_s": init_s,
+            "pool_equals_sequential": True, "batched_traces": eng.batched_traces,
+            "pool_state_bytes": s.kv_bytes_in_use(), "metrics": s.metrics,
+            "launches": launches, "tokens": out}
+
+
+XLSTM_PROMPTS = (16, 48)       # prompt lengths, jamba's (64, 192) cut
+XLSTM_CUT = ["prompts 64-192 -> 16-48 tokens (jamba's traffic, cut): a teacher-forced "
+             "prompt token is a ~2,400-launch decode, ~0.1 s of host time on an H100 "
+             "machine, so jamba's 1,146 prompt tokens took 125 s to serve"]
+
+
+def xlstm_serve_bf16(seed, dev, out):
+    """xlstm in bf16 (~5.6 GB), all 48 layers, served from the dense slot
+    pool: 8 requests of ``XLSTM_PROMPTS`` random tokens (jamba's traffic
+    with its 64-192 cut to 16-48: ``XLSTM_CUT``), 32 new tokens each, 4
+    slots; then one 2048-token ``LM.prefill`` (the mLSTM kernel over 32
+    chunks in each of the 42 mLSTM layers)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import RealEngine
+    cfg = _xlstm()
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    prompts = _random_prompts(seed, cfg.vocab, 8, *XLSTM_PROMPTS)
+    _reset_launches()
+    eng = RealEngine(cfg, LM(cfg, dev), params, max_len=1024, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    done, s, wall, ttft = _serve(eng, prompts, 32)
+    launches = _launches()
+    gen = sum(len(r.output) for r in done.values())
+    assert not eng.paged and len(done) == len(prompts) and gen == 32 * len(prompts)
+    assert len(ttft) == len(prompts) and launches["mlstm"] > 0
+    prefill = sorted(r.ttft for r in done.values())
+    ttft = sorted(ttft.values())
+    run = {"wall_s": wall, "generated_tokens": gen, "tokens_per_s": gen / wall,
+           "prompt_tokens": sum(len(p) for p in prompts),
+           "ttft_s_mean": sum(ttft) / len(ttft), "ttft_s_max": ttft[-1],
+           "admission_prefill_s_mean": sum(prefill) / len(prefill),
+           "admission_prefill_s_max": prefill[-1],
+           "decode_calls": s.metrics["decode_calls"], "rounds": s.metrics["rounds"],
+           "batched_traces": eng.batched_traces,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "pool_state_bytes": s.kv_bytes_in_use()}
+    _write(out, "xlstm_bf16_tokens.json", json.dumps({i: r.output for i, r in done.items()}))
+    del eng, s, done
+    # a shorter window than jamba's (~19 decodes): a decode here is ~8,400
+    # aten calls, and the profiler's post-processing grows with them
+    profile = _profile(cfg, params, [p[:16] for p in prompts[:2]], dev, out,
+                       "profile_xlstm_bf16.txt", 4)
+
+    # one long prompt through the normal prefill entry point
+    model = LM(cfg, dev)
+    tok = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, size=(1, 2048)).astype(np.int32)).to(dev)
+    model.prefill(params, tok[:, :256], max_len=2048)           # warm-up
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, cache = model.prefill(params, tok, max_len=2048)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    long_launches = _launches()
+    assert logits.shape == (1, cfg.padded_vocab) and torch.isfinite(logits[:, :cfg.vocab]).all()
+    assert long_launches["mlstm"] == cfg.n_repeats * sum(
+        sp.mixer == "mlstm" for sp in cfg.pattern)                # 42
+    return {"phase": "xlstm_serve_bf16", "config": f"{XLSTM} bf16, all 48 layers",
+            "reduced": XLSTM_CUT, "init_s": init_s, "requests": len(prompts),
             "prompt_lens": [len(p) for p in prompts], "max_new": 32, "max_active": 4,
             "run": run, "launches": launches, "profile": profile,
             "prefill_2048": {"seconds": prefill_s, "launches": long_launches,
@@ -894,8 +1155,9 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = [check_paged_decode(gen, dev), check_paged_flash(gen, dev),
                check_dense_flash(gen, dev), check_dense_decode(gen, dev),
-               check_mamba_scan(gen, dev)]
-    emit({"phase": "kernels", "tol": {"float32": "atol=rtol=2e-5",
+               check_mamba_scan(gen, dev), check_mlstm(gen, dev)]
+    emit({"phase": "kernels", "tol": {"float32": "atol=rtol=2e-5; mlstm's h 2e-4 "
+                                                 "(its denominator cancels)",
                                       "bfloat16": "atol=rtol=2e-2 vs f32 plain on bf16 inputs"},
           "errs": "per case [max abs error, worst err / (atol + rtol * |plain|)]",
           "kernels": kernels})
@@ -916,11 +1178,22 @@ def main():
     _free()
     line, dense_launches = jamba_serve_bf16(args.seed, dev, args.out)
     emit(line)
+    _free()
+
+    # the dense slot pool's recurrent path (xlstm): the mLSTM kernel
+    emit(xlstm_layer_parity(args.seed, dev))
+    _free()
+    emit(xlstm_f32_parity(args.seed, dev))
+    _free()
+    line, xlstm_launches = xlstm_serve_bf16(args.seed, dev, args.out)
+    emit(line)
 
     for k in kernels:
         k.pop("errs")
         k.pop("library", None)
-        path = paged_launches if k["name"].startswith("paged_") else dense_launches
+        k.pop("tol", None)
+        path = (paged_launches if k["name"].startswith("paged_") else
+                xlstm_launches if k["name"] == "mlstm" else dense_launches)
         k["launches"] = path[k["name"]]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,12 +1,13 @@
-"""Architecture configs for the port: the attention, MoE and Mamba fields
-of ``repro/configs/base.py`` (``LayerSpec``, ``MoESpec``, ``MambaSpec``,
-``ArchConfig``, ``reduced``), kept as an own copy so the port never
-imports JAX.  The port has no ``use_kernels``: it launches its kernels for
-every CUDA tensor and runs the plain versions for every CPU tensor.
+"""Architecture configs for the port: the attention, MoE, Mamba and xLSTM
+fields of ``repro/configs/base.py`` (``LayerSpec``, ``MoESpec``,
+``MambaSpec``, ``XLSTMSpec``, ``ArchConfig``, ``reduced``), kept as an own
+copy so the port never imports JAX.  The port has no ``use_kernels``: it
+launches its kernels for every CUDA tensor and runs the plain versions for
+every CPU tensor.
 
-xLSTM and encoder fields arrive with the slices that port those families;
-``tests/test_torch_common.py`` holds every field here equal to the
-reference config, full and reduced.
+Encoder fields and the ``cross_attn`` mixer arrive with the slice that
+ports that family; ``tests/test_torch_common.py`` holds every field here
+equal to the reference config, full and reduced.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-MIXERS = ("attn", "mamba")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("dense", "moe", "none")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -39,7 +40,7 @@ class LayerSpec:
         if self.mixer not in MIXERS or self.ffn not in FFNS:
             raise NotImplementedError(
                 f"{self.mixer}/{self.ffn} layers arrive with a later slice "
-                "of the port (xLSTM, encoder)")
+                "of the port (encoder and cross-attention)")
 
 
 @dataclass(frozen=True)
@@ -57,6 +58,13 @@ class MambaSpec:
     d_conv: int = 4
     expand: int = 2
     chunk: int = 128              # SSD chunk length
+
+
+@dataclass(frozen=True)
+class XLSTMSpec:
+    proj_factor_mlstm: float = 2.0
+    proj_factor_slstm: float = 4.0 / 3.0
+    conv_width: int = 4
 
 
 @dataclass(frozen=True)
@@ -87,6 +95,7 @@ class ArchConfig:
 
     moe: Optional[MoESpec] = None
     mamba: Optional[MambaSpec] = None
+    xlstm: Optional[XLSTMSpec] = None
 
     dtype: str = "bfloat16"       # activation/compute dtype
     param_dtype: str = "float32"  # storage dtype (serving casts to dtype)
@@ -197,4 +206,24 @@ register(ArchConfig(
     mamba=MambaSpec(d_state=16, d_conv=4, expand=2, chunk=128),
     rope_theta=10_000.0,
     source="arXiv:2403.19887; hf",
+))
+
+
+# xLSTM[7:1] (arXiv:2405.04517): a repeating 8-layer block of 7 mLSTM
+# layers and one sLSTM layer at position 7, no separate FFN.
+register(ArchConfig(
+    name="xlstm-1.3b",
+    family="ssm",
+    n_layers=48,
+    d_model=2048,
+    n_heads=4,
+    n_kv_heads=4,
+    d_ff=0,
+    vocab=50304,
+    pattern=tuple([LayerSpec(mixer="mlstm", ffn="none")] * 7
+                  + [LayerSpec(mixer="slstm", ffn="none")]),
+    xlstm=XLSTMSpec(proj_factor_mlstm=2.0, proj_factor_slstm=4.0 / 3.0,
+                    conv_width=4),
+    tie_embeddings=True,
+    source="arXiv:2405.04517; unverified",
 ))

@@ -1,6 +1,7 @@
 """Shared model primitives: norms, RoPE, activations, softcap, embedding
 (port of ``repro/models/common.py``; same numerics: norms and RoPE
-angles in float32, half-split rotation, tanh-approximate gelu)."""
+angles in float32, half-split rotation, tanh-approximate gelu), and the
+causal depthwise conv of the Mamba and mLSTM mixers."""
 from __future__ import annotations
 
 import math
@@ -66,3 +67,17 @@ def take_embedding(emb, tokens, scale: bool, dtype=None):
     if scale:
         x = x * math.sqrt(emb.shape[-1])
     return x
+
+
+def depthwise_conv(w, x, init_state=None):
+    """Causal depthwise conv with dc taps (``repro/models/mamba.py``
+    ``_depthwise_conv``, ``xlstm.py`` ``_conv_silu`` before its silu).
+    x: (B, S, di); init_state: (B, dc-1, di) trailing inputs of the
+    previous segment.  Returns the output (B, S, di) and the new trailing
+    state."""
+    dc = w.shape[0]
+    if init_state is None:
+        init_state = x.new_zeros((x.shape[0], dc - 1, x.shape[2]))
+    xp = torch.cat([init_state, x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1]] * w[i][None, None, :] for i in range(dc))
+    return out, xp[:, xp.shape[1] - (dc - 1):]

@@ -1,6 +1,6 @@
 """Decoder LM over the paged KV pool and the dense slot pool (port of the
-serving paths of ``repro/models/lm.py`` for attention, Mamba and MoE
-layers).
+serving paths of ``repro/models/lm.py`` for attention, Mamba, mLSTM, sLSTM
+and MoE layers).
 
 Params are the reference's nested dicts: ``cfg.pattern`` positions are a
 tuple in ``params["blocks"]``, each leaf stacked over ``cfg.n_repeats`` on
@@ -9,16 +9,20 @@ Paged arenas and dense caches keep the reference layouts, tuples over
 pattern positions of dicts of tensors stacked over repeats: an arena's
 ``{"k", "v"}`` are ``(R, P, BLOCK, nkv, dh)``; a dense cache holds, per
 attention layer, ``{"k", "v"}`` of ``(R, B, size, nkv, dh)`` (size =
-window or max_len) and, per Mamba layer, ``{"conv", "h"}``.  Both are
-updated **in place**: each entry point returns the object it was given.
+window or max_len) and, per Mamba layer, ``{"conv", "h"}``, per mLSTM
+layer ``{"C", "n", "m", "conv"}``, per sLSTM layer ``{"h", "c", "n",
+"m"}``.  Both are updated **in place**: each entry point returns the object
+it was given.
 """
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
 
 from repro_torch import require_device
-from repro_torch.models import attention, common, mamba, moe
+from repro_torch.models import attention, common, mamba, moe, xlstm
 
 
 def ffn_forward(cfg, p, x):
@@ -59,6 +63,23 @@ def _mixer_out(cfg, spec, p, x, o):
 # Dense caches (the slot pool)
 # --------------------------------------------------------------------------
 
+class _Recurrent(NamedTuple):
+    """A recurrent mixer's entry points."""
+    forward: Callable   # (cfg, p, x, return_cache=True) -> (out, cache)
+    decode: Callable    # (cfg, p, x, cache) -> (out, new cache)
+    empty: Callable     # (cfg, batch, device) -> a new stream's cache
+
+
+_RECURRENT = {
+    "mamba": _Recurrent(mamba.mamba_forward, mamba.mamba_decode,
+                        mamba.init_cache),
+    "mlstm": _Recurrent(xlstm.mlstm_forward, xlstm.mlstm_decode,
+                        xlstm.empty_mlstm_state),
+    "slstm": _Recurrent(xlstm.slstm_forward, xlstm.slstm_decode,
+                        xlstm.empty_slstm_state),
+}
+
+
 def _cache_size(spec, max_len):
     return min(spec.window, max_len) if spec.window else max_len
 
@@ -87,7 +108,8 @@ def layer_prefill(cfg, spec, p, x, positions, max_len):
     if spec.mixer == "attn":
         h, cache = _attn_prefill(cfg, spec, p["mixer"], h, positions, max_len)
     else:
-        h, cache = mamba.mamba_forward(cfg, p["mixer"], h, return_cache=True)
+        h, cache = _RECURRENT[spec.mixer].forward(cfg, p["mixer"], h,
+                                                  return_cache=True)
     return _residual(cfg, spec, p, x, h), cache
 
 
@@ -106,8 +128,8 @@ def layer_decode(cfg, spec, p, x, pos, cache, active=None):
     """One token per row.  x: (B, 1, d); pos: (B,) absolute position of
     the new token; cache: the layer's batch-B dense cache, written in
     place; active: optional (B,) slot-pool mask (a dead row's attention
-    output is discarded; its Mamba state advances, as in the reference, and
-    is overwritten at the next admission)."""
+    output is discarded; its recurrent state advances, as in the reference,
+    and is overwritten at the next admission)."""
     h = common.apply_norm(cfg, p["norm1"], x)
     if spec.mixer == "attn":
         q, k, v = attention.project_qkv(cfg, p["mixer"], h, pos[:, None])
@@ -119,9 +141,9 @@ def layer_decode(cfg, spec, p, x, pos, cache, active=None):
             _decode_lengths(spec, pos, size, active))
         h = attention.out_proj(cfg, p["mixer"], o)
     else:
-        h, new = mamba.mamba_decode(cfg, p["mixer"], h, cache)
-        cache["conv"].copy_(new["conv"])
-        cache["h"].copy_(new["h"])
+        h, new = _RECURRENT[spec.mixer].decode(cfg, p["mixer"], h, cache)
+        for n, t in cache.items():
+            t.copy_(new[n])
     return _residual(cfg, spec, p, x, h)
 
 
@@ -130,7 +152,7 @@ def layer_cache_zeros(cfg, spec, B, max_len, device):
         shape = (B, _cache_size(spec, max_len), cfg.n_kv_heads, cfg.d_head)
         return {n: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
                 for n in ("k", "v")}
-    return mamba.init_cache(cfg, B, device)
+    return _RECURRENT[spec.mixer].empty(cfg, B, device)
 
 
 def cache_slot_write(pool, single, slot):

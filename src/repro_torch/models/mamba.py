@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.models import common
 
 HEAD_DIM = 128  # SSD head dim P
 
@@ -22,18 +23,6 @@ def dims(cfg):
     di = cfg.d_inner_mamba
     P = min(HEAD_DIM, di)
     return di, di // P, P, cfg.mamba.d_state
-
-
-def _depthwise_conv(w, x, init_state=None):
-    """Causal depthwise conv with dc taps.  x: (B, S, di); init_state: (B,
-    dc-1, di) trailing inputs of the previous segment.  Returns the output
-    (B, S, di) and the new trailing state."""
-    dc = w.shape[0]
-    if init_state is None:
-        init_state = x.new_zeros((x.shape[0], dc - 1, x.shape[2]))
-    xp = torch.cat([init_state, x], dim=1)
-    out = sum(xp[:, i:i + x.shape[1]] * w[i][None, None, :] for i in range(dc))
-    return out, xp[:, xp.shape[1] - (dc - 1):]
 
 
 def _proj_scan_inputs(cfg, p, x):
@@ -77,7 +66,7 @@ def mamba_forward(cfg, p, x, cache=None, return_cache: bool = False):
     (B, dc-1, di), "h": (B, H, N, P) f32} to continue from; with
     ``return_cache`` also returns the new cache."""
     xi, z = _proj_scan_inputs(cfg, p, x)
-    xc, new_conv = _depthwise_conv(
+    xc, new_conv = common.depthwise_conv(
         p["conv"].to(cfg.compute_dtype), xi,
         cache["conv"] if cache is not None else None)
     xbar, loga, Bm, Cm, xh = _ssm_params(cfg, p, F.silu(xc))
@@ -92,8 +81,8 @@ def mamba_forward(cfg, p, x, cache=None, return_cache: bool = False):
 def mamba_decode(cfg, p, x, cache):
     """Single-token decode.  x: (B, 1, d) -> (out, new cache)."""
     xi, z = _proj_scan_inputs(cfg, p, x)
-    xc, new_conv = _depthwise_conv(p["conv"].to(cfg.compute_dtype), xi,
-                                   cache["conv"])
+    xc, new_conv = common.depthwise_conv(p["conv"].to(cfg.compute_dtype), xi,
+                                         cache["conv"])
     xbar, loga, Bm, Cm, xh = _ssm_params(cfg, p, F.silu(xc))
     a = torch.exp(loga[:, 0])                                  # (B, H)
     h = cache["h"] * a[:, :, None, None] + torch.einsum(

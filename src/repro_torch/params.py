@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from repro_torch import require_device
-from repro_torch.models.mamba import dims
+from repro_torch.models import mamba as mamba_model
+from repro_torch.models import xlstm as xlstm_model
 
 
 def from_jax_params(tree, device="cuda", dtype=None):
@@ -37,8 +38,8 @@ def from_jax_params(tree, device="cuda", dtype=None):
 def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
     """Random weights with the reference's init rules: truncated normal in
     [-2, 2] scaled by 1/sqrt(fan_in) for projections (attention, dense and
-    expert FFNs, router, Mamba), normal(0.02) for the embedding and LM
-    head, ones for norm scales.  ``generator`` must live
+    expert FFNs, router, Mamba, xLSTM), normal(0.02) for the embedding and
+    LM head, ones for norm scales.  ``generator`` must live
     on ``device``; ``dtype`` defaults to ``cfg.params_dtype``.  The numbers
     differ from the reference's for the same seed (another generator)."""
     dev = require_device(device)
@@ -86,7 +87,7 @@ def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
         """``repro/models/mamba.py`` ``init_mamba``: A = -exp(A_log) with
         A_log = log(uniform(1, 16)) per head, D ones, dt_bias zeros."""
         di, N, dc = cfg.d_inner_mamba, cfg.mamba.d_state, cfg.mamba.d_conv
-        H = dims(cfg)[1]
+        H = mamba_model.dims(cfg)[1]
         a = torch.empty((R, H), dtype=torch.float32, device=dev)
         a.uniform_(1.0, 16.0, generator=generator)
         return {"w_in": dense((d, 2 * di), d), "conv": dense((dc, di), dc),
@@ -96,6 +97,38 @@ def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
                 "A_log": a.log().to(dtype),
                 "D": torch.ones((R, H), dtype=dtype, device=dev),
                 "w_out": dense((di, d), di)}
+
+    def linspace_heads(H):
+        return torch.linspace(3.0, 6.0, H, device=dev).to(dtype)
+
+    def mlstm():
+        """``repro/models/xlstm.py`` ``init_mlstm``: the forget half of
+        ``if_bias`` is linspace(3, 6) over heads, the input half zeros."""
+        di, H, dh = xlstm_model.mlstm_dims(cfg)
+        cw = cfg.xlstm.conv_width
+        return {"w_up": dense((d, 2 * di), d), "conv": dense((cw, di), cw),
+                "w_q": dense((di, di), di), "w_k": dense((di, di), di),
+                "w_if": dense((di, 2 * H), di),
+                "if_bias": torch.cat([torch.zeros(H, dtype=dtype, device=dev),
+                                      linspace_heads(H)]).repeat(R, 1),
+                "head_norm": torch.ones((R, H, dh), dtype=dtype, device=dev),
+                "w_down": dense((di, d), di)}
+
+    def slstm():
+        """``init_slstm``: bias row 2 (the forget gate) is linspace(3, 6)
+        over heads.  ``ffn_gate`` and ``ffn_up`` are drawn from the same
+        key there (xlstm.py:209-210), so they are equal: drawn once here
+        and copied."""
+        _, H, dh = xlstm_model.slstm_dims(cfg)
+        ff = int(cfg.xlstm.proj_factor_slstm * d)
+        bias = torch.zeros((R, 4, H, dh), dtype=dtype, device=dev)
+        bias[:, 2] = linspace_heads(H)[:, None]
+        gate = dense((d, ff), d)
+        return {"W": dense((d, 4, H, dh), d), "R": dense((4, H, dh, dh), dh),
+                "bias": bias,
+                "head_norm": torch.ones((R, H, dh), dtype=dtype, device=dev),
+                "ffn_gate": gate, "ffn_up": gate.clone(),
+                "ffn_down": dense((ff, d), ff)}
 
     def moe():
         m = cfg.moe
@@ -108,7 +141,8 @@ def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
     blocks = []
     for spec in cfg.pattern:
         p = {"norm1": norm(),
-             "mixer": mamba() if spec.mixer == "mamba" else attn()}
+             "mixer": {"attn": attn, "mamba": mamba, "mlstm": mlstm,
+                       "slstm": slstm}[spec.mixer]()}
         if cfg.double_norm:
             p["norm1b"] = norm()
         if spec.ffn != "none":

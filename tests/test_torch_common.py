@@ -19,8 +19,9 @@ NAME = "gentorrent-llama3-8b"
 
 def _pair(kind):
     name = NAME
-    if kind.startswith("jamba-"):
-        name, kind = "jamba-v0.1-52b", kind.removeprefix("jamba-")
+    for prefix, other in (("jamba-", "jamba-v0.1-52b"), ("xlstm-", "xlstm-1.3b")):
+        if kind.startswith(prefix):
+            name, kind = other, kind.removeprefix(prefix)
     jcfg, tcfg = base.get_config(name), configs.get_config(name)
     if kind == "reduced":
         return jcfg.reduced(), tcfg.reduced()
@@ -31,7 +32,8 @@ def _pair(kind):
 
 
 @pytest.mark.parametrize("kind", ["full", "reduced", "reduced-2l",
-                                  "jamba-full", "jamba-reduced"])
+                                  "jamba-full", "jamba-reduced",
+                                  "xlstm-full", "xlstm-reduced"])
 def test_config_fields_equal_reference(kind):
     jcfg, tcfg = _pair(kind)
     for f in dataclasses.fields(tcfg):
@@ -39,7 +41,7 @@ def test_config_fields_equal_reference(kind):
         if f.name == "pattern":
             got = [dataclasses.astuple(s) for s in got]
             want = [(s.mixer, s.window, s.ffn) for s in want]
-        elif f.name in ("moe", "mamba") and want is not None:
+        elif f.name in ("moe", "mamba", "xlstm") and want is not None:
             got, want = dataclasses.astuple(got), dataclasses.astuple(want)
         assert got == want, f.name
     assert tcfg.n_repeats == jcfg.n_repeats

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-the paged and dense-pool LM and scheduler on the card against the same
-code on the CPU.
+the paged and dense-pool LM and scheduler (llama, jamba, xlstm) on the
+card against the same code on the CPU.
 
 Every test here needs a CUDA card and skips itself from the ``card``
 fixture where torch sees none (the kernels have no CPU mode).  The file
@@ -24,6 +24,8 @@ from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.paged_decode import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan import ref as scan_ref  # noqa: E402
+from repro_torch.kernels.mlstm import ops as mlstm_ops  # noqa: E402
+from repro_torch.kernels.mlstm import ref as mlstm_ref  # noqa: E402
 from repro_torch.kernels.paged_decode import ref as decode_ref  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
@@ -236,11 +238,53 @@ def test_mamba_scan_kernel_matches_plain(card, dtype, with_h0, shape):
     torch.testing.assert_close(h, wh, **TOL[dtype])
 
 
-@pytest.mark.parametrize("name", ["jamba-v0.1-52b", NAME])
+# (B, S, H, dh, chunk): the reduced model's head width over a ragged tail
+# and short chunks, the JAX kernel test's dh = 64, the full width (dh =
+# 1024) over a ragged tail, and the engine's boot prefill at full width
+# (8 tokens, one chunk of 8)
+MLSTM_SHAPES = [(2, 37, 2, 32, 16), (1, 96, 4, 64, 32),
+                (1, 300, 4, 1024, 64), (1, 8, 4, 1024, 64)]
+# h is a ratio whose denominator cancels (|den| down to exp(-m)), which
+# magnifies the different summation order of the kernel's and cuBLAS's
+# sums over dh: in float32, h is held at the JAX kernel test's 2e-4
+# (tests/test_kernels.py:143), the state at TOL
+MLSTM_TOL_H = {"float32": dict(atol=2e-4, rtol=2e-4),
+               "bfloat16": TOL["bfloat16"]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("shape", MLSTM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_mlstm_kernel_matches_plain(card, dtype, with_state, shape):
+    B, S, H, dh, chunk = shape
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(14)
+    q = (_randn(rng, B, S, H, dh) / dh ** 0.5).to(card, dt)    # the model's scale
+    k, v = (_randn(rng, B, S, H, dh).to(card, dt) for _ in range(2))
+    log_i = (_randn(rng, B, S, H) * 2).to(card)
+    log_f = torch.nn.functional.logsigmoid(_randn(rng, B, S, H) + 4).to(card)
+    state = None
+    if with_state:
+        state = ((_randn(rng, B, H, dh, dh) * 0.1).to(card),
+                 (_randn(rng, B, H, dh) * 0.1).to(card), _randn(rng, B, H).to(card))
+    n0 = mlstm_ops.mlstm_chunkwise.launches
+    h, st = mlstm_ops.mlstm_chunkwise(q, k, v, log_i, log_f, state, chunk=chunk)
+    wh, wst = mlstm_ref.mlstm_ref(q.float(), k.float(), v.float(), log_i, log_f,
+                                  state, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mlstm_ops.mlstm_chunkwise.launches == n0 + 1
+    assert h.dtype == dt and all(t.dtype == torch.float32 for t in st)
+    torch.testing.assert_close(h.float(), wh, **MLSTM_TOL_H[dtype])
+    for got, want in zip(st, wst):
+        torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", NAME, "xlstm-1.3b"])
 def test_dense_serving_on_card_matches_cpu(card, name):
     """The dense slot pool on the card and on the CPU from the same
     weights: reduced jamba (Mamba scan, dense decode, flash dense entry,
-    MoE) and reduced llama with paged=False give the same tokens."""
+    MoE), reduced llama with paged=False and reduced xlstm (mLSTM kernel,
+    sLSTM) give the same tokens."""
     cfg = configs.get_config(name).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     prompts = [[5, 9, 2, 7] * 10, list(range(20)), [3] * 5, list(range(7, 77))]

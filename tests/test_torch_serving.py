@@ -1,8 +1,8 @@
 """Port parity on the CPU for serving: scenarios of ``test_paged_kv.py``,
 ``test_batched_decode.py`` and ``test_spec_decode.py`` re-run on the JAX
 engine and on the port's engine with the same weights, on the paged pool
-and on the dense slot pool (``paged=False``, and the hybrid jamba, which
-cannot page).  Tokens, engine counters and scheduler metrics must be
+and on the dense slot pool (``paged=False``, and the recurrent jamba and
+xlstm, which cannot page).  Tokens, engine counters and scheduler metrics must be
 identical."""
 import dataclasses
 import types
@@ -64,6 +64,11 @@ def stacks():
 @pytest.fixture(scope="module")
 def hybrid_stacks():
     return _stacks("jamba-v0.1-52b")
+
+
+@pytest.fixture(scope="module")
+def xlstm_stacks():
+    return _stacks("xlstm-1.3b")
 
 
 def _counters(eng, sched=None):
@@ -238,8 +243,8 @@ def recurrent_batched_vs_sequential(st):
 
 def recurrent_long_prompts_and_eos(st):
     """Prompts past a block and past the Mamba chunk (boot prefill, then a
-    teacher-forced decode per token; a hybrid never reuses a prefix), a
-    short prompt fully covered by the boot, and an eos stop."""
+    teacher-forced decode per token; a recurrent model never reuses a
+    prefix), a short prompt fully covered by the boot, and an eos stop."""
     prompts = [[(7 * i + 3 * j) % st.cfg.vocab for j in range(n)]
                for i, n in enumerate((40, 5, 33, 70))]
     eng = st.engine(max_len=128)
@@ -261,6 +266,23 @@ def test_scenario_matches_reference(stacks, scenario):
                          ids=lambda f: f.__name__)
 def test_hybrid_scenario_matches_reference(hybrid_stacks, scenario):
     assert scenario(hybrid_stacks["torch"]) == scenario(hybrid_stacks["jax"])
+
+
+@pytest.mark.parametrize("scenario", [recurrent_batched_vs_sequential,
+                                      recurrent_long_prompts_and_eos],
+                         ids=lambda f: f.__name__)
+def test_xlstm_scenario_matches_reference(xlstm_stacks, scenario):
+    """The first is test_batched_decode.py:69-83's xlstm case."""
+    assert scenario(xlstm_stacks["torch"]) == scenario(xlstm_stacks["jax"])
+
+
+def test_xlstm_engine_never_speculates(xlstm_stacks):
+    """test_spec_decode.py:232: with ``spec_enabled`` the xlstm engine
+    still does not speculate (no per-position KV to roll back)."""
+    for st in xlstm_stacks.values():
+        eng = st.engine(spec=True, max_len=64)
+        assert not eng.spec and not eng.paged
+        assert not st.Scheduler(eng).spec
 
 
 def test_step_issues_one_pool_dispatch(stacks):
@@ -288,7 +310,7 @@ def test_step_issues_one_pool_dispatch(stacks):
     assert eng.spec_traces == 1
 
 
-@pytest.mark.parametrize("mixer", ["slstm", "mlstm", "cross_attn"])
+@pytest.mark.parametrize("mixer", ["cross_attn"])
 def test_unported_families_raise(mixer):
     with pytest.raises(NotImplementedError, match="later slice"):
         configs.LayerSpec(mixer=mixer)
