@@ -4,8 +4,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each against its plain PyTorch version at the serving paths' shapes,
-and drives the port's three serving paths through its scheduler, each at
-full width:
+and drives the port's four serving paths, each at full width:
 
 * the paged KV pool with ``gentorrent-llama3-8b`` (two layers in float32
   for token parity, all 32 layers in bf16 for the serving numbers);
@@ -17,7 +16,13 @@ full width:
 * the dense slot pool with ``xlstm-1.3b`` (mLSTM + sLSTM) at full width
   and full depth (48 layers): one mLSTM and one sLSTM layer in float32
   against the CPU; all 48 layers in float32 for token parity and in bf16
-  for the serving numbers; one 2048-token prefill.
+  for the serving numbers; one 2048-token prefill;
+* the overlay with ``gentorrent-llama3-8b``: two model nodes on one card
+  over one set of weights, each with its own paged engine, on the
+  simulated network (HR-tree sync through the chunk-hash kernel, sketch
+  affinity, cross-node KV page migration): two layers in float32, where
+  load-only, affinity and replication routings give the same tokens, and
+  all 32 layers in bf16 for the serving numbers.
 
 It prints one JSON line per phase.  Every phase must pass: any failure
 ends the run with a nonzero exit.  With no CUDA card it exits nonzero
@@ -62,26 +67,43 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, iters=50, warmup=5):
+# time_ms calls whose profiler sessions all came back without a device
+# event, and which were therefore timed by CUDA events (``event_ms``)
+PROFILER_MISSES = []
+
+
+def time_ms(fn, iters=50, warmup=5, tries=3):
     """Device time of one call of ``fn``: the summed time of every kernel
     (and copy) it runs on the card, from torch.profiler, averaged over
     ``iters`` calls.  The host's gaps between launches do not count: at
     the serving path's small shapes a kernel runs for less time than its
     Python wrapper takes to launch it, and a loop timed by CUDA events
-    times the host (``event_ms``)."""
+    times the host (``event_ms``).
+
+    The tracer now and then hands back a session with no device event at
+    all (seen once on an H100 host, in the middle of a run whose other
+    sessions saw theirs).  Such a session is run again, up to ``tries``
+    times; if none sees the card, the call is timed by ``event_ms``, an
+    upper bound on the device time, and listed in ``PROFILER_MISSES``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    assert us > 0, "the profiler saw no device time"
-    return us / iters / 1e3
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+        print(f"chip_smoke: the profiler saw no device time (try {attempt + 1} of "
+              f"{tries})", file=sys.stderr, flush=True)
+    ms = event_ms(fn, iters, warmup=0)
+    PROFILER_MISSES.append(ms)
+    return ms
 
 
 def event_ms(fn, iters=50, warmup=5):
@@ -553,6 +575,105 @@ def check_mlstm(gen, dev):
             "errs": errs}
 
 
+# The overlay phases' chunk-length array L: what the Sentry builds for system
+# prompts of 128 and 256 tokens (core/sentry.build_lengths: 128, a delta of
+# 8, 120), so the traffic's 256-token shared prefix ends on a chunk boundary
+OVERLAY_PROMPT_LENS = (128, 256)
+
+
+def _overlay_lengths():
+    from repro_torch.core.sentry import build_lengths
+    return build_lengths(OVERLAY_PROMPT_LENS, 8)
+
+
+def check_chunk_hash(seed, dev):
+    """The chunk-hash kernel against its plain version, exactly (hashes are
+    integers), at three shapes: the fixed entry at B=64 prompts x S=8192,
+    width 64 (a sync broadcast's 64 prompts at the 8k prompts of the JAX
+    package's bench_kernels.py); the ranged entry on the overlay phases'
+    prompts with their Sentry-style L (one sync broadcast, the shape the
+    overlay path launches and the one the ``kernels`` line reports); and the
+    ranged entry on one 600-token prompt (one ``decide()``).  Beside each,
+    the host's wall time for the Python ``hrtree.preprocess`` loop over the
+    same prompts (what the JAX package's node pays) and for the port's
+    ``preprocess_batch`` (table, copies, launch and ``.cpu()``)."""
+    from repro_torch import configs
+    from repro_torch.core import hrtree
+    from repro_torch.kernels.chunk_hash import ops, ref
+    vocab = configs.get_config(NAME).vocab
+    rng = np.random.default_rng(seed)
+    L = _overlay_lengths()
+    bits = 8
+
+    def host_ms(fn, reps):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def yardsticks(prompts, lengths, reps):
+        return {"python_preprocess_ms": host_ms(
+                    lambda: [hrtree.preprocess(p, lengths, bits) for p in prompts], 1),
+                "preprocess_batch_ms": host_ms(
+                    lambda: hrtree.preprocess_batch(prompts, lengths, bits, device=dev), reps)}
+
+    shapes, errs = {}, {}
+    # fixed entry, B=64 x S=8192
+    toks = torch.from_numpy(rng.integers(0, vocab, (64, 8192)).astype(np.int32)).to(dev)
+    toks[0, :64] = 2**31 - 1                  # t + 1 wraps in uint32
+    for b in (4, 8, 16, 32):
+        got = ops.chunk_hash_fixed(toks, 64, b)
+        want = ref.chunk_hash_fixed_ref(toks, 64, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"fixed entry, bits={b}"
+        errs[f"fixed/64x8192/w64/bits{b}"] = [(got - want).abs().max().item(), 0.0]
+    # bytes: each token read once, each int64 hash written once; operations:
+    # ~4 integer ops a token, against the table's non-tensor fp32 rate (it
+    # has no integer rate): ~50x under the bytes, whatever the exact rate
+    nbytes = toks.numel() * 4 + toks.numel() // 64 * 8
+    bound_ms, bound_by = bound(nbytes, 4 * toks.numel(), torch.float32)
+    rows = [t.tolist() for t in toks.cpu()]
+    shapes["fixed B=64 S=8192 width=64 bits=8"] = {
+        "ms": time_ms(lambda: ops.chunk_hash_fixed(toks, 64, bits)),
+        "plain_ms": time_ms(lambda: ref.chunk_hash_fixed_ref(toks, 64, bits), iters=10),
+        "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+        "chunks": toks.numel() // 64,
+        **yardsticks(rows, [], 3)}
+    # ranged entry: one sync broadcast of the overlay prompts, and one decide()
+    sync = _traffic(seed, vocab)
+    one = [(sync[0] + rng.integers(0, vocab, 600).tolist())[:600]]
+    sync_name = f"ranged sync broadcast: {len(sync)} prompts L={L}"
+    for name, prompts in ((sync_name, sync),
+                          (f"ranged decide(): 1 prompt of 600 tokens L={L}", one)):
+        flat, st, ln, _ = hrtree.chunk_table(prompts, L, device=dev)
+        for b in (8, 32):
+            got = ops.chunk_hash_ranges(flat, st, ln, b)
+            want = ref.chunk_hash_ranges_ref(flat, st, ln, b)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{name}, bits={b}"
+            assert got.tolist() == [h for p in prompts
+                                    for h in hrtree.preprocess(p, L, b)], f"{name} vs preprocess"
+            errs[f"{name}/bits{b}"] = [(got - want).abs().max().item(), 0.0]
+        nb = int(ln.sum()) * 4 + len(ln) * (8 + 8)      # + the (start, len) table
+        nb_ms, nb_by = bound(nb, 4 * int(ln.sum()), torch.float32)
+        shapes[name] = {
+            "ms": time_ms(lambda: ops.chunk_hash_ranges(flat, st, ln, bits)),
+            "plain_ms": time_ms(lambda: ref.chunk_hash_ranges_ref(flat, st, ln, bits), iters=10),
+            "bytes": nb, "bound_ms": nb_ms, "bound_by": nb_by,
+            "chunks": len(ln),
+            "tokens_hashed": int(ln.sum()), **yardsticks(prompts, L, 20)}
+    # the line's times are those of the shape the overlay path launches
+    top = shapes[sync_name]
+    return {"name": "chunk_hash", "route": "cuda",
+            "source": "src/repro_torch/kernels/chunk_hash/csrc/chunk_hash.cu",
+            "replaces": "src/repro/kernels/chunk_hash/kernel.py:59",
+            **_summary(errs), "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": None,
+            "library": "none: no single PyTorch call computes the chunk hash",
+            "timed_at": f"{sync_name} bits={bits} (int64 out)",
+            "shapes": shapes, "tol": "exact (integers)", "errs": errs}
+
+
 # --------------------------------------------------------------------------
 # serving phases
 # --------------------------------------------------------------------------
@@ -591,6 +712,7 @@ def _serve(eng, prompts, max_new, max_active=4):
 
 
 def _wrappers():
+    from repro_torch.kernels.chunk_hash import ops as ch
     from repro_torch.kernels.decode_attention import ops as dd
     from repro_torch.kernels.flash_attention import ops as f
     from repro_torch.kernels.mamba_scan import ops as m
@@ -601,7 +723,8 @@ def _wrappers():
             "flash_attention": f.flash_attention,
             "decode_attention": dd.decode_attention,
             "mamba_scan": m.mamba_scan,
-            "mlstm": ml.mlstm_chunkwise}
+            "mlstm": ml.mlstm_chunkwise,
+            "chunk_hash": ch.chunk_hash_ranges}
 
 
 def _reset_launches():
@@ -756,7 +879,7 @@ def serve_bf16(seed, dev, out):
             "init_s": init_s, "requests": len(prompts),
             "prompt_lens": [len(p) for p in prompts], "max_new": 64,
             "spec_rows_equal_nonspec": same, "runs": runs,
-            "launches": launches, "profile": profile}, launches
+            "launches": launches, "profile": profile}, launches, params
 
 
 def _profile(cfg, params, prompts, dev, out, fname="profile_bf16.txt", max_new=16):
@@ -786,6 +909,275 @@ def _profile(cfg, params, prompts, dev, out, fname="profile_bf16.txt", max_new=1
             "decode_calls": s.metrics["decode_calls"],
             "prefill_dispatches": eng.prefill_dispatches,
             "top": [[k, us / 1e3, n] for us, k, n in rows[:12]]}
+
+
+# --------------------------------------------------------------------------
+# the overlay path: two model nodes on one card
+# --------------------------------------------------------------------------
+OVERLAY_MODES = ("load_only", "affinity", "replicate")
+
+
+def _overlay(cfg, params, dev, max_len, lengths=(64,), wire_mode=None):
+    """Two port model nodes on one ``SimNet``, each with its own
+    ``RealEngine`` (its own paged arena) over the one shared ``params``,
+    and a response sink."""
+    from repro_torch.core.forwarding import ForwardingConfig
+    from repro_torch.models.lm import LM
+    from repro_torch.net.simnet import SimNet
+    from repro_torch.overlay.model_node import ModelNode
+    from repro_torch.overlay.probe import ResponseSink
+    from repro_torch.serving.engine import RealEngine
+    net = SimNet(seed=5)
+    model = LM(cfg, dev)
+    nodes = [ModelNode(f"m{i}", fwd_cfg=ForwardingConfig(), chunk_lengths=lengths,
+                       real_engine=RealEngine(cfg, model, params, max_len=max_len, device=dev))
+             for i in range(2)]
+    for n in nodes:            # the tree hashes on the engine's device: the card
+        assert n.hrtree.device.type == n.real_engine.device.type == torch.device(dev).type
+        if wire_mode:
+            n.real_engine.kv_wire_mode = wire_mode
+        net.add_node(n.node_id, n)
+        n.join_group(["m0", "m1"])
+    sink = ResponseSink()
+    net.add_node("sink", sink)
+    return net, nodes, sink
+
+
+def _overlay_seed(net, nodes, seed_prompt, mode, max_new):
+    """The first part of the scenarios of tests/test_affinity_serving.py
+    and tests/test_kv_migration.py: m0 serves ``seed_prompt``, both nodes
+    broadcast their state, and m1's view of m0 is set for the routing to
+    test: busy but under the affinity bound (``affinity``), under memory
+    and load pressure (``replicate``: m1 will pull the prefix pages), or
+    m1 routes by load alone (``load_only``: the reference's lb_only
+    ablation, no HR-tree and no sketch)."""
+    from repro_torch.overlay.probe import direct_payload
+    nodes[0]._process(net, direct_payload("seed", seed_prompt, max_new), forwarded=True)
+    net.run_until(net.t + 30)
+    for n in nodes:
+        n.broadcast_state(net)
+    net.run_until(net.t + 5)
+    view = nodes[1].peers["m0"]
+    if mode == "replicate":
+        view.active_requests, view.kv_pressure = 6, 0.95     # rel load 1.2
+    else:
+        view.active_requests = 3                              # rel load 0.6
+    if mode == "load_only":
+        nodes[1].fwd_mode = "lb_only"
+
+
+def _overlay_inject(net, nodes, sink, prompts, max_new):
+    """The second part: ``prompts`` arrive at m1 and the network runs
+    until every response is in.  Returns its wall seconds (host clock,
+    synchronised)."""
+    from repro_torch.overlay.probe import direct_payload
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i, p in enumerate(prompts):
+        net.call_after(0.01, nodes[1]._process, net, direct_payload(f"r{i}", p, max_new))
+    net.run_until(net.t + 120)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    assert len(sink.got) == 1 + len(prompts), f"{len(sink.got)} responses"
+    for n in nodes:
+        n.real_engine.allocator.check()
+    return wall
+
+
+def _node_counts(nodes):
+    keys = ("affinity_hits", "forwarded_out", "replicate_routes", "kv_fetches",
+            "kv_fetch_piggybacks", "kv_imported_pages", "kv_fallbacks", "kv_wire_bytes",
+            "kv_exports", "served")
+    return {n.node_id: {**{k: n.metrics[k] for k in keys},
+                        "prefill_tokens": n.real_engine.prefill_tokens,
+                        "prefill_dispatches": n.real_engine.prefill_dispatches}
+            for n in nodes}
+
+
+def overlay_f32_parity(seed, dev):
+    """The overlay scenarios of the CPU tests at full width, 2 layers,
+    float32 (TF32 off): a 96-token prefix (three blocks) served on m0, three
+    siblings with 8-token tails at m1, routed by load alone, by sketch
+    affinity and by replication with the ``raw`` wire mode (the pages ship
+    bit for bit): all three give the same tokens, and the counters are the
+    CPU scenarios'.  Replication again with the default ``fp16`` wire
+    mode: whether its tokens agree is reported, not required."""
+    from repro_torch import configs
+    from repro_torch.params import init_params
+    cfg = dataclasses.replace(configs.get_config(NAME), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab, 96).tolist()
+    tails = rng.integers(0, cfg.vocab, (4, 8)).tolist()
+    seed_prompt, prompts = shared + tails[0], [shared + t for t in tails[1:]]
+    runs, counts = {}, {}
+    for mode, wire in (("load_only", "raw"), ("affinity", "raw"), ("replicate", "raw"),
+                       ("replicate", "fp16")):
+        net, nodes, sink = _overlay(cfg, params, dev, 128, wire_mode=wire)
+        _overlay_seed(net, nodes, seed_prompt, mode, 16)
+        _overlay_inject(net, nodes, sink, prompts, 16)
+        runs[mode, wire] = dict(sink.got)
+        counts[f"{mode}/{wire}"] = c = _node_counts(nodes)
+        m0, m1 = c["m0"], c["m1"]
+        assert m0["prefill_tokens"] >= 104 and all(len(v) == 16 for v in sink.got.values())
+        if mode == "affinity":
+            assert m1["affinity_hits"] == 3 and m1["forwarded_out"] == 3, c
+            assert m0["prefill_tokens"] == 104 + 3 * 8 and m1["prefill_tokens"] == 0, c
+            assert m0["prefill_dispatches"] == 4 + 1, c
+        elif mode == "load_only":
+            assert m1["prefill_tokens"] == 3 * 104 and m1["kv_fetches"] == 0, c
+        else:
+            assert m1["replicate_routes"] == 3 and m1["kv_fetches"] == 1, c
+            assert m1["kv_fetch_piggybacks"] == 2 and m1["kv_imported_pages"] == 3, c
+            assert m1["prefill_tokens"] == 3 * 8 and m1["prefill_dispatches"] == 1, c
+            assert m0["kv_exports"] == 1 and m1["kv_fallbacks"] == 0, c
+        del net, nodes, sink
+    raw = [runs[m, "raw"] for m in ("load_only", "affinity", "replicate")]
+    assert raw[0] == raw[1] == raw[2], "raw-wire tokens differ across routings"
+    return {"phase": "overlay_f32_parity", "config": f"{NAME} n_layers=2 float32",
+            "reduced": ["n_layers 32 -> 2"], "routings_equal_raw": True,
+            "fp16_wire_equals_raw": runs["replicate", "fp16"] == raw[0],
+            "counts": counts, "tokens": raw[0]}
+
+
+def _device_busy_s(fn, top=8):
+    """Run ``fn`` under torch.profiler tracing the card only.  Returns the
+    summed time of its kernels and copies on the device, in seconds (0 if
+    none seen), and the ``top`` kernel names by device time ([name, ms,
+    count]).  It sums the tracer's raw device events: building the
+    profiler's per-op tables (``key_averages``) over a serving run's
+    ~250,000 events took ~60 s a run on an H100 machine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            ns, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return (sum(ns for ns, _ in by_name.values()) / 1e9,
+            [[name[:120], ns / 1e6, n] for name, (ns, n) in rows[:top]])
+
+
+def _migration_costs(cfg, params, dev, holder, handle, depth, rng, reps=5):
+    """Wall milliseconds (synchronised host clock) of one page export
+    (gather on the card, codec, bytes to the host) and one import (bytes to
+    the card, codec, scatter) of ``depth`` pages, against a prefill of the
+    same ``depth`` blocks of new tokens, each the median of ``reps``.  The
+    top-level numbers are the arena's own wire mode; ``by_mode`` has the
+    export and import in each of raw, fp16 and int8."""
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import RealEngine, Request
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) * 1e3, out
+
+    def median(fn):
+        return sorted(wall(fn)[0] for _ in range(reps))[reps // 2]
+
+    eng = RealEngine(cfg, LM(cfg, dev), params, max_len=1024, device=dev)
+    by_mode = {}
+    for mode in ("raw", "fp16", "int8"):
+        exp = median(lambda: holder.export_pages(handle, depth=depth, mode=mode))
+        buf = holder.export_pages(handle, depth=depth, mode=mode)
+        chains = [[rng.bytes(16) for _ in range(depth)] for _ in range(reps)]
+        by_mode[mode] = {"export_ms": exp,
+                         "import_ms": median(lambda: eng.import_pages(buf, chains.pop())),
+                         "wire_bytes": sum(len(r[n]["data"]) for r in buf["layers"]
+                                           for n in ("k", "v"))}
+    pre = []
+    for _ in range(reps):
+        toks = rng.integers(0, cfg.vocab, depth * BLK).tolist()
+        ms, st = wall(lambda: eng.prefill_request(Request(0, toks, max_new=1)))
+        eng.release_pages(st.pages)
+        pre.append(ms)
+    pre.sort()
+    mode = holder.kv_wire_mode
+    exp, imp = by_mode[mode]["export_ms"], by_mode[mode]["import_ms"]
+    page_mb = holder.page_bytes / 2**20
+    return {"pages": depth, "page_bytes": holder.page_bytes, "mode": mode,
+            "export_ms": exp, "import_ms": imp, "prefill_ms": pre[reps // 2],
+            "export_ms_per_page": exp / depth, "import_ms_per_page": imp / depth,
+            "prefill_ms_per_page": pre[reps // 2] / depth,
+            "export_GiB_per_s": depth * page_mb / 1024 / (exp / 1e3),
+            "by_mode": by_mode}
+
+
+def overlay_serve_bf16(seed, dev, params):
+    """The overlay path at full width and depth (32 layers, bf16) on
+    ``serve_bf16``'s weights: two model nodes, each with its own
+    ``RealEngine`` (max_len 1024, 513 pages: ~2.1 GB of arena each) over
+    the one set of weights; ``serve_bf16``'s 8 requests (200-600 tokens, 4
+    opening with one 256-token prefix), 64 new tokens (the node's
+    ``_submit_real`` serves 16 of them, as in the reference).  A request of
+    the shared prefix alone seeds m0, then the 8 requests arrive at m1.
+    Three routings, each run once for its wall time and once more with
+    the profiler tracing the card, for the device's idle share (of that
+    run's wall time, from the arrivals at m1 to the last response).  Then
+    a page export and import of the prefix's 8 pages against a prefill of
+    256 new tokens."""
+    from repro_torch import configs
+    from repro_torch.kernels.chunk_hash import ops as hash_ops
+    cfg = configs.get_config(NAME)
+    prompts = _traffic(seed, cfg.vocab)
+    shared = np.random.default_rng(seed).integers(0, cfg.vocab, 256).tolist()
+    assert sum(p[:256] == shared for p in prompts) >= 2       # _traffic's prefix
+    L = _overlay_lengths()
+    depth = len(shared) // BLK
+    modes, tokens = {}, {}
+    _reset_launches()
+    for mode in OVERLAY_MODES:
+        h0 = hash_ops.chunk_hash_ranges.launches
+        net, nodes, sink = _overlay(cfg, params, dev, 1024, L)
+        _overlay_seed(net, nodes, shared, mode, 64)
+        wall = _overlay_inject(net, nodes, sink, prompts, 64)
+        launches_hash = hash_ops.chunk_hash_ranges.launches - h0
+        tokens[mode] = dict(sink.got)
+        gen = sum(len(v) for k, v in sink.got.items() if k != "seed")
+        assert gen == 16 * len(prompts), f"{mode}: {gen} tokens"
+        c = _node_counts(nodes)
+        if mode == "replicate":
+            holder = nodes[0].real_engine
+            matched, entry = holder.prefix_cache.peek(shared)
+            assert matched == len(shared) and c["m1"]["kv_imported_pages"] > 0, c
+        del net, nodes, sink
+        _free()
+        net, nodes, sink = _overlay(cfg, params, dev, 1024, L)
+        _overlay_seed(net, nodes, shared, mode, 64)
+        walls = []
+        busy, top = _device_busy_s(lambda: walls.append(
+            _overlay_inject(net, nodes, sink, prompts, 64)))
+        rerun_same = dict(sink.got) == tokens[mode]
+        del net, nodes, sink
+        _free()
+        modes[mode] = {"wall_s": wall, "generated_tokens": gen, "tokens_per_s": gen / wall,
+                       "chunk_hash_launches": launches_hash, "nodes": c,
+                       "profiled_wall_s": walls[0], "device_busy_s": busy,
+                       "idle_share": 1 - busy / walls[0] if busy else "not measured",
+                       "top_kernels": top,
+                       "profiled_rerun_same_tokens": rerun_same}
+    launches = _launches()
+    assert launches["chunk_hash"] > 0 and launches["paged_flash_attention"] > 0
+    assert modes["affinity"]["nodes"]["m1"]["affinity_hits"] > 0
+    assert modes["replicate"]["nodes"]["m1"]["replicate_routes"] > 0
+    assert modes["load_only"]["nodes"]["m1"]["kv_fetches"] == 0
+    costs = _migration_costs(cfg, params, dev, holder, entry.handle, depth,
+                             np.random.default_rng(seed))
+    del holder, entry
+    _free()
+    same = {m: sum(tokens[m][k] == tokens["load_only"][k] for k in tokens[m])
+            for m in OVERLAY_MODES}
+    return {"phase": "overlay_serve_bf16", "config": f"{NAME} full (32 layers) bf16, 2 nodes",
+            "chunk_lengths": L, "requests": len(prompts), "max_new": 64, "served_new": 16,
+            "modes": modes, "migration": costs,
+            "rows_equal_load_only": same, "launches": launches}, launches
 
 
 def _free():
@@ -1155,19 +1547,28 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = [check_paged_decode(gen, dev), check_paged_flash(gen, dev),
                check_dense_flash(gen, dev), check_dense_decode(gen, dev),
-               check_mamba_scan(gen, dev), check_mlstm(gen, dev)]
+               check_mamba_scan(gen, dev), check_mlstm(gen, dev),
+               check_chunk_hash(args.seed, dev)]
     emit({"phase": "kernels", "tol": {"float32": "atol=rtol=2e-5; mlstm's h 2e-4 "
                                                  "(its denominator cancels)",
-                                      "bfloat16": "atol=rtol=2e-2 vs f32 plain on bf16 inputs"},
+                                      "bfloat16": "atol=rtol=2e-2 vs f32 plain on bf16 inputs",
+                                      "chunk_hash": "exact"},
           "errs": "per case [max abs error, worst err / (atol + rtol * |plain|)]",
-          "kernels": kernels})
+          "timed_by_events": len(PROFILER_MISSES), "kernels": kernels})
     _free()
 
     # the paged pool's path (llama): its launches count the paged kernels
     emit(f32_parity(args.seed, dev))
     _free()
-    line, paged_launches = serve_bf16(args.seed, dev, args.out)
+    emit(overlay_f32_parity(args.seed, dev))
+    _free()
+    line, paged_launches, params = serve_bf16(args.seed, dev, args.out)
     emit(line)
+    _free()
+    # the overlay path on the same weights: its launches count the chunk hash
+    line, overlay_launches = overlay_serve_bf16(args.seed, dev, params)
+    emit(line)
+    del params
     _free()
 
     # the dense slot pool's path (jamba): the dense decode, the scan and
@@ -1193,8 +1594,11 @@ def main():
         k.pop("library", None)
         k.pop("tol", None)
         path = (paged_launches if k["name"].startswith("paged_") else
+                overlay_launches if k["name"] == "chunk_hash" else
                 xlstm_launches if k["name"] == "mlstm" else dense_launches)
         k["launches"] = path[k["name"]]
+    # a time_ms that fell back to CUDA events timed the host's gaps too
+    emit({"phase": "timing", "timed_by_events": len(PROFILER_MISSES)})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

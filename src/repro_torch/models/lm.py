@@ -178,6 +178,36 @@ def cache_copy(cache):
     return tuple({n: t.clone() for n, t in pl.items()} for pl in cache)
 
 
+def arena_gather_pages(arena, pages):
+    """Physical pages out of a paged arena: every ``{"k", "v"}`` leaf
+    (R, P, BLOCK, nkv, dh) -> a new (R, n, BLOCK, nkv, dh) tensor of the n
+    requested pages, in order (cross-node page export)."""
+    idx = torch.as_tensor(pages, dtype=torch.long, device=arena[0]["k"].device)
+    return tuple({n: a[:, idx] for n, a in layer.items()} for layer in arena)
+
+
+def arena_scatter_pages(arena, pages, blocks):
+    """Inverse of ``arena_gather_pages``, **in place**: write (R, n, BLOCK,
+    nkv, dh) blocks (any device; cast to the arena dtype) into the n
+    physical pages of every arena leaf.  The caller owns the pages
+    (refcount 1): aliased pages are never written.  Blocks that do not
+    match the arena raise ``ValueError`` before any page is written.
+    Returns ``arena``."""
+    if len(blocks) != len(arena) or any(set(b) != set(a) for a, b in zip(arena, blocks)):
+        raise ValueError(f"{len(blocks)} block layers for an arena of {len(arena)}")
+    for layer, blk in zip(arena, blocks):
+        for n, a in layer.items():
+            want = (a.shape[0], len(pages), *a.shape[2:])
+            if tuple(blk[n].shape) != want:
+                raise ValueError(f"{n} blocks of shape {tuple(blk[n].shape)}, "
+                                 f"the arena takes {want}")
+    idx = torch.as_tensor(pages, dtype=torch.long, device=arena[0]["k"].device)
+    for layer, blk in zip(arena, blocks):
+        for n, a in layer.items():
+            a[:, idx] = blk[n].to(device=a.device, dtype=a.dtype)
+    return arena
+
+
 # --------------------------------------------------------------------------
 # Paged KV
 # --------------------------------------------------------------------------

@@ -1,5 +1,8 @@
-"""Per-node LLM serving engine (port of ``repro/serving/engine.py``
-without page export/import, which arrives with the overlay slice).
+"""Per-node LLM serving engines (port of ``repro/serving/engine.py``).
+
+``RealEngine`` serves a port model; ``LatencyEngine`` is the reference's
+calibrated cost model on the simulated clock, which a ``ModelNode`` keeps
+for its service times.
 
 A pure-attention model is served from a node-wide per-layer page arena
 (``models/lm.py`` ``paged_arena_zeros``) plus per-request page tables: a
@@ -11,7 +14,9 @@ request's state is a batch-1 dense cache (``LM.prefill`` / ``LM.decode``),
 admitted by a short boot prefill and a teacher-forced decode per prompt
 token, and the scheduler's pool is one dense cache with a row per slot.
 Arena and caches are updated in place by every dispatch, so a prefix-cache
-entry is decoded from a copy and never changes.
+entry is decoded from a copy and never changes.  Pages migrate between
+nodes through ``export_pages`` (a read-only gather into a wire buffer) and
+``import_pages`` (a scatter, in place, into freshly allocated pages).
 """
 from __future__ import annotations
 
@@ -23,9 +28,10 @@ import numpy as np
 import torch
 
 from repro_torch import require_device
-from repro_torch.models.lm import cache_copy
+from repro_torch.models.lm import arena_gather_pages, arena_scatter_pages, cache_copy
 from repro_torch.serving.page_pool import OutOfPages, PageAllocator, PagedHandle
 from repro_torch.serving.prefix_cache import BLOCK, PrefixCache
+from repro_torch.training.compression import compress_kv_blocks, decompress_kv_blocks
 
 
 @dataclass
@@ -127,6 +133,15 @@ class RealEngine:
         self.spec_accepted = 0    # draft tokens accepted (== model argmax)
         self.spec_draftless_rounds = 0  # rounds served by the one-token
                                         # pool decode (no slot drafted)
+        # cross-node KV page migration counters (overlay Replicator)
+        self.kv_exported_pages = 0   # pages shipped to fetching peers
+        self.kv_imported_pages = 0   # pages scattered in from peers
+        self.kv_export_events = 0
+        self.kv_import_events = 0
+        # wire codec for exported pages: fp16 halves f32 arenas; 16-bit
+        # (bf16) arenas ship raw, where a cast to fp16 would save nothing
+        # and overflow |v| > 65504 to inf
+        self.kv_wire_mode = "fp16" if cfg.compute_dtype.itemsize == 4 else "raw"
         self.paged = (model.supports_paging() if paged is None
                       else bool(paged) and model.supports_paging())
         # speculation rolls back by position: paged pool only
@@ -235,6 +250,64 @@ class RealEngine:
         """Physical KV footprint: pages in use x bytes per page (aliased
         pages counted once)."""
         return self.allocator.used_count * self.page_bytes
+
+    # ------------------------------------------------------------------
+    # cross-node page migration (overlay kv_fetch / kv_pages)
+    # ------------------------------------------------------------------
+    def export_pages(self, handle: PagedHandle, depth: Optional[int] = None,
+                     mode: Optional[str] = None) -> dict:
+        """Gather the first ``depth`` pages of a prefix entry out of the
+        arena into a host-side wire buffer of bytes and ints (``mode``: the
+        codec, ``kv_wire_mode`` by default), which the overlay msgpacks and
+        chunks.  Read-only: no page is written and no refcount moves, so
+        the holder keeps serving from (and may later evict) the same pages
+        while a copy ships."""
+        if not self.paged:
+            raise ValueError("page export requires the paged pool")
+        if depth is not None:
+            handle = handle.prefix(depth, self.block)
+        pages = list(handle.pages)
+        if not pages:
+            raise ValueError("empty page export")
+        mode = mode or self.kv_wire_mode
+        layers = [{n: compress_kv_blocks(layer[n], mode) for n in ("k", "v")}
+                  for layer in arena_gather_pages(self.arena, pages)]
+        self.kv_exported_pages += len(pages)
+        self.kv_export_events += 1
+        return {"n_pages": len(pages), "mode": mode, "layers": layers}
+
+    def import_pages(self, buf: dict, chains: list) -> PagedHandle:
+        """Allocate local pages, scatter a peer's exported K/V blocks into
+        them, and register the prefix in the prefix cache under its BLOCK
+        chain digests (``chains[i]`` keys blocks 0..i): the next admission
+        aliases it as if this node had prefilled it.  Raises
+        ``OutOfPages`` when the arena cannot host the pages even after LRU
+        eviction, and ``ValueError``, ``KeyError`` or ``TypeError`` for a
+        malformed buffer; either way the pages it allocated are released
+        and the allocator is as before."""
+        if not self.paged:
+            raise ValueError("page import requires the paged pool")
+        n = int(buf["n_pages"])
+        chains = list(chains)[:n]
+        if n < 1 or len(chains) < n:
+            raise ValueError(f"import of {n} pages with {len(chains)} "
+                             f"chain digests")
+        pages = self.alloc_pages(n)
+        try:
+            blocks = tuple({name: decompress_kv_blocks(layer[name], self.cfg.compute_dtype,
+                                                       self.device)
+                            for name in ("k", "v")} for layer in buf["layers"])
+            arena_scatter_pages(self.arena, pages, blocks)
+        except BaseException:
+            self.allocator.decref(pages)     # released, never registered
+            raise
+        handle = PagedHandle(tuple(pages), n * self.block)
+        # the pages' initial reference becomes the cache entry's (its
+        # on_release decref balances the alloc above)
+        self.prefix_cache.insert_chains(chains, handle, n * self.page_bytes)
+        self.kv_imported_pages += n
+        self.kv_import_events += 1
+        return handle
 
     # ------------------------------------------------------------------
     # admission
@@ -448,3 +521,47 @@ class RealEngine:
                       total=time.monotonic() - t0,
                       cached_tokens=st.matched,
                       prompt_tokens=len(req.tokens))
+
+
+@dataclass
+class LatencyEngineConfig:
+    prefill_tps: float = 8_000.0     # prompt tokens/s (single request)
+    decode_tps: float = 60.0         # generated tokens/s per request
+    batch_slots: int = 8             # continuous-batching concurrency
+    overhead_s: float = 0.02
+    hw_score: float = 5.0            # the paper's 1..10 capacity score
+
+
+class LatencyEngine:
+    """Deterministic continuous-batching cost model on the simnet clock
+    (plain Python, the reference's numbers to the bit).
+
+    ``service_times`` returns (ttft, completion offset) given the current
+    queue state; slot release is the caller's: the model node schedules
+    the completion."""
+
+    def __init__(self, ecfg: LatencyEngineConfig,
+                 cache_bytes: int = 1 << 28):
+        self.ecfg = ecfg
+        self.prefix_cache = PrefixCache(cache_bytes)
+        self.busy: list[float] = []       # completion times of active slots
+
+    def service_times(self, n_prompt: int, n_cached: int, n_out: int,
+                      now: float) -> tuple[float, float]:
+        e = self.ecfg
+        scale = e.hw_score / 5.0
+        # slot admission: wait for a free slot if all are busy
+        self.busy = [t for t in self.busy if t > now]
+        if len(self.busy) >= e.batch_slots:
+            start = sorted(self.busy)[len(self.busy) - e.batch_slots]
+        else:
+            start = now
+        # batching interference: decode tps degrades with occupancy
+        occupancy = min(len(self.busy) + 1, e.batch_slots)
+        interference = 1.0 + 0.15 * (occupancy - 1)
+        t_prefill = (n_prompt - n_cached) / (e.prefill_tps * scale)
+        t_decode = n_out * interference / (e.decode_tps * scale)
+        ttft = (start - now) + e.overhead_s + t_prefill
+        total = ttft + t_decode
+        self.busy.append(now + total)
+        return ttft, total

@@ -34,6 +34,17 @@ class PagedHandle:
     pages: tuple
     length: int               # tokens covered (block-aligned)
 
+    def prefix(self, depth: int, block: int) -> "PagedHandle":
+        """The handle's leading ``depth`` blocks as a new handle (pure
+        index slice, no refcount movement).  Cross-node page migration
+        exports by prefix: a ``kv_fetch`` may cover fewer blocks than the
+        entry holds, and chain digests guarantee only the leading blocks
+        match the request."""
+        if not 1 <= depth <= len(self.pages):
+            raise ValueError(f"depth {depth} of {len(self.pages)} pages")
+        return PagedHandle(self.pages[:depth],
+                           min(self.length, depth * block))
+
 
 class PageAllocator:
     def __init__(self, num_pages: int):

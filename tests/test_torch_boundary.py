@@ -1,6 +1,8 @@
 """The port's boundary: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and its entry points never drop to the
-CPU on their own."""
+neither JAX nor the JAX package, nor ``msgpack`` or ``ml_dtypes`` (the
+card host has neither: the port has its own wire codec and serialises
+bf16 through torch), and its entry points never drop to the CPU on their
+own."""
 import ast
 import os
 import pathlib
@@ -12,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
 
@@ -29,7 +32,7 @@ def _imported(path):
 def test_port_imports_no_jax(path):
     for name in _imported(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+        assert top not in FORBIDDEN, f"{path}: {name}"
 
 
 def test_importing_the_port_loads_no_jax():
@@ -37,8 +40,8 @@ def test_importing_the_port_loads_no_jax():
             .replace("/", ".").removesuffix(".__init__")
             for p in PORT_FILES[:-1]]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
-            + "bad = [m for m in sys.modules if m.split('.')[0] in "
-              "('jax', 'jaxlib', 'repro')]\nassert not bad, bad\n")
+            + f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN}]\n"
+              "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
 
@@ -59,3 +62,11 @@ def test_entry_points_default_to_the_card():
         LM(cfg)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         init_params(cfg, torch.Generator())
+    from repro_torch.core.hrtree import HRTree, preprocess_batch
+    from repro_torch.overlay.model_node import ModelNode
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        HRTree([64])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        preprocess_batch([[1] * 64], [64])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ModelNode("m0")

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-the paged and dense-pool LM and scheduler (llama, jamba, xlstm) on the
-card against the same code on the CPU.
+the paged and dense-pool LM and scheduler (llama, jamba, xlstm) and the
+overlay's model nodes on the card against the same code on the CPU.
 
 Every test here needs a CUDA card and skips itself from the ``card``
 fixture where torch sees none (the kernels have no CPU mode).  The file
@@ -17,6 +17,11 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.core import hrtree  # noqa: E402
+from repro_torch.core.forwarding import ForwardingConfig  # noqa: E402
+from repro_torch.core.sentry import build_lengths  # noqa: E402
+from repro_torch.kernels.chunk_hash import ops as hash_ops  # noqa: E402
+from repro_torch.kernels.chunk_hash import ref as hash_ref  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dense_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dense_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
@@ -28,6 +33,9 @@ from repro_torch.kernels.mlstm import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.mlstm import ref as mlstm_ref  # noqa: E402
 from repro_torch.kernels.paged_decode import ref as decode_ref  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
+from repro_torch.net.simnet import SimNet  # noqa: E402
+from repro_torch.overlay.model_node import ModelNode  # noqa: E402
+from repro_torch.overlay.probe import ResponseSink, direct_payload  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.serving.engine import RealEngine, Request  # noqa: E402
 from repro_torch.serving.scheduler import Scheduler  # noqa: E402
@@ -322,6 +330,99 @@ def test_serving_on_card_matches_cpu(card, window):
             outs[dev, spec] = {r.req_id: r.output for r in s.run()}
     assert outs["cuda", False] == outs["cpu", False]
     assert outs["cuda", True] == outs["cpu", True] == outs["cpu", False]
+
+
+TOP = 2**31 - 1                  # the largest int32 token: t + 1 wraps in uint32
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16, 32])
+@pytest.mark.parametrize("width", [8, 64, 128, 100])
+def test_chunk_hash_fixed_kernel_matches_plain(card, width, bits):
+    """Hashes are integers: the kernel equals the plain version exactly."""
+    rng = np.random.default_rng(width + bits)
+    toks = torch.from_numpy(rng.integers(0, TOP, (5, 12 * width), endpoint=True)
+                            .astype(np.int32))
+    toks[0, :width] = TOP
+    n = hash_ops.chunk_hash_fixed.launches
+    got = hash_ops.chunk_hash_fixed(toks.to(card), width, bits)
+    torch.cuda.synchronize()
+    assert hash_ops.chunk_hash_fixed.launches == n + 1
+    assert torch.equal(got.cpu(), hash_ref.chunk_hash_fixed_ref(toks, width, bits))
+
+
+@pytest.mark.parametrize("bits", [1, 8, 32])
+def test_chunk_hash_ranges_kernel_matches_plain(card, bits):
+    """Ragged ranges: empty, shorter than a warp, across lane boundaries,
+    long, overlapping, and outside the tokens (-1)."""
+    rng = np.random.default_rng(bits)
+    flat = torch.from_numpy(rng.integers(0, TOP, 9000, endpoint=True).astype(np.int32))
+    lens = [0, 1, 5, 31, 32, 33, 63, 64, 65, 100, 257, 1000, 4000, 8999, 9000, 3, 10]
+    starts = [int(rng.integers(0, 9001 - n)) for n in lens[:-2]] + [8998, -1]
+    st, ln = (torch.tensor(x, dtype=torch.int32) for x in (starts, lens))
+    n = hash_ops.chunk_hash_ranges.launches
+    got = hash_ops.chunk_hash_ranges(flat.to(card), st.to(card), ln.to(card), bits)
+    torch.cuda.synchronize()
+    assert hash_ops.chunk_hash_ranges.launches == n + 1
+    want = hash_ref.chunk_hash_ranges_ref(flat, st, ln, bits)
+    assert torch.equal(got.cpu(), want) and want[-2:].tolist() == [-1, -1]
+    assert got.cpu()[:-2].tolist() == [hrtree.chunk_hash(flat[s:s + k].tolist(), bits)
+                                      for s, k in zip(starts, lens[:-2])]
+
+
+def test_preprocess_batch_on_card_matches_cpu(card):
+    rng = np.random.default_rng(0)
+    lengths = build_lengths([40, 120, 200], 8)
+    prompts = [rng.integers(0, 128_256, n).tolist() for n in (0, 5, 64, 80, 300, 600, 2000)]
+    for L in (lengths, [64], [100], []):
+        got = hrtree.preprocess_batch(prompts, L, device=card)
+        assert got == hrtree.preprocess_batch(prompts, L, device="cpu")
+        assert got == [hrtree.preprocess(p, L) for p in prompts]
+
+
+def _overlay_migration(cfg, params, dev):
+    """The replicate scenario of tests/test_kv_migration.py with the
+    port's nodes on ``dev``: seed a 96-token prefix on m0, make m0 look
+    pressured, then three siblings at m1 pull its pages."""
+    net = SimNet(seed=5)
+    nodes = [ModelNode(f"m{i}", fwd_cfg=ForwardingConfig(),
+                       real_engine=RealEngine(cfg, LM(cfg, dev), params, max_len=128,
+                                              device=dev))
+             for i in range(2)]
+    for n in nodes:
+        net.add_node(n.node_id, n)
+        n.join_group(["m0", "m1"])
+    sink = ResponseSink()
+    net.add_node("sink", sink)
+    shared = [7] * 96
+    nodes[0]._process(net, direct_payload("seed", shared + [1] * 8, 2), forwarded=True)
+    net.run_until(net.t + 30)
+    for n in nodes:
+        n.broadcast_state(net)
+    net.run_until(net.t + 5)
+    nodes[1].peers["m0"].active_requests = 6
+    nodes[1].peers["m0"].kv_pressure = 0.95
+    for i in range(3):
+        net.call_after(0.01, nodes[1]._process, net,
+                       direct_payload(f"sib{i}", shared + [10 + i] * 8, 4))
+    net.run_until(net.t + 60)
+    for n in nodes:
+        assert n.hrtree.device.type == torch.device(dev).type
+        n.real_engine.allocator.check()
+    return sink.got, [n.metrics for n in nodes]
+
+
+def test_overlay_on_card_matches_cpu(card):
+    """Two model nodes on the card (trees hashing through the kernel) and
+    on the CPU: the same outputs and the same node metrics, the simulated
+    times included."""
+    cfg = configs.get_config(NAME).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    n = hash_ops.chunk_hash_ranges.launches
+    got_card = _overlay_migration(cfg, _to(params, card), "cuda")
+    assert hash_ops.chunk_hash_ranges.launches > n
+    got_cpu = _overlay_migration(cfg, params, "cpu")
+    assert got_card == got_cpu
+    assert got_card[1][1]["kv_imported_pages"] == 3 and len(got_card[0]) == 4
 
 
 def _to(tree, dev):
