@@ -36,6 +36,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -127,6 +128,27 @@ def smi_line():
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
+def sass_counts(name):
+    """Tensor-core instructions in kernel library ``name``'s SASS, by
+    function: HGMMA (wgmma) and HMMA (mma.sync), where the toolkit has
+    cuobjdump."""
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        return "not measured: no cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+        for op in ("HGMMA", "HMMA"):
+            if op in ln and fn is not None:
+                counts.setdefault(fn, {}).setdefault(op, 0)
+                counts[fn][op] += 1
+    return counts
+
+
 def bound(nbytes, flops, dtype):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -198,14 +220,24 @@ def check_paged_decode(gen, dev):
     ms = time_ms(lambda: ops.paged_decode_attention(*x, pt, lengths))
     ev_ms = event_ms(lambda: ops.paged_decode_attention(*x, pt, lengths))
     plain_ms = time_ms(lambda: ref.paged_decode_attention_ref(*x, pt, lengths), iters=10)
-    nbytes = _paged_decode_bytes(lengths, H, ka.shape[2], D, 2)
+    # library yardstick: the same attention as one SDPA call over the rows'
+    # pages gathered densely beforehand (the gather is not timed), as
+    # check_paged_flash times it; the dead row's all-masked row is garbage
+    Hkv = ka.shape[2]
+    kd = ref.gather_dense(x[1], pt).repeat_interleave(H // Hkv, dim=1)
+    vd = ref.gather_dense(x[2], pt).repeat_interleave(H // Hkv, dim=1)
+    mask = (torch.arange(kd.shape[2], device=dev)[None] < lengths[:, None])[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(x[0][:, :, None], kd, vd, attn_mask=mask))
+    nbytes = _paged_decode_bytes(lengths, H, Hkv, D, 2)
     visible = int(lengths.sum())
     bound_ms, bound_by = bound(nbytes, 4 * visible * H * D, torch.bfloat16)
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/paged_decode/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/decode_attention/paged.py:94",
             **_summary(errs), "ms": ms, "event_ms": ev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "n_splits": ops.n_splits(B, Hkv, pt.shape[1]),
             "timed_at": "B=4 H=32 Hkv=8 D=128 BLOCK=32 n_pg=32 lengths=[1000,517,0,33] bf16",
             "errs": errs}
 
@@ -882,6 +914,22 @@ def serve_bf16(seed, dev, out):
             "launches": launches, "profile": profile}, launches, params
 
 
+# the device kernels behind the two paged wrappers, by demangled or mangled name
+PAGED_KERNELS = {"paged_decode_attention": ("paged_decode_kernel",),
+                 "paged_flash_attention": ("tc_kernel<true", "tc_kernelILb1E",
+                                           "scalar_kernel<true", "scalar_kernelILb1E")}
+
+
+def _paged_kernel_ms(rows):
+    """Device ms and launches of the two paged kernels among profile
+    ``rows`` of (name, ms, count)."""
+    out = {}
+    for wrapper, keys in PAGED_KERNELS.items():
+        hit = [(ms, n) for name, ms, n in rows if any(k in name for k in keys)]
+        out[wrapper] = {"ms": sum(ms for ms, _ in hit), "launches": sum(n for _, n in hit)}
+    return out
+
+
 def _profile(cfg, params, prompts, dev, out, fname="profile_bf16.txt", max_new=16):
     """Device time by kernel over a short non-speculative serve of
     ``prompts`` (``max_new`` new tokens each): the device's busy share of
@@ -908,6 +956,7 @@ def _profile(cfg, params, prompts, dev, out, fname="profile_bf16.txt", max_new=1
             "idle_share": (1 - busy / wall) if busy else "not measured",
             "decode_calls": s.metrics["decode_calls"],
             "prefill_dispatches": eng.prefill_dispatches,
+            "paged_kernels": _paged_kernel_ms([(k, us / 1e3, n) for us, k, n in rows]),
             "top": [[k, us / 1e3, n] for us, k, n in rows[:12]]}
 
 
@@ -1044,10 +1093,11 @@ def overlay_f32_parity(seed, dev):
 def _device_busy_s(fn, top=8):
     """Run ``fn`` under torch.profiler tracing the card only.  Returns the
     summed time of its kernels and copies on the device, in seconds (0 if
-    none seen), and the ``top`` kernel names by device time ([name, ms,
-    count]).  It sums the tracer's raw device events: building the
-    profiler's per-op tables (``key_averages``) over a serving run's
-    ~250,000 events took ~60 s a run on an H100 machine."""
+    none seen), the ``top`` kernel names by device time ([name, ms,
+    count]) and the two paged kernels' time (``_paged_kernel_ms``).  It
+    sums the tracer's raw device events: building the profiler's per-op
+    tables (``key_averages``) over a serving run's ~250,000 events took
+    ~60 s a run on an H100 machine."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1059,7 +1109,8 @@ def _device_busy_s(fn, top=8):
             by_name[e.name()] = (ns + e.duration_ns(), n + 1)
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return (sum(ns for ns, _ in by_name.values()) / 1e9,
-            [[name[:120], ns / 1e6, n] for name, (ns, n) in rows[:top]])
+            [[name[:120], ns / 1e6, n] for name, (ns, n) in rows[:top]],
+            _paged_kernel_ms([(name, ns / 1e6, n) for name, (ns, n) in rows]))
 
 
 def _migration_costs(cfg, params, dev, holder, handle, depth, rng, reps=5):
@@ -1152,7 +1203,7 @@ def overlay_serve_bf16(seed, dev, params):
         net, nodes, sink = _overlay(cfg, params, dev, 1024, L)
         _overlay_seed(net, nodes, shared, mode, 64)
         walls = []
-        busy, top = _device_busy_s(lambda: walls.append(
+        busy, top, paged_ms = _device_busy_s(lambda: walls.append(
             _overlay_inject(net, nodes, sink, prompts, 64)))
         rerun_same = dict(sink.got) == tokens[mode]
         del net, nodes, sink
@@ -1161,7 +1212,7 @@ def overlay_serve_bf16(seed, dev, params):
                        "chunk_hash_launches": launches_hash, "nodes": c,
                        "profiled_wall_s": walls[0], "device_busy_s": busy,
                        "idle_share": 1 - busy / walls[0] if busy else "not measured",
-                       "top_kernels": top,
+                       "top_kernels": top, "paged_kernels": paged_ms,
                        "profiled_rerun_same_tokens": rerun_same}
     launches = _launches()
     assert launches["chunk_hash"] > 0 and launches["paged_flash_attention"] > 0
@@ -1542,7 +1593,8 @@ def main():
     _write(args.out, "ptxas.txt", "\n".join(f"== {k}\n{v}" for k, v in reports.items()))
     emit({"phase": "build", "seconds": build_s, "built": sorted(reports),
           "ptxas": [ln.strip() for v in reports.values() for ln in v.splitlines()
-                    if "Used" in ln]})
+                    if "Used" in ln or "Compiling entry" in ln],
+          "tensor_core_sass": sass_counts("flash_attention")})
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = [check_paged_decode(gen, dev), check_paged_flash(gen, dev),

@@ -5,16 +5,24 @@
 # chip_smoke.py alone in an empty directory, where it must fail without
 # printing a result.
 #
-#     bash scripts/chip_check.sh OUT [TREE]
+#     bash scripts/chip_check.sh OUT [TREE [BASE]]
 #
 # OUT receives smoke.log, smoke.err, cuda_tests.log and chip_smoke.py's
 # long outputs; TREE (default: the current directory) is the checkout to
-# run, for example an unpacked `git archive` of the tree.  A summary of
-# each step is printed at the end.
+# run, for example an unpacked `git archive` of the tree.  BASE, another
+# checkout (say, the parent commit's), adds a last step: the four
+# attention kernels' checks of chip_smoke.py (check_paged_decode,
+# check_paged_flash, check_dense_flash, check_dense_decode) in turns BASE,
+# TREE, TREE, BASE, each tree building and timing its own kernels on this
+# card, one JSON line a kernel in OUT/turns.log.  A summary of each step
+# is printed at the end.
 set -u
 out=$(realpath -m "$1")
 mkdir -p "$out"
+base=""
+[ $# -ge 3 ] && base=$(realpath "$3")
 cd "${2:-.}" || exit 2
+tree=$(pwd)
 
 t0=$(date +%s)
 python3 chip_smoke.py --out "$out" 2> "$out/smoke.err" |
@@ -35,4 +43,31 @@ cp chip_smoke.py "$alone/"
 (cd "$alone" && python3 chip_smoke.py > stdout.txt 2> stderr.txt
  echo "chip_smoke.py alone rc=$? with $(wc -c < stdout.txt) bytes of output")
 rm -rf "$alone"
-[ "$smoke_rc" -eq 0 ] && [ "$tests_rc" -eq 0 ]
+
+turns_rc=0
+if [ -n "$base" ]; then
+    for t in "$base" "$tree" "$tree" "$base"; do
+        (cd "$t" && python3 - <<'EOF'
+import json
+import os
+
+import torch
+
+import chip_smoke as c
+from repro_torch.kernels import _build
+
+_build.build_all()
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+for check in (c.check_paged_decode, c.check_paged_flash, c.check_dense_flash,
+              c.check_dense_decode):
+    r = check(gen, dev)
+    print(json.dumps({"tree": os.getcwd(), **{k: r.get(k) for k in (
+        "name", "ms", "plain_ms", "library_ms", "bound_ms", "serving")}}), flush=True)
+EOF
+        ) >> "$out/turns.log" 2>&1 || turns_rc=1
+    done
+    echo "kernel turns rc=$turns_rc"
+    grep '^{' "$out/turns.log" | cut -c1-400
+fi
+[ "$smoke_rc" -eq 0 ] && [ "$tests_rc" -eq 0 ] && [ "$turns_rc" -eq 0 ]

@@ -24,17 +24,17 @@
 //   * each block walks its span with an online softmax and writes one
 //     float32 partial (acc, m, l) per query head; a second small kernel
 //     combines the partials of a (row, head), as the TPU kernel's XLA
-//     combine did;
+//     combine did (the record layout and the combine are shared with the
+//     paged decode, split_combine.cuh);
 //   * tiles move as 16-byte loads, all of a thread's loads in flight at
 //     once, the next tile fetched while the current one is computed
 //     (kv_tile.cuh).
 // Still simple: scalar fp32 FMAs from shared memory.
 #include "kv_tile.cuh"
+#include "split_combine.cuh"
 
 namespace {
 
-using kv_tile::kNegInf;
-using kv_tile::store;
 using kv_tile::to_float;
 
 constexpr int kThreads = 256;
@@ -92,43 +92,18 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
   for (int i = tid; i < G * (D + 2); i += kThreads) {
     const int h = i / (D + 2), c = i - h * (D + 2);
     const float val = c < D ? sm.acc[h * D + c] : (c == D ? sm.m[h] : sm.l[h]);
-    part[(((size_t)b * H + (size_t)g * G + h) * n_splits + sp) * (D + 2) + c] = val;
+    part[split_combine::record(b, H, g * G + h, n_splits, sp, D) + c] = val;
   }
 }
 
-// One block per (row, head): out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M),
-// zeros where no split saw a visible position (a dead row).  The first warp
-// reads every split's (m, l) once and leaves the weights e^(m_s - M) in
-// shared memory (0 for an empty split, whose acc is then never read); each
-// thread then sums its dims over the non-empty splits.
+// One block per (row, head): the shared combine (split_combine.cuh) of its
+// n_splits partials.
 template <typename T>
 __global__ void combine_kernel(const float* __restrict__ part, T* __restrict__ out, int D,
                                int n_splits) {
   extern __shared__ float w_s[];  // [n_splits] weights, then 1 / L
-  const float* p = part + (size_t)blockIdx.x * n_splits * (D + 2);
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float M = kNegInf;
-    for (int s = lane; s < n_splits; s += 32) M = fmaxf(M, p[s * (D + 2) + D]);
-    for (int off = 16; off; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
-    float L = 0.f;
-    for (int s = lane; s < n_splits; s += 32) {
-      const float l = p[s * (D + 2) + D + 1];
-      const float w = l > 0.f ? expf(p[s * (D + 2) + D] - M) : 0.f;
-      w_s[s] = w;
-      L = fmaf(l, w, L);
-    }
-    for (int off = 16; off; off >>= 1) L += __shfl_xor_sync(0xffffffffu, L, off);
-    if (lane == 0) w_s[n_splits] = L > 0.f ? 1.f / L : 0.f;
-  }
-  __syncthreads();
-  const float inv_l = w_s[n_splits];
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < n_splits; ++s)
-      if (w_s[s] != 0.f) acc = fmaf(p[s * (D + 2) + d], w_s[s], acc);
-    store(out + (size_t)blockIdx.x * D + d, acc * inv_l);
-  }
+  split_combine::combine(part + (size_t)blockIdx.x * n_splits * (D + 2),
+                         out + (size_t)blockIdx.x * D, 1, D, n_splits, w_s);
 }
 
 template <typename T>

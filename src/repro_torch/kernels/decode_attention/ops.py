@@ -18,13 +18,23 @@ _ARGTYPES = [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 TILE = 32              # positions per tile (kernel constant kTile)
-TARGET_CTAS = 264      # two blocks per SM on the H100's 132 SMs
+# blocks a split-K decode aims for: two per SM of the H100's 132.  Also
+# the paged decode's rule: at its serving batches (2-4 rows of 200-664
+# tokens) 264 beat 132 and 512 on the card, at one row it tied 512
+# (scripts/decode_splits.py)
+TARGET_CTAS = 264
+
+
+def split_count(B: int, Hkv: int, units: int) -> int:
+    """Splits per (row, KV group) of a split-K decode over ``units`` tiles
+    of keys (this kernel's 32-position tiles, the paged decode's pages):
+    enough blocks to cover the card twice, never more than one a tile."""
+    return max(1, min(units, -(-TARGET_CTAS // max(B * Hkv, 1))))
 
 
 def n_splits(B: int, Hkv: int, S: int) -> int:
-    """Position splits per (row, KV group): enough blocks to cover the
-    card twice, never more than the cache has tiles."""
-    return max(1, min(-(-S // TILE), -(-TARGET_CTAS // max(B * Hkv, 1))))
+    """Position splits per (row, KV group) over an S-position cache."""
+    return split_count(B, Hkv, -(-S // TILE))
 
 
 def decode_attention(q, k, v, lengths, *, window=None, softcap=None,

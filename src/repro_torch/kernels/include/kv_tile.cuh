@@ -1,6 +1,7 @@
-// Shared by the port's attention kernels: moving one tile of K/V rows from
-// device memory into shared memory as float32, and the one-token decode
-// step over such a tile.
+// Shared by the port's scalar attention bodies (the dense decode, the flash
+// kernel's float32 body): moving one tile of K/V rows from device memory
+// into shared memory as float32, and the one-token decode step over such a
+// tile; also the dtype helpers and the shared-memory limit every kernel uses.
 //
 // A tile is `rows` rows of D elements; row t starts at element
 // base + t * row_stride of the tensor.  Each thread moves its share as
@@ -108,9 +109,9 @@ __device__ __forceinline__ void stash_tile(const TileRegs<kMaxVec>& regs, float*
 }
 
 // ---------------------------------------------------------------------------
-// One-token decode over K/V tiles: the per-tile step shared by the paged
-// decode (a tile is a page) and the dense split-K decode (a tile is 32
-// positions of a row).  A block serves the G query heads of one KV group.
+// One-token decode over K/V tiles: the per-tile step of the dense split-K
+// decode (a tile is 32 positions of a row).  A block serves the G query
+// heads of one KV group.
 // ---------------------------------------------------------------------------
 
 // The block's shared memory, in float32, for G heads of D dims and tiles of

@@ -10,20 +10,64 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention.ops import split_count
 from repro_torch.kernels.paged_decode import ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 6 + [_I] * 7 + [_I, _F, _F, _I, _P]
+_ARGTYPES = [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-MAX_PAGE_BYTES = 8 * 256 * 16    # one head's K page: 8 16-byte loads a thread
+MAX_GROUP_DIMS = 32 * 256        # G * D: 32 acc registers a thread, 256 threads
+
+# ticket counters of the in-launch combine, one buffer per (device,
+# stream): allocated zeroed once (grown when a call needs more), left zero
+# by every launch.  Launches on one stream never overlap, so no two
+# launches count on the same tickets at once.
+_tickets: dict = {}
+
+
+def n_splits(B: int, Hkv: int, n_pg: int) -> int:
+    """Page splits per (row, KV group): the dense decode's rule
+    (``decode_attention.ops.split_count``), a page for its tile."""
+    return split_count(B, Hkv, n_pg)
+
+
+def split_spans(length: int, window, n_pg: int, splits: int, blk: int = 32):
+    """Pages ``[begin, end)`` each split of a row reads, as
+    csrc/paged_decode.cu computes them on the device (the lines from
+    ``first`` to ``n`` of paged_decode_kernel): the row's visible pages,
+    from the one holding ``length - window`` to the one holding its last
+    position (a length past the table is clamped to it), cut into
+    ``splits`` spans of ``ceil(visible / splits)`` pages; a span past the
+    visible range is empty (``end == begin``)."""
+    first = max(0, length - window) if window and window > 0 else 0
+    length = min(length, n_pg * blk)
+    vis_lo = first // blk
+    vis_hi = -(-length // blk) if length > first else vis_lo
+    per = -(-(vis_hi - vis_lo) // splits)
+    spans = []
+    for sp in range(splits):
+        begin = vis_lo + sp * per
+        spans.append((begin, begin + max(0, min(begin + per, vis_hi) - begin)))
+    return spans
+
+
+def _tickets_for(dev, stream, n: int):
+    key = (dev, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 2 * (0 if t is None else t.numel()), 256),
+                        dtype=torch.int32, device=dev)
+        _tickets[key] = t
+    return t
 
 
 def paged_decode_attention(q, k_arena, v_arena, page_table, lengths, *,
                            window=None, softcap=None, scale=None):
     """q: (B, H, D); arenas: (P, BLOCK, Hkv, D); page_table: (B, n_pg)
     int32 physical page per logical block; lengths: (B,) int32 valid tokens
-    per row (0 = dead row: its output is zeros).  Returns (B, H, D)."""
+    per row (0 = dead row: its output is zeros).  Returns (B, H, D).  One
+    launch per call, on the current stream."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if not q.is_cuda:
         return ref.paged_decode_attention_ref(
@@ -39,8 +83,9 @@ def paged_decode_attention(q, k_arena, v_arena, page_table, lengths, *,
             raise ValueError(f"{name} must match q's dtype/device and k_arena's shape")
     if H % Hkv or D > MAX_HEAD_DIM or D % 8 or k_arena.shape[3] != D:
         raise ValueError(f"bad heads/dim: H={H} Hkv={Hkv} D={D}")
-    if blk * D * q.element_size() > MAX_PAGE_BYTES:
-        raise ValueError(f"page of {blk} x {D} too large for the kernel")
+    if (H // Hkv) * D > MAX_GROUP_DIMS:
+        raise ValueError(f"{H // Hkv} query heads of {D} dims per KV head exceed "
+                         f"the {MAX_GROUP_DIMS} a block holds in registers")
     for name, t in (("page_table", page_table), ("lengths", lengths)):
         if t.dtype != torch.int32 or t.device != q.device:
             raise TypeError(f"{name} must be int32 on {q.device}")
@@ -54,12 +99,16 @@ def paged_decode_attention(q, k_arena, v_arena, page_table, lengths, *,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    ns = n_splits(B, Hkv, n_pg)
+    part = torch.empty((B, H, ns, D + 2), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = _tickets_for(q.device, stream, B * Hkv)
     fn = _build.function("paged_decode", "paged_decode_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
              page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             B, H, Hkv, D, P, blk, n_pg, window or 0, float(softcap or 0.0),
-             float(scale), DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             part.data_ptr(), tickets.data_ptr(),
+             B, H, Hkv, D, P, blk, n_pg, ns, window or 0,
+             float(softcap or 0.0), float(scale), DTYPES[q.dtype], stream)
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out

@@ -203,6 +203,173 @@ def test_dense_decode_kernel_matches_plain(card, dtype, S, window, softcap):
     assert not got[~live].any()                         # dead row: zeros
 
 
+# ------------------------------------------------------------------------
+# The split-page paged decode: spans, empty splits, the in-launch combine's
+# tickets; the bf16 tensor-core flash body at every head layout
+# ------------------------------------------------------------------------
+def _paged_decode_case(card, dtype, lengths, n_pg=32, window=None, seed=11):
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(seed)
+    B = len(lengths)
+    ka, va, pt = _arena(rng, card, B=B, n_pg=n_pg)
+    q = _randn(rng, B, 32, 128).to(card)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=card)
+    x = [t.to(dt) for t in (q, ka, va)]
+    n0 = decode_ops.paged_decode_attention.launches
+    got = decode_ops.paged_decode_attention(*x, pt, lengths, window=window)
+    want = decode_ref.paged_decode_attention_ref(*[t.float() for t in x], pt,
+                                                 lengths, window=window)
+    torch.cuda.synchronize()
+    assert decode_ops.paged_decode_attention.launches == n0 + 1
+    live = lengths > 0
+    torch.testing.assert_close(got.float()[live], want[live], **TOL[dtype])
+    assert not got[~live].any()                         # dead row: zeros
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lengths", [[1, 32, 33, 1000], [1024, 0, 1, 32]])
+def test_paged_decode_splits_with_empty_spans(card, dtype, lengths):
+    """Lengths of one position, one page, a page and one, most and all of
+    the 32-page table: 9 or more splits each, so short rows leave most
+    empty."""
+    assert decode_ops.n_splits(len(lengths), 8, 32) >= 9
+    _paged_decode_case(card, dtype, lengths)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 8])
+def test_paged_decode_one_page_table(card, dtype, window):
+    """n_pg = 1: one split, whose block combines its own partial."""
+    assert decode_ops.n_splits(4, 8, 1) == 1
+    _paged_decode_case(card, dtype, [1, 32, 17, 0], n_pg=1, window=window)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_window_starts_inside_a_span(card, dtype):
+    """Windows of 600 and 45 start mid-page, so the first visible page is
+    partly masked; at 600 (20 visible pages of the 1000-token row, 2 or
+    more a split) the window starts inside a span."""
+    lo, hi = decode_ops.split_spans(1000, 600, 32, decode_ops.n_splits(4, 8, 32))[0]
+    assert lo == 12 and hi - lo >= 2
+    _paged_decode_case(card, dtype, [1000, 700, 0, 333], window=600)
+    _paged_decode_case(card, dtype, [1000, 45, 46, 999], window=45)
+
+
+def test_paged_decode_tickets_reset_between_calls(card):
+    """The combine's tickets are left zero: the same call twice gives the
+    same output, and calls at other batch sizes (other ticket slots, more
+    or fewer splits) stay right."""
+    a = _paged_decode_case(card, "bfloat16", [1000, 517, 0, 33])
+    b = _paged_decode_case(card, "bfloat16", [1000, 517, 0, 33])
+    assert torch.equal(a, b)
+    _paged_decode_case(card, "bfloat16", [700, 3])
+    _paged_decode_case(card, "bfloat16", [1024, 1, 512, 0, 64, 900, 2, 31])
+    _paged_decode_case(card, "float32", [1000, 517, 0, 33])
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert not decode_ops._tickets[(dev, stream)].any()
+
+
+def test_paged_decode_on_two_streams_at_once(card):
+    """Calls on two streams at once keep their combines apart (a ticket
+    buffer per stream).  Both streams wait on one event behind a sleep
+    kernel.  Stream 0's calls are 4 rows x 8 KV heads x 9 splits of four
+    pages each (1152-token rows over a 36-page table): 288 blocks, more
+    than the card holds at once (two an SM), so a last wave of 24 blocks
+    runs after the first.  Stream 1's calls have the same grid over short
+    rows, so most of their blocks are empty and finish while that last
+    wave still runs: their tickets of a (row, KV group) are taken between
+    stream 0's.  Every output matches the plain version."""
+    rng = np.random.default_rng(12)
+    ka, va, pt = (t.to(torch.bfloat16) if t.is_floating_point() else t
+                  for t in _arena(rng, card, n_pg=36))
+    splits = decode_ops.n_splits(4, 8, 36)
+    assert all(hi - lo == 4 for lo, hi in decode_ops.split_spans(1152, None, 36, splits))
+    lengths = [torch.tensor(n, dtype=torch.int32, device=card)
+               for n in ([1152] * 4, [33, 1, 40, 64])]
+    qs = [_randn(rng, 4, 32, 128).to(card, torch.bfloat16) for _ in range(16)]
+    gate, *streams = (torch.cuda.Stream(card) for _ in range(3))
+    torch.cuda.synchronize()
+    with torch.cuda.stream(gate):
+        torch.cuda._sleep(20_000_000)              # ~10 ms at the H100's clock
+    ready = gate.record_event()
+    for st in streams:
+        st.wait_event(ready)
+    outs = []
+    for i, q in enumerate(qs):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(decode_ops.paged_decode_attention(q, ka, va, pt, lengths[i % 2]))
+    torch.cuda.synchronize()
+    for i, (q, got) in enumerate(zip(qs, outs)):
+        want = decode_ref.paged_decode_attention_ref(q.float(), ka.float(), va.float(),
+                                                     pt, lengths[i % 2])
+        torch.testing.assert_close(got.float(), want, **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("D", [16, 64, 80, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 4, 6, 7, 48])
+def test_flash_bf16_every_head_layout(card, D, G):
+    """The tensor-core body at every registered config's head dim (padded
+    to 64, 128 or 256 in shared memory) and GQA group: the dense entry on
+    (B, S, H, D) views and the paged entry on a prefill chunk, bf16 within
+    2e-2 of the f32 plain version."""
+    rng = np.random.default_rng(20 + D + G)
+    Hkv = 2
+    H = G * Hkv
+    q = _randn(rng, 2, 100, H, D).to(card, torch.bfloat16).transpose(1, 2)
+    k, v = (_randn(rng, 2, 100, Hkv, D).to(card, torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    for kw in (dict(), dict(window=40, softcap=30.0)):
+        got = flash_ops.flash_attention(q, k, v, **kw)
+        want = flash_ref.attention_ref(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, **TOL["bfloat16"])
+    ka, va, pt = (t.to(torch.bfloat16) if t.is_floating_point() else t
+                  for t in _arena(rng, card, P=40, Hkv=Hkv, D=D, B=2, n_pg=8))
+    qp = _randn(rng, 2, 32, H, D).to(card, torch.bfloat16)
+    pos0 = torch.tensor([200, 37], dtype=torch.int32, device=card)
+    got = flash_ops.paged_flash_attention(qp, ka, va, pt, pos0)
+    want = flash_ref.paged_attention_ref(qp.float(), ka.float(), va.float(), pt, pos0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("Sq", [1, 5, 32, 33])
+def test_paged_flash_bf16_query_lengths(card, Sq):
+    """Verify windows and prefill chunks of 1, 5, 32 and 33 queries (33:
+    a second query tile of one index), starting off a page boundary, with
+    a dead row, over the 32-page table of the serving shape."""
+    rng = np.random.default_rng(30 + Sq)
+    ka, va, pt = (t.to(torch.bfloat16) if t.is_floating_point() else t
+                  for t in _arena(rng, card))
+    q = _randn(rng, 4, Sq, 32, 128).to(card, torch.bfloat16)
+    pos0 = torch.tensor([3, 45, 0, 1024 - Sq - 7], dtype=torch.int32, device=card)
+    active = torch.tensor([True, True, False, True], device=card)
+    for kw in (dict(), dict(window=100, softcap=50.0)):
+        got = flash_ops.paged_flash_attention(q, ka, va, pt, pos0, active, **kw)
+        want = flash_ref.paged_attention_ref(q.float(), ka.float(), va.float(), pt,
+                                             pos0, active, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, **TOL["bfloat16"])
+        assert not got[~active].any()
+
+
+@pytest.mark.parametrize("S", [5, 8, 200, 1024])
+def test_flash_bf16_strided_views(card, S):
+    """The slot pool's prefill at jamba's and llama's heads (32 on 8, D =
+    128) on (B, S, H, D) views, two rows, up to the 1024-token prompt."""
+    rng = np.random.default_rng(40 + S)
+    q = _randn(rng, 2, S, 32, 128).to(card, torch.bfloat16).transpose(1, 2)
+    k, v = (_randn(rng, 2, S, 8, 128).to(card, torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    got = flash_ops.flash_attention(q, k, v)
+    want = flash_ref.attention_ref(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got.float(), want, **TOL["bfloat16"])
+
+
 def test_dense_decode_kernel_one_row_many_splits(card):
     """One row, one KV head: the most splits, most of them empty."""
     rng = np.random.default_rng(11)
