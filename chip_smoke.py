@@ -547,9 +547,10 @@ def _mlstm_cost(B, S, H, dh, L, esize, state=True):
 def check_mlstm(gen, dev):
     """The chunkwise mLSTM at xlstm-1.3b's full width (H=4, dh=1024, L=64):
     a 2048-token prefill with a start state (timed), the serving run's boot
-    prefill (B=1, 8 tokens, one chunk of L=8, no state; timed), a ragged
-    300-token prompt with a state, two rows of 130 tokens, and the reduced
-    model's width (dh=32, chunks of 16)."""
+    prefill (B=1, 8 tokens, one chunk of L=8, no state; timed), two rows of
+    a 40-token boot (one chunk, no state: bf16's boot path at B=2), a
+    ragged 300-token prompt with a state, two rows of 130 tokens, and the
+    reduced model's width (dh=32, chunks of 16)."""
     from repro_torch.kernels.mlstm import ops, ref
 
     def inputs(B, S, H, dh, state):
@@ -568,6 +569,7 @@ def check_mlstm(gen, dev):
     errs = {}
     for B, S, H, dh, chunk, with_state in (
             (1, 2048, 4, 1024, 64, True), (1, 8, 4, 1024, 64, False),
+            (2, 40, 4, 1024, 64, False),
             (1, 300, 4, 1024, 64, True), (2, 130, 4, 1024, 64, False),
             (2, 37, 2, 32, 16, True)):
         q, k, v, log_i, log_f, st = inputs(B, S, H, dh, with_state)
@@ -762,10 +764,15 @@ def _wrappers():
 def _reset_launches():
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["mlstm"].boot_launches = 0
 
 
 def _launches():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Each wrapper's launches, and the mLSTM's on its no-state boot path
+    (``mlstm_boot``, of ``mlstm``'s)."""
+    w = _wrappers()
+    return {**{name: fn.launches for name, fn in w.items()},
+            "mlstm_boot": w["mlstm"].boot_launches}
 
 
 def f32_parity(seed, dev):
@@ -915,7 +922,10 @@ def serve_bf16(seed, dev, out):
 
 
 # the device kernels behind the two paged wrappers, by demangled or mangled name
-PAGED_KERNELS = {"paged_decode_attention": ("paged_decode_kernel",),
+PAGED_KERNELS = {"paged_decode_attention": ("decode_kernel<__nv_bfloat16, true>",
+                                            "decode_kernel<float, true>",
+                                            "decode_kernelI13__nv_bfloat16Lb1E",
+                                            "decode_kernelIfLb1E"),
                  "paged_flash_attention": ("tc_kernel<true", "tc_kernelILb1E",
                                            "scalar_kernel<true", "scalar_kernelILb1E")}
 
@@ -1528,6 +1538,7 @@ def xlstm_serve_bf16(seed, dev, out):
     gen = sum(len(r.output) for r in done.values())
     assert not eng.paged and len(done) == len(prompts) and gen == 32 * len(prompts)
     assert len(ttft) == len(prompts) and launches["mlstm"] > 0
+    assert launches["mlstm_boot"] > 0, "the boot prefills took the mLSTM's boot path"
     prefill = sorted(r.ttft for r in done.values())
     ttft = sorted(ttft.values())
     run = {"wall_s": wall, "generated_tokens": gen, "tokens_per_s": gen / wall,
@@ -1594,7 +1605,7 @@ def main():
     emit({"phase": "build", "seconds": build_s, "built": sorted(reports),
           "ptxas": [ln.strip() for v in reports.values() for ln in v.splitlines()
                     if "Used" in ln or "Compiling entry" in ln],
-          "tensor_core_sass": sass_counts("flash_attention")})
+          "tensor_core_sass": {name: sass_counts(name) for name in ("flash_attention", "mlstm")}})
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = [check_paged_decode(gen, dev), check_paged_flash(gen, dev),

@@ -451,7 +451,7 @@ __global__ void __launch_bounds__(128 * NWG) tc_kernel(Args a) {
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
       const uint32_t col = (kk & 3) * 32;
-      sm90::wgmma_ss(
+      sm90::wgmma_ss<64, 0, 0>(
           s, sm90::desc128(q_s + (kk >> 2) * (L::kRows * 128) + wg * 64 * 128 + col, 16, 1024),
           sm90::desc128(ks + (kk >> 2) * (kKeys * 128) + col, 16, 1024));
     }
@@ -526,7 +526,7 @@ __global__ void __launch_bounds__(128 * NWG) tc_kernel(Args a) {
     for (int cb = 0; cb < kCB; ++cb)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        sm90::wgmma_rs_bt(acc[cb], pa[kk],
+        sm90::wgmma_rs<64, 1>(acc[cb], pa[kk],
                           sm90::desc128(vs + cb * (kKeys * 128) + kk * 2048, 1024, 1024));
     sm90::wgmma_commit();
     sm90::wgmma_wait0();

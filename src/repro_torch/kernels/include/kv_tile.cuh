@@ -1,7 +1,6 @@
-// Shared by the port's scalar attention bodies (the dense decode, the flash
-// kernel's float32 body): moving one tile of K/V rows from device memory
-// into shared memory as float32, and the one-token decode step over such a
-// tile; also the dtype helpers and the shared-memory limit every kernel uses.
+// Shared by the port's kernels: the dtype helpers and the shared-memory
+// limit every kernel uses, and, for the flash kernel's float32 body, moving
+// one tile of K/V rows from device memory into shared memory as float32.
 //
 // A tile is `rows` rows of D elements; row t starts at element
 // base + t * row_stride of the tensor.  Each thread moves its share as
@@ -106,112 +105,6 @@ __device__ __forceinline__ void stash_tile(const TileRegs<kMaxVec>& regs, float*
     k_s[t * ldk + d] = 0.f;
     v_s[t * ldv + d] = 0.f;
   }
-}
-
-// ---------------------------------------------------------------------------
-// One-token decode over K/V tiles: the per-tile step of the dense split-K
-// decode (a tile is 32 positions of a row).  A block serves the G query
-// heads of one KV group.
-// ---------------------------------------------------------------------------
-
-// The block's shared memory, in float32, for G heads of D dims and tiles of
-// `tile` positions.
-struct DecodeSmem {
-  float* q;    // [G][D] scaled queries
-  float* k;    // [tile][D + 1] padded K rows: the score loop reads k down
-               // a column without bank conflicts
-  float* v;    // [tile][D]
-  float* p;    // [G][tile] scores, then probabilities
-  float* acc;  // [G][D]
-  float* m;    // [G] running max
-  float* l;    // [G] running sum
-  float* a;    // [G] rescale of this tile
-  int ldk;
-};
-
-__host__ __device__ inline size_t decode_smem_floats(int G, int D, int tile) {
-  return (size_t)2 * G * D + (size_t)tile * (D + 1) + (size_t)tile * D + (size_t)G * tile +
-         3 * (size_t)G;
-}
-
-__device__ __forceinline__ DecodeSmem decode_smem(float* smem, int G, int D, int tile) {
-  DecodeSmem s;
-  s.ldk = D + 1;
-  s.q = smem;
-  s.k = s.q + G * D;
-  s.v = s.k + tile * s.ldk;
-  s.p = s.v + tile * D;
-  s.acc = s.p + G * tile;
-  s.m = s.acc + G * D;
-  s.l = s.m + G;
-  s.a = s.l + G;
-  return s;
-}
-
-// Empty running state: acc = 0, m = -inf, l = 0.
-template <int kThreads>
-__device__ __forceinline__ void decode_state_init(const DecodeSmem& s, int G, int D) {
-  for (int i = threadIdx.x; i < G * D; i += kThreads) s.acc[i] = 0.f;
-  for (int i = threadIdx.x; i < G; i += kThreads) {
-    s.m[i] = kNegInf;
-    s.l[i] = 0.f;
-  }
-}
-
-// Folds the tile in s.k / s.v (its first `rows` rows real, at positions
-// pos0 + t) into the running state: scores of the G heads with the logit
-// softcap (softcap <= 0: none), positions outside [first, len) masked, the
-// online-softmax update of (m, l) and acc = acc * rescale + P V.  Every
-// tile the caller visits holds at least one visible position, so the
-// running max is finite after it.  The caller has synchronised the block
-// after writing the tile; on return the block is synchronised and the
-// tile's shared memory may be rewritten.
-template <int kThreads>
-__device__ __forceinline__ void decode_tile_step(const DecodeSmem& s, int G, int D, int tile,
-                                                 int rows, int pos0, int first, int len,
-                                                 float softcap) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < G * tile; i += kThreads) {
-    const int h = i / tile, t = i - h * tile;
-    const float* qh = s.q + h * D;
-    const float* kt = s.k + t * s.ldk;
-    float x = 0.f;
-    for (int d = 0; d < D; ++d) x = fmaf(qh[d], kt[d], x);
-    if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-    const int pos = pos0 + t;
-    s.p[i] = (t < rows && pos < len && pos >= first) ? x : kNegInf;
-  }
-  __syncthreads();
-  for (int h = warp; h < G; h += kThreads / 32) {  // one warp per query head
-    float* ph = s.p + h * tile;
-    float mx = kNegInf;
-    for (int t = lane; t < tile; t += 32) mx = fmaxf(mx, ph[t]);
-    for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_old = s.m[h];
-    const float m_new = fmaxf(m_old, mx);
-    float sum = 0.f;
-    for (int t = lane; t < tile; t += 32) {
-      const float p = expf(ph[t] - m_new);
-      ph[t] = p;
-      sum += p;
-    }
-    for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      const float alpha = expf(m_old - m_new);
-      s.a[h] = alpha;
-      s.l[h] = s.l[h] * alpha + sum;
-      s.m[h] = m_new;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int h = i / D, d = i - h * D;
-    const float* ph = s.p + h * tile;
-    float a = s.acc[i] * s.a[h];
-    for (int t = 0; t < rows; ++t) a = fmaf(ph[t], s.v[t * D + d], a);
-    s.acc[i] = a;
-  }
-  __syncthreads();
 }
 
 // Raises `kernel`'s dynamic shared-memory limit to `smem` bytes on the

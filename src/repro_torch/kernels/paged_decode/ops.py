@@ -10,20 +10,14 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention.ops import split_count
+from repro_torch.kernels.decode_attention.ops import MAX_GROUP_DIMS, split_count
 from repro_torch.kernels.paged_decode import ref
+from repro_torch.kernels.tickets import tickets_for
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-MAX_GROUP_DIMS = 32 * 256        # G * D: 32 acc registers a thread, 256 threads
-
-# ticket counters of the in-launch combine, one buffer per (device,
-# stream): allocated zeroed once (grown when a call needs more), left zero
-# by every launch.  Launches on one stream never overlap, so no two
-# launches count on the same tickets at once.
-_tickets: dict = {}
 
 
 def n_splits(B: int, Hkv: int, n_pg: int) -> int:
@@ -32,16 +26,20 @@ def n_splits(B: int, Hkv: int, n_pg: int) -> int:
     return split_count(B, Hkv, n_pg)
 
 
-def split_spans(length: int, window, n_pg: int, splits: int, blk: int = 32):
-    """Pages ``[begin, end)`` each split of a row reads, as
-    csrc/paged_decode.cu computes them on the device (the lines from
-    ``first`` to ``n`` of paged_decode_kernel): the row's visible pages,
-    from the one holding ``length - window`` to the one holding its last
-    position (a length past the table is clamped to it), cut into
-    ``splits`` spans of ``ceil(visible / splits)`` pages; a span past the
-    visible range is empty (``end == begin``)."""
+def split_spans(length: int, window, n_pg: int, splits: int, blk: int = 32,
+                positions=None):
+    """Tiles ``[begin, end)`` each split of a row reads, as
+    include/split_decode.cuh computes them on the device (the lines from
+    ``first`` to ``n`` of decode_kernel), for the paged decode (a tile is
+    a page, ``n_pg`` the table width) and the dense one (a tile is 32
+    positions, ``n_pg`` the cache's tiles): the row's visible tiles, from
+    the one holding ``length - window`` to the one holding its last
+    position (a length past the row's ``positions``, by default ``n_pg *
+    blk``, is clamped to it), cut into ``splits`` spans of ``ceil(visible
+    / splits)`` tiles; a span past the visible range is empty (``end ==
+    begin``), and the non-empty ones come first."""
     first = max(0, length - window) if window and window > 0 else 0
-    length = min(length, n_pg * blk)
+    length = min(length, n_pg * blk if positions is None else positions)
     vis_lo = first // blk
     vis_hi = -(-length // blk) if length > first else vis_lo
     per = -(-(vis_hi - vis_lo) // splits)
@@ -50,16 +48,6 @@ def split_spans(length: int, window, n_pg: int, splits: int, blk: int = 32):
         begin = vis_lo + sp * per
         spans.append((begin, begin + max(0, min(begin + per, vis_hi) - begin)))
     return spans
-
-
-def _tickets_for(dev, stream, n: int):
-    key = (dev, stream)
-    t = _tickets.get(key)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 2 * (0 if t is None else t.numel()), 256),
-                        dtype=torch.int32, device=dev)
-        _tickets[key] = t
-    return t
 
 
 def paged_decode_attention(q, k_arena, v_arena, page_table, lengths, *,
@@ -102,7 +90,7 @@ def paged_decode_attention(q, k_arena, v_arena, page_table, lengths, *,
     ns = n_splits(B, Hkv, n_pg)
     part = torch.empty((B, H, ns, D + 2), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tickets = _tickets_for(q.device, stream, B * Hkv)
+    tickets = tickets_for(q.device, stream, B * Hkv)
     fn = _build.function("paged_decode", "paged_decode_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
              page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),

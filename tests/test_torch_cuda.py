@@ -32,6 +32,7 @@ from repro_torch.kernels.mamba_scan import ref as scan_ref  # noqa: E402
 from repro_torch.kernels.mlstm import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.mlstm import ref as mlstm_ref  # noqa: E402
 from repro_torch.kernels.paged_decode import ref as decode_ref  # noqa: E402
+from repro_torch.kernels.tickets import BUFFERS as TICKETS  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.net.simnet import SimNet  # noqa: E402
 from repro_torch.overlay.model_node import ModelNode  # noqa: E402
@@ -266,28 +267,15 @@ def test_paged_decode_tickets_reset_between_calls(card):
     _paged_decode_case(card, "bfloat16", [700, 3])
     _paged_decode_case(card, "bfloat16", [1024, 1, 512, 0, 64, 900, 2, 31])
     _paged_decode_case(card, "float32", [1000, 517, 0, 33])
-    dev = torch.device("cuda", torch.cuda.current_device())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    assert not decode_ops._tickets[(dev, stream)].any()
+    assert not any(t.any() for t in TICKETS.values())
 
 
-def test_paged_decode_on_two_streams_at_once(card):
-    """Calls on two streams at once keep their combines apart (a ticket
-    buffer per stream).  Both streams wait on one event behind a sleep
-    kernel.  Stream 0's calls are 4 rows x 8 KV heads x 9 splits of four
-    pages each (1152-token rows over a 36-page table): 288 blocks, more
-    than the card holds at once (two an SM), so a last wave of 24 blocks
-    runs after the first.  Stream 1's calls have the same grid over short
-    rows, so most of their blocks are empty and finish while that last
-    wave still runs: their tickets of a (row, KV group) are taken between
-    stream 0's.  Every output matches the plain version."""
+def _two_streams(card, call, want_of, lengths):
+    """``call(q, lengths)`` 16 times, alternating between two streams that
+    both wait on one event behind a sleep kernel, so the launches of the
+    two streams run at once; every output must match ``want_of(q,
+    lengths)``."""
     rng = np.random.default_rng(12)
-    ka, va, pt = (t.to(torch.bfloat16) if t.is_floating_point() else t
-                  for t in _arena(rng, card, n_pg=36))
-    splits = decode_ops.n_splits(4, 8, 36)
-    assert all(hi - lo == 4 for lo, hi in decode_ops.split_spans(1152, None, 36, splits))
-    lengths = [torch.tensor(n, dtype=torch.int32, device=card)
-               for n in ([1152] * 4, [33, 1, 40, 64])]
     qs = [_randn(rng, 4, 32, 128).to(card, torch.bfloat16) for _ in range(16)]
     gate, *streams = (torch.cuda.Stream(card) for _ in range(3))
     torch.cuda.synchronize()
@@ -299,12 +287,95 @@ def test_paged_decode_on_two_streams_at_once(card):
     outs = []
     for i, q in enumerate(qs):
         with torch.cuda.stream(streams[i % 2]):
-            outs.append(decode_ops.paged_decode_attention(q, ka, va, pt, lengths[i % 2]))
+            outs.append(call(q, lengths[i % 2]))
     torch.cuda.synchronize()
     for i, (q, got) in enumerate(zip(qs, outs)):
-        want = decode_ref.paged_decode_attention_ref(q.float(), ka.float(), va.float(),
-                                                     pt, lengths[i % 2])
+        torch.testing.assert_close(got.float(), want_of(q, lengths[i % 2]),
+                                   **TOL["bfloat16"])
+    assert not any(t.any() for t in TICKETS.values())
+
+
+def test_paged_decode_on_two_streams_at_once(card):
+    """Calls on two streams at once keep their combines apart (a ticket
+    buffer per stream).  Stream 0's calls are 4 rows x 8 KV heads x 9
+    splits of four pages each (1152-token rows over a 36-page table): 288
+    blocks, more than the card holds at once (two an SM), so a last wave of
+    24 blocks runs after the first.  Stream 1's calls have the same grid
+    over short rows, so most of their blocks are empty and finish while
+    that last wave still runs: their tickets of a (row, KV group) are
+    taken between stream 0's.  Every output matches the plain version."""
+    rng = np.random.default_rng(12)
+    ka, va, pt = (t.to(torch.bfloat16) if t.is_floating_point() else t
+                  for t in _arena(rng, card, n_pg=36))
+    splits = decode_ops.n_splits(4, 8, 36)
+    assert all(hi - lo == 4 for lo, hi in decode_ops.split_spans(1152, None, 36, splits))
+    lengths = [torch.tensor(n, dtype=torch.int32, device=card)
+               for n in ([1152] * 4, [33, 1, 40, 64])]
+    _two_streams(
+        card, lambda q, n: decode_ops.paged_decode_attention(q, ka, va, pt, n),
+        lambda q, n: decode_ref.paged_decode_attention_ref(q.float(), ka.float(),
+                                                           va.float(), pt, n), lengths)
+
+
+def test_dense_decode_on_two_streams_at_once(card):
+    """The dense decode's in-launch combine on two streams at once, as the
+    paged decode's: stream 0's calls are 4 full 1152-position rows (9
+    splits of four tiles each, 288 blocks, two waves), stream 1's short
+    rows whose live blocks finish between them."""
+    rng = np.random.default_rng(15)
+    k, v = (_randn(rng, 4, 1152, 8, 128).to(card, torch.bfloat16) for _ in range(2))
+    splits = dense_ops.n_splits(4, 8, 1152)
+    assert all(hi - lo == 4 for lo, hi in
+               decode_ops.split_spans(1152, None, 36, splits, positions=1152))
+    lengths = [torch.tensor(n, dtype=torch.int32, device=card)
+               for n in ([1152] * 4, [33, 1, 40, 64])]
+    _two_streams(card, lambda q, n: dense_ops.decode_attention(q, k, v, n),
+                 lambda q, n: dense_ref.decode_attention_ref(q.float(), k.float(),
+                                                             v.float(), n), lengths)
+
+
+def test_dense_decode_leaves_its_tickets_at_zero(card):
+    """One dense decode call (its live splits take and reset tickets; the
+    empty ones take none) leaves every ticket zero, and the same call again
+    gives the same output; calls at other batch sizes stay right."""
+    rng = np.random.default_rng(16)
+    q = _randn(rng, 4, 32, 128).to(card, torch.bfloat16)
+    k, v = (_randn(rng, 4, 1024, 8, 128).to(card, torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor([1000, 517, 0, 33], dtype=torch.int32, device=card)
+    a = dense_ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert not any(t.any() for t in TICKETS.values())
+    assert torch.equal(a, dense_ops.decode_attention(q, k, v, lengths))
+    for n in ([100], [700, 3]):
+        ln = torch.tensor(n, dtype=torch.int32, device=card)
+        got = dense_ops.decode_attention(q[:len(n)], k[:len(n)], v[:len(n)], ln)
+        want = dense_ref.decode_attention_ref(q[:len(n)].float(), k[:len(n)].float(),
+                                              v[:len(n)].float(), ln)
         torch.testing.assert_close(got.float(), want, **TOL["bfloat16"])
+    torch.cuda.synchronize()
+    assert not any(t.any() for t in TICKETS.values())
+
+
+@pytest.mark.parametrize("lengths", [[1000, 517, 0, 33], [100]])
+def test_dense_decode_is_one_kernel_a_call(card, lengths):
+    """The profiler sees exactly one device kernel per dense-decode call:
+    the split decode, its partials combined in the same launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(17)
+    B = len(lengths)
+    q = _randn(rng, B, 32, 128).to(card, torch.bfloat16)
+    k, v = (_randn(rng, B, 1024, 8, 128).to(card, torch.bfloat16) for _ in range(2))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=card)
+    dense_ops.decode_attention(q, k, v, ln)              # tickets allocated, library loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            dense_ops.decode_attention(q, k, v, ln)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 3, [e.name for e in kernels]
+    assert all("decode_kernel" in e.name for e in kernels), [e.name for e in kernels]
 
 
 @pytest.mark.parametrize("D", [16, 64, 80, 128, 256])
@@ -415,10 +486,11 @@ def test_mamba_scan_kernel_matches_plain(card, dtype, with_h0, shape):
 
 # (B, S, H, dh, chunk): the reduced model's head width over a ragged tail
 # and short chunks, the JAX kernel test's dh = 64, the full width (dh =
-# 1024) over a ragged tail, and the engine's boot prefill at full width
-# (8 tokens, one chunk of 8)
+# 1024) over a ragged tail, the engine's boot prefill at full width (8
+# tokens, one chunk of 8), and two rows of a 40-token boot (one chunk of
+# 40, its K padded to 48; without a state, the bf16 boot path)
 MLSTM_SHAPES = [(2, 37, 2, 32, 16), (1, 96, 4, 64, 32),
-                (1, 300, 4, 1024, 64), (1, 8, 4, 1024, 64)]
+                (1, 300, 4, 1024, 64), (1, 8, 4, 1024, 64), (2, 40, 4, 1024, 64)]
 # h is a ratio whose denominator cancels (|den| down to exp(-m)), which
 # magnifies the different summation order of the kernel's and cuBLAS's
 # sums over dh: in float32, h is held at the JAX kernel test's 2e-4
@@ -442,15 +514,40 @@ def test_mlstm_kernel_matches_plain(card, dtype, with_state, shape):
     if with_state:
         state = ((_randn(rng, B, H, dh, dh) * 0.1).to(card),
                  (_randn(rng, B, H, dh) * 0.1).to(card), _randn(rng, B, H).to(card))
-    n0 = mlstm_ops.mlstm_chunkwise.launches
+    n0, b0 = mlstm_ops.mlstm_chunkwise.launches, mlstm_ops.mlstm_chunkwise.boot_launches
     h, st = mlstm_ops.mlstm_chunkwise(q, k, v, log_i, log_f, state, chunk=chunk)
     wh, wst = mlstm_ref.mlstm_ref(q.float(), k.float(), v.float(), log_i, log_f,
                                   state, chunk=chunk)
     torch.cuda.synchronize()
     assert mlstm_ops.mlstm_chunkwise.launches == n0 + 1
+    boot = dtype == "bfloat16" and not with_state and S <= chunk
+    assert mlstm_ops.mlstm_chunkwise.boot_launches == b0 + boot
     assert h.dtype == dt and all(t.dtype == torch.float32 for t in st)
     torch.testing.assert_close(h.float(), wh, **MLSTM_TOL_H[dtype])
     for got, want in zip(st, wst):
+        torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_kernel_continues_its_own_state(card, dtype):
+    """Two calls chained through the state equal one call: a 40-token boot
+    (no state, one chunk: the bf16 boot path) continued by 200 tokens from
+    its state (the recurrent walk), against one 240-token call of the
+    plain version, at xlstm-1.3b's head width."""
+    B, S1, S, H, dh = 2, 40, 240, 4, 1024
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(18)
+    q = (_randn(rng, B, S, H, dh) / dh ** 0.5).to(card, dt)
+    k, v = (_randn(rng, B, S, H, dh).to(card, dt) for _ in range(2))
+    log_i = (_randn(rng, B, S, H) * 2).to(card)
+    log_f = torch.nn.functional.logsigmoid(_randn(rng, B, S, H) + 4).to(card)
+    x = (q, k, v, log_i, log_f)
+    h1, st1 = mlstm_ops.mlstm_chunkwise(*(t[:, :S1].contiguous() for t in x), chunk=64)
+    h2, st2 = mlstm_ops.mlstm_chunkwise(*(t[:, S1:].contiguous() for t in x), st1, chunk=64)
+    wh, wst = mlstm_ref.mlstm_ref(q.float(), k.float(), v.float(), log_i, log_f, chunk=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat([h1, h2], dim=1).float(), wh, **MLSTM_TOL_H[dtype])
+    for got, want in zip(st2, wst):
         torch.testing.assert_close(got, want, **TOL[dtype])
 
 
