@@ -471,10 +471,11 @@ def _scan_cost(B, S, H, P, N, L, esize, h0=True):
 
 def check_mamba_scan(gen, dev):
     """The scan at the serving run's boot prefill (B=1, 8 tokens and a
-    shorter 5-token prompt: one chunk of L=S, no initial state), at the
-    full-width 2048-token prefill's shape (64 heads of 128, N=16, L=128, 16
-    chunks; timed), and at a ragged tail and short chunks with a state to
-    continue from."""
+    shorter 5-token prompt: one chunk of L=S, no initial state; two rows
+    of 8; bf16 takes the one-launch boot path), at the full-width
+    2048-token prefill's shape (64 heads of 128, N=16, L=128, 16 chunks;
+    timed; bf16: chunk states, state passing, chunk outputs), and at a
+    ragged tail and short chunks with a state to continue from."""
     from repro_torch.kernels.mamba_scan import ops, ref
 
     def inputs(B, S, H, P, N):
@@ -488,8 +489,8 @@ def check_mamba_scan(gen, dev):
     errs = {}
     for B, S, H, P, N, chunk, with_h0 in (
             (1, 8, 64, 128, 16, 128, False), (1, 5, 64, 128, 16, 128, False),
-            (1, 2048, 64, 128, 16, 128, True), (2, 300, 8, 128, 16, 128, True),
-            (2, 37, 2, 128, 8, 16, True)):
+            (2, 8, 64, 128, 16, 128, False), (1, 2048, 64, 128, 16, 128, True),
+            (2, 300, 8, 128, 16, 128, True), (2, 37, 2, 128, 8, 16, True)):
         xbar, loga, Bm, Cm, h0 = inputs(B, S, H, P, N)
         h0 = h0 if with_h0 else None
         for dtype in (torch.float32, torch.bfloat16):
@@ -511,10 +512,11 @@ def check_mamba_scan(gen, dev):
               event_ms(lambda: ops.mamba_scan(xb, loga, bm, cm, h, chunk=L), iters=iters))
         plain_ms = time_ms(lambda: ref.mamba_scan_ref(xb, loga, bm, cm, h, chunk=L),
                            iters=plain_iters)
-        return ms, plain_ms, bound(*_scan_cost(B, S, H, P, N, L, 2, h0), torch.bfloat16)
+        return ms, plain_ms, bound(*_scan_cost(B, S, H, P, N, L, 2, h0), torch.bfloat16), \
+            ops.plan(B, S, H, P, N, min(L, S), torch.bfloat16, h0)
 
-    ms, plain_ms, (bound_ms, bound_by) = timed(2048, True, 20, 5)
-    s_ms, s_plain_ms, (s_bound_ms, _) = timed(8, False, 50, 10)
+    ms, plain_ms, (bound_ms, bound_by), p = timed(2048, True, 20, 5)
+    s_ms, s_plain_ms, (s_bound_ms, _), s_p = timed(8, False, 50, 10)
     return {"name": "mamba_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
             "replaces": "src/repro/kernels/mamba_scan/kernel.py:63",
@@ -522,9 +524,11 @@ def check_mamba_scan(gen, dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "library": "none: no single PyTorch call computes the SSD scan",
             "timed_at": "B=1 S=2048 H=64 P=128 N=16 L=128 bf16 with h0 (16 chunks)",
+            "path": [p["path"], [k["name"] for k in p["kernels"]]],
             "serving": {"shape": "B=1 S=8 H=64 P=128 N=16 L=8 bf16, no h0 (the boot prefill)",
                         "ms": s_ms[0], "event_ms": s_ms[1], "plain_ms": s_plain_ms,
-                        "bound_ms": s_bound_ms},
+                        "bound_ms": s_bound_ms,
+                        "path": [s_p["path"], [k["name"] for k in s_p["kernels"]]]},
             "errs": errs}
 
 
@@ -627,10 +631,12 @@ def check_chunk_hash(seed, dev):
     package's bench_kernels.py); the ranged entry on the overlay phases'
     prompts with their Sentry-style L (one sync broadcast, the shape the
     overlay path launches and the one the ``kernels`` line reports); and the
-    ranged entry on one 600-token prompt (one ``decide()``).  Beside each,
-    the host's wall time for the Python ``hrtree.preprocess`` loop over the
-    same prompts (what the JAX package's node pays) and for the port's
-    ``preprocess_batch`` (table, copies, launch and ``.cpu()``)."""
+    ranged entry on one 600-token prompt (one ``decide()``).  Beside each
+    ranged shape, ``floor_ms``: an empty kernel with its launch shape.
+    Beside each shape, the host's wall time for the Python
+    ``hrtree.preprocess`` loop over the same prompts (what the JAX
+    package's node pays) and for the port's ``preprocess_batch`` (table,
+    copies, launch and ``.cpu()``)."""
     from repro_torch import configs
     from repro_torch.core import hrtree
     from repro_torch.kernels.chunk_hash import ops, ref
@@ -692,6 +698,8 @@ def check_chunk_hash(seed, dev):
         nb_ms, nb_by = bound(nb, 4 * int(ln.sum()), torch.float32)
         shapes[name] = {
             "ms": time_ms(lambda: ops.chunk_hash_ranges(flat, st, ln, bits)),
+            # an empty kernel with the same launch shape: a launch's own cost
+            "floor_ms": time_ms(lambda: ops.launch_floor(len(ln), dev)),
             "plain_ms": time_ms(lambda: ref.chunk_hash_ranges_ref(flat, st, ln, bits), iters=10),
             "bytes": nb, "bound_ms": nb_ms, "bound_by": nb_by,
             "chunks": len(ln),
@@ -701,7 +709,8 @@ def check_chunk_hash(seed, dev):
     return {"name": "chunk_hash", "route": "cuda",
             "source": "src/repro_torch/kernels/chunk_hash/csrc/chunk_hash.cu",
             "replaces": "src/repro/kernels/chunk_hash/kernel.py:59",
-            **_summary(errs), "ms": top["ms"], "plain_ms": top["plain_ms"],
+            **_summary(errs), "ms": top["ms"], "floor_ms": top["floor_ms"],
+            "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": None,
             "library": "none: no single PyTorch call computes the chunk hash",
             "timed_at": f"{sync_name} bits={bits} (int64 out)",
@@ -764,15 +773,18 @@ def _wrappers():
 def _reset_launches():
     for fn in _wrappers().values():
         fn.launches = 0
-    _wrappers()["mlstm"].boot_launches = 0
+    for name in ("mlstm", "mamba_scan"):
+        _wrappers()[name].boot_launches = 0
 
 
 def _launches():
-    """Each wrapper's launches, and the mLSTM's on its no-state boot path
-    (``mlstm_boot``, of ``mlstm``'s)."""
+    """Each wrapper's launches, and the mLSTM's and the scan's on their
+    no-state boot paths (``mlstm_boot`` of ``mlstm``'s, ``mamba_scan_boot``
+    of ``mamba_scan``'s)."""
     w = _wrappers()
     return {**{name: fn.launches for name, fn in w.items()},
-            "mlstm_boot": w["mlstm"].boot_launches}
+            "mlstm_boot": w["mlstm"].boot_launches,
+            "mamba_scan_boot": w["mamba_scan"].boot_launches}
 
 
 def f32_parity(seed, dev):
@@ -940,19 +952,23 @@ def _paged_kernel_ms(rows):
     return out
 
 
-def _profile(cfg, params, prompts, dev, out, fname="profile_bf16.txt", max_new=16):
+def _profile(cfg, params, prompts, dev, out, fname="profile_bf16.txt", max_new=16,
+             count=()):
     """Device time by kernel over a short non-speculative serve of
     ``prompts`` (``max_new`` new tokens each): the device's busy share of
     the wall time, and the kernels that take it (full table under
-    ``--out``)."""
+    ``--out``); the wrappers' launches in the window, and for each key of
+    ``count`` the device kernels whose names hold it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.lm import LM
     from repro_torch.serving.engine import RealEngine
     eng = RealEngine(cfg, LM(cfg, dev), params, max_len=1024, device=dev)
     _serve(eng, prompts[:1], 2)                               # warm-up
+    before = _launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, s, wall, _ = _serve(eng, prompts, max_new)
+    launches = {k: n - before[k] for k, n in _launches().items()}
     # device-side events only: a CPU op also reports the time of the
     # kernels it launched, which would count them twice
     rows = sorted(((e.self_device_time_total, e.key, e.count)
@@ -967,6 +983,8 @@ def _profile(cfg, params, prompts, dev, out, fname="profile_bf16.txt", max_new=1
             "decode_calls": s.metrics["decode_calls"],
             "prefill_dispatches": eng.prefill_dispatches,
             "paged_kernels": _paged_kernel_ms([(k, us / 1e3, n) for us, k, n in rows]),
+            "launches": launches,
+            "kernel_counts": {key: sum(n for _, k, n in rows if key in k) for key in count},
             "top": [[k, us / 1e3, n] for us, k, n in rows[:12]]}
 
 
@@ -1355,6 +1373,11 @@ def _leaves(tree):
     return [tree]
 
 
+# the bf16 scan's device kernels (csrc/mamba_scan.cu): the chunk kernels and
+# the state pass
+SCAN_KERNELS = ("chunk_tc", "pass_states")
+
+
 def jamba_serve_bf16(seed, dev, out):
     """The cut jamba in bf16 (~26.5 GB) served from the dense slot pool:
     8 requests of 64-192 random tokens, 32 new tokens each, 4 slots; then
@@ -1378,6 +1401,7 @@ def jamba_serve_bf16(seed, dev, out):
     assert not eng.paged and len(done) == len(prompts) and gen == 32 * len(prompts)
     assert len(ttft) == len(prompts)
     assert all(launches[k] > 0 for k in ("decode_attention", "mamba_scan", "flash_attention"))
+    assert launches["mamba_scan_boot"] == launches["mamba_scan"], "boot prefills: the boot path"
     prefill = sorted(r.ttft for r in done.values())
     ttft = sorted(ttft.values())
     run = {"wall_s": wall, "generated_tokens": gen, "tokens_per_s": gen / wall,
@@ -1395,7 +1419,12 @@ def jamba_serve_bf16(seed, dev, out):
     # prompts cut to 24 tokens (~39 decodes), not the whole 173 and 183
     # (~349 decodes, ~4 minutes of post-processing on an H100 machine)
     profile = _profile(cfg, params, [p[:24] for p in prompts[:2]], dev, out,
-                       "profile_jamba_bf16.txt", 8)
+                       "profile_jamba_bf16.txt", 8, count=SCAN_KERNELS)
+    scan_calls = profile["launches"]["mamba_scan"]
+    profile["scan_device_kernels_a_call"] = sum(
+        profile["kernel_counts"].values()) / scan_calls if scan_calls else "not measured"
+    assert scan_calls > 0 and profile["scan_device_kernels_a_call"] == 1, \
+        "the serving scan calls are one device kernel each (the boot path)"
 
     # one long prompt through the normal prefill entry point
     model = LM(cfg, dev)
@@ -1605,7 +1634,8 @@ def main():
     emit({"phase": "build", "seconds": build_s, "built": sorted(reports),
           "ptxas": [ln.strip() for v in reports.values() for ln in v.splitlines()
                     if "Used" in ln or "Compiling entry" in ln],
-          "tensor_core_sass": {name: sass_counts(name) for name in ("flash_attention", "mlstm")}})
+          "tensor_core_sass": {name: sass_counts(name)
+                               for name in ("flash_attention", "mlstm", "mamba_scan")}})
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = [check_paged_decode(gen, dev), check_paged_flash(gen, dev),

@@ -10,12 +10,12 @@
 # OUT receives smoke.log, smoke.err, cuda_tests.log and chip_smoke.py's
 # long outputs; TREE (default: the current directory) is the checkout to
 # run, for example an unpacked `git archive` of the tree.  BASE, another
-# checkout (say, the parent commit's), adds a last step: the four attention
-# kernels' and the mLSTM's checks of chip_smoke.py (check_paged_decode,
-# check_paged_flash, check_dense_flash, check_dense_decode, check_mlstm) in
-# turns BASE, TREE, TREE, BASE, each tree building and timing its own
-# kernels on this card, one JSON line a kernel in OUT/turns.log.  A summary
-# of each step is printed at the end.
+# checkout (say, the parent commit's), adds a last step: every kernel's
+# check of chip_smoke.py (check_paged_decode, check_paged_flash,
+# check_dense_flash, check_dense_decode, check_mamba_scan, check_mlstm,
+# check_chunk_hash) in turns BASE, TREE, TREE, BASE, each tree building and
+# timing its own kernels on this card, one JSON line a kernel in
+# OUT/turns.log.  A summary of each step is printed at the end.
 set -u
 out=$(realpath -m "$1")
 mkdir -p "$out"
@@ -60,14 +60,16 @@ _build.build_all()
 dev = torch.device("cuda")
 gen = torch.Generator(device=dev).manual_seed(0)
 for check in (c.check_paged_decode, c.check_paged_flash, c.check_dense_flash,
-              c.check_dense_decode, c.check_mlstm):
-    r = check(gen, dev)
+              c.check_dense_decode, c.check_mamba_scan, c.check_mlstm,
+              c.check_chunk_hash):
+    r = check(0 if check is c.check_chunk_hash else gen, dev)
     print(json.dumps({"tree": os.getcwd(), **{k: r.get(k) for k in (
-        "name", "ms", "plain_ms", "library_ms", "bound_ms", "serving")}}), flush=True)
+        "name", "ms", "plain_ms", "library_ms", "bound_ms", "serving", "shapes")}}),
+        flush=True)
 EOF
         ) >> "$out/turns.log" 2>&1 || turns_rc=1
     done
     echo "kernel turns rc=$turns_rc"
-    grep '^{' "$out/turns.log" | cut -c1-400
+    grep '^{' "$out/turns.log" | cut -c1-600
 fi
 [ "$smoke_rc" -eq 0 ] && [ "$tests_rc" -eq 0 ] && [ "$turns_rc" -eq 0 ]

@@ -15,6 +15,17 @@ from repro_torch.kernels.chunk_hash import ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _L, _P, _P, _I, _I, _I, _P, _P]
+RANGED_GROUP = 32              # lanes a chunk on the ranged entry: kRangedGroup
+
+
+def group_size(width: int) -> int:
+    """Lanes that hash one chunk of the fixed entry (``group_size`` in
+    csrc/chunk_hash.cu): enough for one 16-byte load of 4 tokens a lane to
+    cover the width in one round, at most a warp."""
+    g = 1
+    while g < 32 and 4 * g < width:
+        g *= 2
+    return g
 
 
 def _check_bits(bits: int):
@@ -68,6 +79,15 @@ def chunk_hash_ranges(tokens, starts, lens, bits: int = 8):
     if not all(t.is_contiguous() for t in (tokens, starts, lens)):
         raise ValueError("chunk hash needs contiguous inputs")
     return _launch(chunk_hash_ranges, tokens, starts, lens, 0, starts.numel(), bits)
+
+
+def launch_floor(n_chunks: int, device):
+    """Launches an empty kernel with the ranged entry's launch shape for
+    ``n_chunks`` chunks on ``device``'s current stream: its device time is
+    the floor under the ranged entry's (a launch that does nothing)."""
+    fn = _build.function("chunk_hash", "chunk_hash_floor", [_I, _P])
+    _build.check(fn(n_chunks, torch.cuda.current_stream(device).cuda_stream),
+                 "chunk_hash_floor")
 
 
 chunk_hash_fixed.launches = 0

@@ -456,10 +456,13 @@ def test_dense_decode_kernel_one_row_many_splits(card):
 
 # (B, S, H, P, N, chunk): the full-width prefill's chunk and head shape,
 # a ragged tail, chunks shorter than 128, a prompt shorter than a chunk,
-# and the engine's boot prefill at full width (8 tokens, one chunk of 8)
+# the engine's boot prefill at full width (8 tokens, one chunk of 8), two
+# rows of it (without h0: the bf16 boot path at B = 2), and 8 full-width
+# chunks (the chunk launches' grid over chunks and heads)
 SCAN_SHAPES = [(1, 512, 4, 128, 16, 128), (2, 300, 2, 128, 16, 128),
                (2, 37, 2, 32, 8, 16), (1, 96, 4, 64, 16, 32),
-               (3, 5, 2, 128, 16, 128), (1, 8, 64, 128, 16, 128)]
+               (3, 5, 2, 128, 16, 128), (1, 8, 64, 128, 16, 128),
+               (2, 8, 64, 128, 16, 128), (1, 1024, 8, 128, 16, 128)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -473,15 +476,76 @@ def test_mamba_scan_kernel_matches_plain(card, dtype, with_h0, shape):
     loga = -torch.nn.functional.softplus(_randn(rng, B, S, H)).to(card)
     Bm, Cm = ((_randn(rng, B, S, N) * 0.5).to(card, dt) for _ in range(2))
     h0 = (_randn(rng, B, H, N, P) * 0.1).to(card) if with_h0 else None
-    n0 = scan_ops.mamba_scan.launches
+    n0, b0 = scan_ops.mamba_scan.launches, scan_ops.mamba_scan.boot_launches
     y, h = scan_ops.mamba_scan(xbar, loga, Bm, Cm, h0, chunk=chunk)
     wy, wh = scan_ref.mamba_scan_ref(xbar.float(), loga, Bm.float(),
                                      Cm.float(), h0, chunk=chunk)
     torch.cuda.synchronize()
     assert scan_ops.mamba_scan.launches == n0 + 1
+    boot = dtype == "bfloat16" and not with_h0 and S <= chunk
+    assert scan_ops.mamba_scan.boot_launches == b0 + boot
     assert y.dtype == dt and h.dtype == torch.float32
     torch.testing.assert_close(y.float(), wy, **TOL[dtype])
     torch.testing.assert_close(h, wh, **TOL[dtype])
+
+
+def _scan_case(card, dt, B, S, H, P, N, seed):
+    rng = np.random.default_rng(seed)
+    return ((_randn(rng, B, S, H, P) * 0.5).to(card, dt),
+            -torch.nn.functional.softplus(_randn(rng, B, S, H)).to(card),
+            (_randn(rng, B, S, N) * 0.5).to(card, dt), (_randn(rng, B, S, N) * 0.5).to(card, dt))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_continues_its_own_state(card, dtype):
+    """Two calls chained through the state equal one call: an 8-token boot
+    (no state, one chunk: the bf16 boot path) continued by 300 tokens from
+    its state (chunk states, state passing, chunk outputs), against one
+    308-token call of the plain version, at jamba's width."""
+    B, S1, S, H, P, N = 2, 8, 308, 8, 128, 16
+    dt = configs.torch_dtype(dtype)
+    x = _scan_case(card, dt, B, S, H, P, N, 19)
+    y1, h1 = scan_ops.mamba_scan(*(t[:, :S1].contiguous() for t in x), chunk=128)
+    y2, h2 = scan_ops.mamba_scan(*(t[:, S1:].contiguous() for t in x), h1, chunk=128)
+    xbar, loga, Bm, Cm = x
+    wy, wh = scan_ref.mamba_scan_ref(xbar.float(), loga, Bm.float(), Cm.float(), chunk=128)
+    torch.cuda.synchronize()
+    # the plain version chunks the 308 steps from 0, the chained calls from
+    # 0 and from 8: the same function, other chunk boundaries
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1).float(), wy, **TOL[dtype])
+    torch.testing.assert_close(h2, wh, **TOL[dtype])
+
+
+@pytest.mark.parametrize("P,N,chunk", [(128, 12, 128), (36, 16, 128), (128, 16, 256)])
+def test_mamba_scan_refuses_bf16_shapes_off_the_tensor_cores(card, P, N, chunk):
+    """bf16 runs only on the tensor-core kernels (N 8 or 16, P a multiple of
+    8 up to 128, chunks up to 128): another shape raises, no fallback."""
+    x = _scan_case(card, torch.bfloat16, 1, 300, 2, P, N, 25)
+    with pytest.raises(ValueError, match="unsupported bf16 scan shape"):
+        scan_ops.mamba_scan(*x, chunk=chunk)
+
+
+@pytest.mark.parametrize("S,with_h0,kernels", [(8, False, 1), (300, True, 3), (5, True, 3)])
+def test_mamba_scan_device_kernels_a_call(card, S, with_h0, kernels):
+    """The profiler sees one device kernel a bf16 call on the boot path (no
+    state, one chunk: jamba's serving prefills) and three otherwise (chunk
+    states, state passing, chunk outputs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    B, H, P, N = 1, 64, 128, 16
+    x = _scan_case(card, torch.bfloat16, B, S, H, P, N, 23)
+    h0 = (_randn(np.random.default_rng(24), B, H, N, P) * 0.1).to(card) if with_h0 else None
+    scan_ops.mamba_scan(*x, h0, chunk=128)              # library loaded, smem limits raised
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            scan_ops.mamba_scan(*x, h0, chunk=128)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 3 * kernels, names
+    assert all("chunk_tc" in n or "pass_states" in n for n in names), names
+    if kernels == 1:
+        assert all("chunk_tc" in n for n in names), names
 
 
 # (B, S, H, dh, chunk): the reduced model's head width over a ragged tail
@@ -631,6 +695,46 @@ def test_chunk_hash_ranges_kernel_matches_plain(card, bits):
     assert torch.equal(got.cpu(), want) and want[-2:].tolist() == [-1, -1]
     assert got.cpu()[:-2].tolist() == [hrtree.chunk_hash(flat[s:s + k].tolist(), bits)
                                       for s, k in zip(starts, lens[:-2])]
+
+
+@pytest.mark.parametrize("bits", [8, 32])
+def test_chunk_hash_ranges_short_long_and_unaligned(card, bits):
+    """Every length 0..40 (shorter than a round of the kernel's lane
+    group) at each 4-byte slot of a 16-byte line, lengths past 1,024, and
+    the same over a view of the tokens that starts mid-line: bit-exact."""
+    rng = np.random.default_rng(40 + bits)
+    base = torch.from_numpy(rng.integers(0, TOP, 6003, endpoint=True).astype(np.int32))
+    base[7] = TOP
+    lens = [n for n in range(41) for _ in range(4)] + [1025, 1100, 3000, 5990]
+    starts = [100 + 9 * i + i % 4 for i in range(41 * 4)] + [3, 1, 2999, 0]
+    st, ln = (torch.tensor(v, dtype=torch.int32) for v in (starts, lens))
+    for off in (0, 1, 3):                  # the view's first token's slot in its line
+        flat = base[off:6000 + off]
+        got = hash_ops.chunk_hash_ranges(flat.to(card), st.to(card), ln.to(card), bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), hash_ref.chunk_hash_ranges_ref(flat, st, ln, bits))
+        assert got.cpu().tolist() == [hrtree.chunk_hash(flat[s:s + k].tolist(), bits)
+                                      for s, k in zip(starts, lens)]
+
+
+@pytest.mark.parametrize("width", [1, 3, 5, 31, 1100])
+def test_chunk_hash_fixed_short_and_long_widths(card, width):
+    """Widths under a lane group's round and past 1,024, in rows that start
+    at every 4-byte slot of a line (a view of a flat buffer): bit-exact."""
+    rng = np.random.default_rng(width)
+    B, S = 3, 4 * width
+    flat = torch.from_numpy(rng.integers(0, TOP, B * S + 3, endpoint=True).astype(np.int32))
+    for off in (0, 1, 2, 3):
+        toks = flat[off:off + B * S].view(B, S)
+        got = hash_ops.chunk_hash_fixed(flat.to(card)[off:off + B * S].view(B, S), width, 16)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), hash_ref.chunk_hash_fixed_ref(toks, width, 16))
+
+
+def test_chunk_hash_launch_floor_runs(card):
+    """The empty kernel with the ranged entry's launch shape runs."""
+    hash_ops.launch_floor(44, card)
+    torch.cuda.synchronize()
 
 
 def test_preprocess_batch_on_card_matches_cpu(card):

@@ -3,11 +3,18 @@ decodes' plan (the Python twin of the span arithmetic in
 ``include/split_decode.cuh``, shared by the paged and the dense decode),
 the algebra of their in-launch combine against the unsplit plain version,
 the flash kernel's launch plan (rows and shared memory) for every head
-layout a registered config has, in both registries, and the mLSTM's
-split (``kernels/mlstm/ref.py`` ``mlstm_tiled``: the gate pre-pass, the
-state in tiles, the no-state boot path, the bf16 pairs) against the JAX
-kernel and the plain version, with its launch plan.  A launch refused for
-too much shared memory never runs, so these catch it before the card."""
+layout a registered config has, in both registries, the mLSTM's split
+(``kernels/mlstm/ref.py`` ``mlstm_tiled``: the gate pre-pass, the state
+in tiles, the no-state boot path, the bf16 pairs) and the SSD scan's
+(``kernels/mamba_scan/ref.py`` ``mamba_scan_tiled``: chunk states, state
+passing, chunk outputs, the boot path, the bf16 roundings) against the
+JAX kernels and the plain versions, with their launch plans, and the
+chunk hash's lane split (``kernels/chunk_hash/ref.py``
+``chunk_hash_lanes``) against ``core/hrtree.chunk_hash``.  A launch
+refused for too much shared memory never runs, so these catch it before
+the card."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -19,15 +26,22 @@ from hypothesis import strategies as st  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import base  # noqa: E402
+from repro.kernels.mamba_scan.kernel import mamba_scan_pallas  # noqa: E402
 from repro.kernels.mlstm.ops import mlstm_chunkwise as j_mlstm  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.core import hrtree  # noqa: E402
+from repro_torch.kernels.chunk_hash import ops as hash_ops  # noqa: E402
+from repro_torch.kernels.chunk_hash import ref as hash_ref  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dense_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dense_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.mamba_scan import ref as scan_ref  # noqa: E402
 from repro_torch.kernels.mlstm import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.mlstm import ref as mlstm_ref  # noqa: E402
 from repro_torch.kernels.paged_decode import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.paged_decode import ref as decode_ref  # noqa: E402
+from repro_torch.models import mamba as mamba_model  # noqa: E402
 from repro_torch.models.xlstm import mlstm_dims  # noqa: E402
 
 BLK = 32
@@ -389,3 +403,174 @@ def test_mlstm_plan_at_the_serving_shapes():
     assert walk["kernels"][1]["smem"] == 1024 + 4 * 32768 + 4096 + 8192 + 4 * 8192 + 4 * (
         3 * 2048 + 4 * 64 + 2 * 256 + 64 * 64 + 1024) == 225_280
     assert mlstm_ops.warpgroups(32) == (1, 1) and mlstm_ops.warpgroups(1024) == (4, 4)
+
+
+# --------------------------------------------------- SSD scan: the kernels' split
+def _scan_inputs(B, S, H, P, N, seed, h0=True):
+    """The card tests' distributions, made with numpy: xbar (B, S, H, P),
+    loga (B, S, H), Bm and Cm (B, S, N), h0 (B, H, N, P) or None."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32))
+    xbar, loga = f(B, S, H, P, scale=0.5), -torch.nn.functional.softplus(f(B, S, H))
+    Bm, Cm = f(B, S, N, scale=0.5), f(B, S, N, scale=0.5)
+    return xbar, loga, Bm, Cm, (f(B, H, N, P, scale=0.1) if h0 else None)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,L,h0", [
+    (2, 16, 2, 32, 8, 16, False),      # the boot path: no start state, one chunk
+    (2, 16, 2, 32, 8, 16, True),       # one chunk from a state: three launches
+    (1, 96, 2, 64, 16, 32, True),      # chunks in parallel from a state
+    (2, 59, 3, 32, 8, 16, False),      # from an empty state, a ragged tail
+], ids=["boot", "one-chunk-h0", "chunks-h0", "ragged-empty"])
+def test_scan_split_matches_the_jax_kernel(B, S, H, P, N, L, h0):
+    """The split (chunk states, state passing, chunk outputs, or the boot
+    path) in float32 against ``mamba_scan_pallas`` in interpret mode at the
+    port's scan tolerance (tests/test_torch_mamba.py), the ragged tail
+    zero-padded for the JAX kernel as its callers pad it."""
+    xbar, loga, Bm, Cm, hs = _scan_inputs(B, S, H, P, N, 31, h0)
+    y, h = scan_ref.mamba_scan_tiled(xbar, loga, Bm, Cm, hs, chunk=L)
+    C = -(-S // L)
+    pad = C * L - S
+    jx = _to_jax_layout(torch.nn.functional.pad(xbar, (0, 0, 0, 0, 0, pad)), L)
+    jl = _to_jax_layout(torch.nn.functional.pad(loga, (0, 0, 0, pad)), L)
+    jb, jc = (jnp.asarray(torch.nn.functional.pad(t, (0, 0, 0, pad)).numpy()
+                          .reshape(B, C, L, N)) for t in (Bm, Cm))
+    jy, jh = mamba_scan_pallas(jx, jl, jb, jc, None if hs is None else jnp.asarray(hs.numpy()),
+                               interpret=True)
+    jy = np.moveaxis(np.asarray(jy), 1, 3).reshape(B, C * L, H, P)[:, :S]
+    np.testing.assert_allclose(y.numpy(), jy, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,L,h0", [
+    (1, 300, 2, 128, 16, 128, True), (2, 8, 3, 128, 16, 128, False),
+    (2, 37, 2, 32, 8, 16, True), (1, 96, 4, 64, 16, 32, False)])
+def test_scan_split_is_the_plain_version_in_float32(B, S, H, P, N, L, h0):
+    """Without the bf16 roundings the split computes the plain version's
+    function: the chunks' states passed in order equal the walk's carry."""
+    x = _scan_inputs(B, S, H, P, N, 32, h0)
+    y, h = scan_ref.mamba_scan_tiled(*x, chunk=L)
+    wy, wh = scan_ref.mamba_scan_ref(*x, chunk=L)
+    torch.testing.assert_close(y, wy, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, wh, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,H,h0", [(1, 2048, 2, True), (2, 8, 4, False), (1, 300, 3, False)],
+                         ids=["prefill-h0", "boot", "ragged"])
+def test_scan_bf16_roundings_hold_the_bf16_tolerance_at_full_width(B, S, H, h0):
+    """jamba's width (P = 128, N = 16, L = 128), bf16 inputs: the split
+    with the bf16 kernels' roundings (att, B o w, C o exp(lcum) and the
+    entering state each rounded to bf16 once, y rounded to bf16) against
+    the plain version in float32, within the card tests' bf16 tolerance,
+    y and the state.  att's rounding, the plain version's own, takes most
+    of it: a single rounding of the state's operands suffices."""
+    xbar, loga, Bm, Cm, hs = _scan_inputs(B, S, H, 128, 16, 33, h0)
+    xb, bb, cb = (t.to(torch.bfloat16) for t in (xbar, Bm, Cm))
+    y, h = scan_ref.mamba_scan_tiled(xb, loga, bb, cb, hs, chunk=128, rounding="bf16")
+    wy, wh = scan_ref.mamba_scan_ref(xb.float(), loga, bb.float(), cb.float(), hs, chunk=128)
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), wy, **BF16_TOL)
+    torch.testing.assert_close(h, wh, **BF16_TOL)
+    assert _tol_ratio(y.float(), wy) < 0.9 and _tol_ratio(h, wh) < 0.3
+
+
+def _mamba_shapes():
+    """(P, N, L) of every registered config with Mamba layers, full and
+    reduced (d_model 64 and the port's tests' 128), and the card tests'
+    narrow heads."""
+    shapes = {(32, 8, 16), (64, 16, 32)}
+    for name in sorted(configs._REGISTRY):
+        full = configs.get_config(name)
+        if full.mamba is None:
+            continue
+        for cfg in (full, full.reduced(), dataclasses.replace(full.reduced(), d_model=128)):
+            _, _, P, N = mamba_model.dims(cfg)
+            shapes.add((P, N, cfg.mamba.chunk))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("P,N,L", _mamba_shapes(), ids=lambda v: str(v))
+def test_scan_plan_fits_every_config(P, N, L, dtype):
+    """At every Mamba config's head width, state and chunk, for prompts of
+    one step, one chunk and several, with and without a start state: bf16
+    runs on the tensor-core kernels, the path is the boot path exactly for
+    bf16 with no state and one chunk, each kernel's shared memory fits the
+    card's 232,448 bytes, and the grids cover the chunks, heads and
+    columns."""
+    assert {(128, 16, 128), (128, 8, 16)} <= set(_mamba_shapes())
+    for S in (1, 8, L, 3 * L + 1, 2048):
+        for h0 in (False, True):
+            Lc = min(L, S)
+            p = scan_ops.plan(2, S, 4, P, N, Lc, dtype, h0)
+            boot = dtype == torch.bfloat16 and not h0 and S <= L
+            assert (p["path"] == "boot") == boot
+            assert (p["path"] == "scalar") == (dtype == torch.float32)
+            for kn in p["kernels"]:
+                assert kn["smem"] <= scan_ops.MAX_SMEM, (S, h0, kn)
+                assert kn["threads"] <= 1024 and kn["threads"] % 128 == 0
+            n_chunks = -(-S // Lc)
+            for kn in p["kernels"]:
+                if kn["name"].startswith("chunk_tc"):
+                    # two blocks fit an SM; the units cover the chunks, heads and
+                    # columns, and the blocks take equal shares of them
+                    assert scan_ops.BLOCKS_PER_SM * (kn["smem"] + 1024) <= scan_ops.SM_SMEM
+                    rows, chunks, groups = kn["units"]
+                    assert (rows, chunks) == (8, n_chunks)
+                    assert groups * kn["cols"] >= P > (groups - 1) * kn["cols"]
+                    n_units, (blocks,) = rows * chunks * groups, kn["grid"]
+                    assert blocks <= scan_ops.BLOCKS_PER_SM * scan_ops.SMS
+                    assert blocks * -(-n_units // blocks) >= n_units > (blocks - 1) * -(
+                        -n_units // blocks)
+            if p["path"] == "chunked":
+                assert p["scratch"] == 3 * 8 * n_chunks * N * P // 2 + 8 * n_chunks
+
+
+def test_scan_plan_at_the_serving_shapes():
+    """jamba's boot prefill (one launch: 64 heads x 2 column groups, a
+    block of one warpgroup each) and its 2048-token prefill (64 heads x 16
+    chunks of all of P, 256 blocks of two warpgroups walking 4 each, two
+    stages of 53,248 bytes; the state pass between)."""
+    bf16 = torch.bfloat16
+    boot = scan_ops.plan(1, 8, 64, 128, 16, 8, bf16, False)
+    assert [(k["name"], k["units"], k["grid"], k["threads"]) for k in boot["kernels"]] == [
+        ("chunk_tc<1,kBoot>", (64, 1, 2), (128,), 128)]
+    walk = scan_ops.plan(1, 2048, 64, 128, 16, 128, bf16, True)
+    assert [(k["name"], k["grid"], k["threads"]) for k in walk["kernels"]] == [
+        ("chunk_tc<2,kStates>", (256,), 256), ("pass_states", (64, 2), 256),
+        ("chunk_tc<2,kOutputs>", (256,), 256)]
+    assert walk["kernels"][0]["units"] == (64, 16, 1)
+    assert walk["kernels"][0]["smem"] == 1024 + 2 * (2 * 128 * 128 + 128 * 128 + 2 * 16 * 128) \
+        + 3 * 128 * 4 == 109_056
+    assert scan_ops.plan(1, 2048, 64, 128, 16, 128, torch.float32, True)["path"] == "scalar"
+
+
+# -------------------------------------------------- chunk hash: the lane split
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+def test_chunk_hash_lane_split_matches_hrtree(group):
+    """The kernel's partition (a group of lanes, each a segment of whole
+    16-byte pieces from the start's 16-byte boundary folded into its
+    (p, M^n) pair, the pairs combined in lane order by the shuffle tree)
+    equals ``hrtree.chunk_hash`` at every length 0..300, starts at each
+    4-byte slot of a 16-byte line, views that start mid-line, every
+    ``bits`` 1..32, and token ids that wrap in uint32."""
+    rng = np.random.default_rng(group)
+    toks = rng.integers(-2**31, 2**31, 320).tolist()
+    toks[5] = 2**31 - 1
+    for length in range(301):
+        for start in (4, 5, 6, 7):
+            misalign = (length + start) % 4
+            bits = 1 + (length + start) % 32
+            assert hash_ref.chunk_hash_lanes(toks, start, length, group, bits, misalign) \
+                == hrtree.chunk_hash(toks[start:start + length], bits), (length, start)
+
+
+def test_chunk_hash_group_sizes():
+    """The fixed entry's lanes a chunk: one 16-byte load a lane covers the
+    width in a round, at most a warp (width 64: 16 lanes, two chunks a
+    warp); the ranged entry takes a warp."""
+    assert [hash_ops.group_size(w) for w in (1, 4, 5, 8, 9, 64, 65, 100, 128, 1100)] == \
+        [1, 1, 2, 2, 4, 16, 32, 32, 32, 32]
+    assert hash_ops.RANGED_GROUP == 32
