@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each against its plain PyTorch version at the serving paths' shapes,
-and drives the port's four serving paths, each at full width:
+and drives the port's five serving paths, each at full width:
 
 * the paged KV pool with ``gentorrent-llama3-8b`` (two layers in float32
   for token parity, all 32 layers in bf16 for the serving numbers);
@@ -22,7 +22,13 @@ and drives the port's four serving paths, each at full width:
   simulated network (HR-tree sync through the chunk-hash kernel, sketch
   affinity, cross-node KV page migration): two layers in float32, where
   load-only, affinity and replication routings give the same tokens, and
-  all 32 layers in bf16 for the serving numbers.
+  all 32 layers in bf16 for the serving numbers;
+* the privacy overlay around those nodes, as ``build_overlay`` wires it:
+  24 users who send their prompts as S-IDA cloves over onion-routed
+  proxies and get Ed25519-signed responses back: two layers in float32,
+  where every signature verifies and each user gets the tokens of a
+  direct ``generate``, and all 32 layers in bf16 with signing off and
+  on, for what privacy costs on the host and the card.
 
 It prints one JSON line per phase.  Every phase must pass: any failure
 ends the run with a nonzero exit.  With no CUDA card it exits nonzero
@@ -1007,6 +1013,7 @@ def _overlay(cfg, params, dev, max_len, lengths=(64,), wire_mode=None):
     net = SimNet(seed=5)
     model = LM(cfg, dev)
     nodes = [ModelNode(f"m{i}", fwd_cfg=ForwardingConfig(), chunk_lengths=lengths,
+                       use_crypto=False,
                        real_engine=RealEngine(cfg, model, params, max_len=max_len, device=dev))
              for i in range(2)]
     for n in nodes:            # the tree hashes on the engine's device: the card
@@ -1257,6 +1264,220 @@ def overlay_serve_bf16(seed, dev, params):
             "chunk_lengths": L, "requests": len(prompts), "max_new": 64, "served_new": 16,
             "modes": modes, "migration": costs,
             "rows_equal_load_only": same, "launches": launches}, launches
+
+
+# --------------------------------------------------------------------------
+# the privacy overlay: users, onion proxies, S-IDA cloves, signed responses
+# --------------------------------------------------------------------------
+CRYPTO_MODULES = ("ed25519", "onion", "chacha", "sida", "ida", "shamir", "gf256")
+CLOVE_TYPES = ("clove_fwd", "prompt_clove", "response_clove")
+
+
+def _privacy_overlay(cfg, params, dev, max_len, **kw):
+    """The port's ``build_overlay`` on the card (its model nodes' HR-trees
+    hash there), each of its two model nodes given its own ``RealEngine``
+    over the one shared ``params``; the global ``random`` (the nodes' sync
+    start times) restarted first.  Returns the overlay and the log of what
+    its ``SimNet`` sends: every response clove's signature by message, and
+    the bytes of every clove message."""
+    import random
+    from repro_torch.models.lm import LM
+    from repro_torch.overlay.network import OverlayConfig, build_overlay
+    from repro_torch.serving.engine import RealEngine
+    random.seed(0)
+    ov = build_overlay(OverlayConfig(n_users=24, n_models=2, seed=0, **kw), device=dev)
+    model = LM(cfg, dev)
+    for m in ov.models:
+        assert m.hrtree.device.type == torch.device(dev).type
+        m.real_engine = RealEngine(cfg, model, params, max_len=max_len, device=dev)
+    log = {"sigs": {}, "clove_bytes": 0, "clove_msgs": 0}
+    send, models = ov.net.send, {m.node_id for m in ov.models}
+
+    def logged(src, dst, msg, size_bytes=1024):
+        if msg.get("type") in CLOVE_TYPES:
+            log["clove_bytes"] += size_bytes
+            log["clove_msgs"] += 1
+        if src in models and msg.get("type") == "response_clove":
+            log["sigs"].setdefault(msg["msg_id"], set()).add((src, msg["sig"]))
+        send(src, dst, msg, size_bytes)
+    ov.net.send = logged
+    return ov, log
+
+
+def _privacy_send(ov, users, prompts, max_new, gap):
+    """User ``users[i]`` sends ``prompts[i]`` ``gap`` simulated seconds
+    after the one before; the network runs until every response is in.
+    Returns the responses by request and the wall seconds (host clock,
+    synchronised)."""
+    got = {}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i, (u, p) in enumerate(zip(users, prompts)):
+        user = ov.users[u]
+        user.on_response = lambda _n, pl, i=i: got.setdefault(i, pl)
+        ov.net.call_after(gap * i, user.send_prompt, ov.net, p, "", None, None,
+                          {"max_new": max_new})
+    ov.net.run_until(ov.net.t + gap * len(prompts) + 120)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    assert len(got) == len(prompts), f"{len(got)} of {len(prompts)} responses"
+    for m in ov.models:
+        m.real_engine.allocator.check()
+    return got, wall
+
+
+def _verify_sigs(ov, log, got):
+    """How many responses carry one signature (an unsigned clove carries
+    ``""``), from the model node that served them, that verifies over the
+    response as it was encoded."""
+    from repro_torch.core import ed25519
+    from repro_torch.net.wire import packb
+    pubs = {m.node_id: m.public for m in ov.models}
+    ok = 0
+    for resp in got.values():
+        sigs = log["sigs"].get(resp["msg_id"], set())
+        ok += len(sigs) == 1 and all(
+            sig and node == resp["server"]
+            and ed25519.verify(pubs[node], packb(resp), bytes.fromhex(sig))
+            for node, sig in sigs)
+    return ok
+
+
+def privacy_overlay_f32_parity(seed, dev):
+    """The privacy path at full width, 2 layers, float32 (TF32 off), on
+    ``overlay_f32_parity``'s weights: ``build_overlay`` with 24 users and 2
+    signing model nodes on the card; four users each send one prompt at
+    once (two share a 64-token prefix).  Every response arrives, every
+    signature verifies under its node's public key, and each user gets the
+    tokens a direct ``RealEngine.generate`` of its prompt gives."""
+    from repro_torch import configs
+    from repro_torch.models.lm import LM
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import RealEngine, Request
+    cfg = dataclasses.replace(configs.get_config(NAME), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab, 64).tolist()
+    prompts = [shared + rng.integers(0, cfg.vocab, 16).tolist(),
+               shared + rng.integers(0, cfg.vocab, 24).tolist(),
+               rng.integers(0, cfg.vocab, 50).tolist(), rng.integers(0, cfg.vocab, 70).tolist()]
+    direct = RealEngine(cfg, LM(cfg, dev), params, max_len=128, device=dev)
+    want = [direct.generate(Request(i, p, max_new=16)).output for i, p in enumerate(prompts)]
+    del direct
+    _reset_launches()
+    ov, log = _privacy_overlay(cfg, params, dev, 128, use_crypto=True)
+    got, wall = _privacy_send(ov, [0, 6, 12, 18], prompts, 16, 0.0)
+    launches = _launches()
+    verified = _verify_sigs(ov, log, got)
+    assert verified == len(prompts), f"{verified} of {len(prompts)} signatures verify"
+    tokens = [got[i]["output"] for i in range(len(prompts))]
+    assert tokens == want, "the overlay changed a user's tokens"
+    assert launches["chunk_hash"] > 0, launches
+    assert launches["paged_decode_attention"] > 0 and launches["paged_flash_attention"] > 0
+    return {"phase": "privacy_overlay_f32_parity", "config": f"{NAME} n_layers=2 float32",
+            "reduced": ["n_layers 32 -> 2"], "users": 24, "models": 2,
+            "responses": len(got), "signatures_verified": verified,
+            "tokens_equal_direct_generate": True, "wall_s": wall,
+            "servers": [got[i]["server"] for i in range(len(prompts))],
+            "nodes": {m.node_id: {k: m.metrics[k] for k in ("served", "forwarded_out",
+                                                             "cache_hits")}
+                      for m in ov.models},
+            "clove_bytes": log["clove_bytes"], "launches": launches,
+            "tol": "tokens exact (greedy f32, TF32 off)"}
+
+
+def _crypto_seconds(prof):
+    """Host seconds (self time) in each of the port's crypto and S-IDA
+    modules from a ``cProfile.Profile``."""
+    import pstats
+    out = dict.fromkeys(CRYPTO_MODULES, 0.0)
+    for (path, _, _), (_, _, tottime, _, _) in pstats.Stats(prof).stats.items():
+        p = Path(path)
+        if p.parent.name == "core" and p.parent.parent.name == "repro_torch" \
+                and p.stem in out:
+            out[p.stem] += tottime
+    return out
+
+
+def privacy_overlay_bf16(seed, dev, params):
+    """The privacy path at full width and depth (32 layers, bf16) on
+    ``serve_bf16``'s weights: ``build_overlay`` with 24 users, 4 proxies
+    each, S-IDA 3-of-4, sync every 2 s, and two model nodes, each with its
+    own ``RealEngine`` (max_len 1024, 513 pages).  Eight users send
+    ``serve_bf16``'s 8 requests 2 simulated seconds apart (64 new tokens
+    asked, 16 served, as in ``overlay_serve_bf16``).  Runs with signing
+    off and on, same seeds and arrivals; the signed run again with the
+    profiler tracing the card (the device's idle share) and once more
+    under cProfile (host seconds in the crypto and S-IDA modules)."""
+    import cProfile
+    from repro_torch import configs
+    cfg = configs.get_config(NAME)
+    prompts = _traffic(seed, cfg.vocab)
+    users = [3 * i for i in range(len(prompts))]
+
+    def build(crypto):
+        return _privacy_overlay(cfg, params, dev, 1024, use_crypto=crypto, n_proxies=4,
+                                sida_n=4, sida_k=3, sync_every=2.0)
+
+    def send(ov):
+        return _privacy_send(ov, users, prompts, 64, 2.0)
+
+    runs, got = {}, {}
+    _reset_launches()
+    for name, crypto in (("crypto_off", False), ("crypto_on", True)):
+        t0 = time.monotonic()
+        ov, log = build(crypto)
+        build_s = time.monotonic() - t0
+        got[name], wall = send(ov)
+        gen = sum(len(r["output"]) for r in got[name].values())
+        assert gen == 16 * len(prompts), f"{name}: {gen} tokens"
+        runs[name] = {"build_s": build_s, "wall_s": wall, "generated_tokens": gen,
+                      "tokens_per_s": gen / wall, "responses": len(got[name]),
+                      "signatures_verified": _verify_sigs(ov, log, got[name]),
+                      "clove_bytes": log["clove_bytes"], "clove_msgs": log["clove_msgs"],
+                      "nodes": {m.node_id: {k: m.metrics[k] for k in (
+                          "served", "forwarded_out", "cache_hits")} for m in ov.models},
+                      "served_requests": {m.node_id: sorted(
+                          i for i, r in got[name].items() if r["server"] == m.node_id)
+                          for m in ov.models}}
+        del ov, log
+        _free()
+    launches = _launches()
+    assert runs["crypto_on"]["signatures_verified"] == len(prompts), runs["crypto_on"]
+    assert runs["crypto_off"]["signatures_verified"] == 0
+    assert launches["chunk_hash"] > 0, launches
+    assert launches["paged_decode_attention"] > 0 and launches["paged_flash_attention"] > 0
+
+    ov, log = build(True)
+    walls = []
+    busy, top, paged_ms = _device_busy_s(lambda: walls.append(send(ov)))
+    del ov, log
+    _free()
+    ov, log = build(True)
+    prof = cProfile.Profile()
+    prof.enable()
+    _, cwall = send(ov)
+    prof.disable()
+    del ov, log
+    _free()
+    crypto_s = _crypto_seconds(prof)
+    same = sum(got["crypto_on"][i]["output"] == got["crypto_off"][i]["output"]
+               for i in range(len(prompts)))
+    return {"phase": "privacy_overlay_bf16",
+            "config": f"{NAME} full (32 layers) bf16, 2 nodes, 24 users",
+            "requests": len(prompts), "gap_s": 2.0, "max_new": 64, "served_new": 16,
+            "runs": runs, "crypto_on_over_off_wall": runs["crypto_on"]["wall_s"]
+            / runs["crypto_off"]["wall_s"],
+            "responses_equal_on_off": same,
+            "same_servers_on_off": runs["crypto_on"]["served_requests"]
+            == runs["crypto_off"]["served_requests"],
+            "profiled_wall_s": walls[0][1], "device_busy_s": busy,
+            "idle_share": 1 - busy / walls[0][1] if busy else "not measured",
+            "top_kernels": top, "paged_kernels": paged_ms,
+            "cprofile_wall_s": cwall, "crypto_host_s": crypto_s,
+            "crypto_host_s_total": sum(crypto_s.values()),
+            "launches": launches}, launches
 
 
 def _free():
@@ -1655,11 +1876,17 @@ def main():
     _free()
     emit(overlay_f32_parity(args.seed, dev))
     _free()
+    emit(privacy_overlay_f32_parity(args.seed, dev))
+    _free()
     line, paged_launches, params = serve_bf16(args.seed, dev, args.out)
     emit(line)
     _free()
     # the overlay path on the same weights: its launches count the chunk hash
     line, overlay_launches = overlay_serve_bf16(args.seed, dev, params)
+    emit(line)
+    _free()
+    # the privacy path on the same weights: users, onion proxies, signing
+    line, _ = privacy_overlay_bf16(args.seed, dev, params)
     emit(line)
     del params
     _free()

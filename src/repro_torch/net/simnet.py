@@ -1,11 +1,13 @@
 """Deterministic discrete-event network simulator (own copy of
-``repro/net/simnet.py`` without ``ChurnProcess``).
+``repro/net/simnet.py``).
 
 The paper's testbed injects 100 ms of synthetic delay per packet on a real
 cloud; we reproduce that regime deterministically: every node is an object
 with ``on_message(net, src, msg)``, links have latency + bandwidth, nodes
-can leave.  Time is simulated seconds.  A message's delay includes its size
-over the bandwidth, so the size of what the overlay sends sets the order of
+can churn (``ChurnProcess``: leave and rejoin).  Time is simulated
+seconds; the same overlay code also runs over the localhost TCP transport
+(``net/tcp.py``).  A message's delay includes its size over the
+bandwidth, so the size of what the overlay sends sets the order of
 events.
 """
 from __future__ import annotations
@@ -90,3 +92,40 @@ class SimNet:
             self.t = ev.t
             ev.fn(*ev.args)
             n += 1
+
+
+class ChurnProcess:
+    """Poisson churn: random user nodes leave / (re)join at ``rate`` per min."""
+
+    def __init__(self, net: SimNet, pool: list, rate_per_min: float,
+                 on_leave=None, on_join=None, seed: int = 1):
+        self.net = net
+        self.pool = pool
+        self.rate = rate_per_min / 60.0
+        self.rng = random.Random(seed)
+        self.on_leave = on_leave
+        self.on_join = on_join
+        self.offline: dict = {}      # node_id -> saved handler
+
+    def start(self):
+        self.net.call_after(self._next_dt(), self._tick)
+
+    def _next_dt(self) -> float:
+        return self.rng.expovariate(self.rate) if self.rate > 0 else 1e18
+
+    def _tick(self):
+        if self.offline and self.rng.random() < 0.5:
+            nid = self.rng.choice(list(self.offline))
+            handler = self.offline.pop(nid)
+            self.net.add_node(nid, handler)   # node rejoins the overlay
+            if self.on_join:
+                self.on_join(nid)
+        elif self.pool:
+            nid = self.pool[self.rng.randrange(len(self.pool))]
+            if self.net.alive(nid):
+                handler = self.net.nodes[nid]
+                self.net.remove_node(nid)
+                self.offline[nid] = handler
+                if self.on_leave:
+                    self.on_leave(nid)
+        self.net.call_after(self._next_dt(), self._tick)

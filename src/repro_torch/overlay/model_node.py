@@ -1,14 +1,16 @@
 """Model node: serving engine + HR-tree state sync + overlay forwarding
-(§3.3, Fig 5); port of ``repro/overlay/model_node.py``, same behaviour,
-without response signing (ed25519 comes with the privacy slice, so
-``use_crypto=True`` raises).
+(§3.3, Fig 5) + signed responses (§3.4); port of
+``repro/overlay/model_node.py``, same behaviour, without the
+``behaviour`` / ``respond_fn`` hooks of the dishonest-node experiments.
 
 On receiving >= k prompt cloves it recovers the request, runs Algorithm 2
 (sketch affinity or replication, else HR-tree match -> cache-affinity
 pick, else least-relative-load), serves or forwards, and returns the
-response as S-IDA cloves through the user's proxies.  Every ``sync_every``
-sim-seconds it broadcasts its cached-prefix hash paths, its prefix sketch
-and its load to the group.  A real engine serves through the port's
+response as S-IDA cloves through the user's proxies, each clove carrying
+the node's Ed25519 signature over the encoded response when
+``use_crypto`` is on (the default).  Every ``sync_every`` sim-seconds it
+broadcasts its cached-prefix hash paths, its prefix sketch and its load
+to the group.  A real engine serves through the port's
 batched ``Scheduler``; the node's HR-tree hashes prompts on the engine's
 device (the chunk-hash kernel on the card), or on ``device`` when no real
 engine is attached.
@@ -21,7 +23,7 @@ import random
 from dataclasses import dataclass, field
 from typing import Optional
 
-from repro_torch.core import hrtree, sentry, sida
+from repro_torch.core import ed25519, hrtree, sentry, sida
 from repro_torch.core.forwarding import ForwardingConfig, PeerInfo, decide
 from repro_torch.net.wire import packb, unpackb
 from repro_torch.overlay.replicator import Replicator
@@ -41,12 +43,9 @@ class ModelNode:
                  engine: Optional[LatencyEngine] = None,
                  fwd_cfg: ForwardingConfig = ForwardingConfig(),
                  chunk_lengths=(64,), sync_every: float = 5.0,
-                 real_engine=None, use_crypto: bool = False,
+                 real_engine=None, use_crypto: bool = True,
                  kv_chunk_bytes: int = 1 << 16,
                  kv_fetch_timeout: float = 30.0, device="cuda"):
-        if use_crypto:
-            raise NotImplementedError(
-                "signed responses need ed25519, which the port does not have yet")
         self.node_id = node_id
         self.llm = llm
         self.hw_score = hw_score
@@ -62,9 +61,15 @@ class ModelNode:
         self._real_results: dict = {}
         self.fwd_cfg = fwd_cfg
         self.sync_every = sync_every
+        self.use_crypto = use_crypto
         # ablations (Fig 16): full = HR-tree + load balance, lb_only = load
         # balance without the HR-tree, none = always serve locally
         self.fwd_mode = "full"
+        if use_crypto:
+            self.sign_key = ed25519.SigningKey()
+            self.public = self.sign_key.public
+        else:
+            self.sign_key, self.public = None, bytes(32)
         self.sentry = sentry.Sentry()
         self.lengths = list(chunk_lengths)
         self.hrtree = hrtree.HRTree(
@@ -364,6 +369,10 @@ class ModelNode:
                 "output": out,
                 "prompt": payload["prompt"]}  # echoed (anti-counterfeit §4.4)
         blob = packb(resp)
+        if self.use_crypto and self.sign_key is not None:
+            resp_sig = self.sign_key.sign(blob)
+        else:
+            resp_sig = b""
         reply = payload.get("reply", [])
         n = max(len(reply), 1)
         k = max(1, min(len(reply), n - 1)) if n > 1 else 1
@@ -372,5 +381,5 @@ class ModelNode:
             net.send(self.node_id, proxy_id,
                      {"type": "response_clove", "path_id": pid_hex,
                       "clove": c.encode(), "msg_id": payload["msg_id"],
-                      "sig": ""},
+                      "sig": resp_sig.hex()},
                      size_bytes=len(c.frag) + 96)

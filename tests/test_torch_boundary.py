@@ -70,3 +70,6 @@ def test_entry_points_default_to_the_card():
         preprocess_batch([[1] * 64], [64])
     with pytest.raises(RuntimeError, match="no CUDA card"):
         ModelNode("m0")
+    from repro_torch.overlay.network import OverlayConfig, build_overlay
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        build_overlay(OverlayConfig())

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-the paged and dense-pool LM and scheduler (llama, jamba, xlstm) and the
-overlay's model nodes on the card against the same code on the CPU.
+the paged and dense-pool LM and scheduler (llama, jamba, xlstm), the
+overlay's model nodes and the whole privacy overlay (``build_overlay``)
+on the card against the same code on the CPU.
 
 Every test here needs a CUDA card and skips itself from the ``card``
 fixture where torch sees none (the kernels have no CPU mode).  The file
@@ -9,6 +10,8 @@ imports no JAX, so it runs on a card host that has none:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import os
+import random
 
 import pytest
 
@@ -36,6 +39,7 @@ from repro_torch.kernels.tickets import BUFFERS as TICKETS  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.net.simnet import SimNet  # noqa: E402
 from repro_torch.overlay.model_node import ModelNode  # noqa: E402
+from repro_torch.overlay.network import OverlayConfig, build_overlay  # noqa: E402
 from repro_torch.overlay.probe import ResponseSink, direct_payload  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.serving.engine import RealEngine, Request  # noqa: E402
@@ -752,7 +756,7 @@ def _overlay_migration(cfg, params, dev):
     port's nodes on ``dev``: seed a 96-token prefix on m0, make m0 look
     pressured, then three siblings at m1 pull its pages."""
     net = SimNet(seed=5)
-    nodes = [ModelNode(f"m{i}", fwd_cfg=ForwardingConfig(),
+    nodes = [ModelNode(f"m{i}", fwd_cfg=ForwardingConfig(), use_crypto=False,
                        real_engine=RealEngine(cfg, LM(cfg, dev), params, max_len=128,
                                               device=dev))
              for i in range(2)]
@@ -791,6 +795,49 @@ def test_overlay_on_card_matches_cpu(card):
     got_cpu = _overlay_migration(cfg, params, "cpu")
     assert got_card == got_cpu
     assert got_card[1][1]["kv_imported_pages"] == 3 and len(got_card[0]) == 4
+
+
+def _privacy_overlay(cfg, params, dev, monkeypatch):
+    """The port's whole overlay (onion proxies, S-IDA cloves, signed
+    responses) over two model nodes with their own engines on ``dev``:
+    four users send at once, two of them sharing a 64-token prefix.  Keys,
+    path ids and sync start times come from one restarted stream."""
+    monkeypatch.setattr(os, "urandom", random.Random(0).randbytes)
+    random.seed(0)
+    ov = build_overlay(OverlayConfig(n_users=12, n_models=2, use_crypto=True,
+                                     sync_every=2.0, seed=0), device=dev)
+    for m in ov.models:
+        m.real_engine = RealEngine(cfg, LM(cfg, dev), params, max_len=128, device=dev)
+        assert m.hrtree.device.type == torch.device(dev).type
+    shared = [7] * 64
+    prompts = [shared + [1] * 8, shared + [2] * 8, [3] * 40,
+               [(37 * j) % cfg.vocab for j in range(50)]]
+    got = {}
+    for i, p in enumerate(prompts):
+        u = ov.users[3 * i]
+        u.on_response = lambda _n, pl, i=i: got.setdefault(i, pl)
+        u.send_prompt(ov.net, p, extra_meta={"max_new": 8})
+    ov.net.run_until(ov.net.t + 120)
+    return got, {m.node_id: {"metrics": m.metrics,
+                             "sched": m._real_sched and m._real_sched.metrics,
+                             "engine": (m.real_engine.prefill_dispatches,
+                                        m.real_engine.prefill_tokens,
+                                        m.real_engine.batched_traces)}
+                 for m in ov.models}
+
+
+def test_privacy_overlay_on_card_matches_cpu(card, monkeypatch):
+    """build_overlay's users and proxies over model nodes on the card and
+    on the CPU: the same responses and tokens, node metrics and scheduler
+    and engine counters."""
+    cfg = configs.get_config(NAME).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    n = hash_ops.chunk_hash_ranges.launches
+    got_card = _privacy_overlay(cfg, _to(params, card), "cuda", monkeypatch)
+    assert hash_ops.chunk_hash_ranges.launches > n
+    got_cpu = _privacy_overlay(cfg, params, "cpu", monkeypatch)
+    assert got_card == got_cpu
+    assert len(got_card[0]) == 4 and all(len(r["output"]) == 8 for r in got_card[0].values())
 
 
 def _to(tree, dev):
