@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each against its plain PyTorch version at the serving paths' shapes,
-and drives the port's five serving paths, each at full width:
+and drives the port's serving paths, each at full width:
 
 * the paged KV pool with ``gentorrent-llama3-8b`` (two layers in float32
   for token parity, all 32 layers in bf16 for the serving numbers);
@@ -28,7 +28,14 @@ and drives the port's five serving paths, each at full width:
   proxies and get Ed25519-signed responses back: two layers in float32,
   where every signature verifies and each user gets the tokens of a
   direct ``generate``, and all 32 layers in bf16 with signing off and
-  on, for what privacy costs on the host and the card.
+  on, for what privacy costs on the host and the card;
+* serving-quality verification through that overlay: the log-prob
+  verifier (``LM.apply``, the flash kernel's dense entry) in float32 on
+  two layers, where every token the paged path served is the verifier's
+  argmax and the card equals the CPU; and all 32 layers in bf16, an
+  honest and an impostor node whose committee challenges go through the
+  overlay and are scored on the card for four epochs, then
+  verifications per minute.
 
 It prints one JSON line per phase.  Every phase must pass: any failure
 ends the run with a nonzero exit.  With no CUDA card it exits nonzero
@@ -332,7 +339,9 @@ def _dense_flash_cost(B, H, Hkv, S, D, esize):
 def check_dense_flash(gen, dev):
     """The slot pool's prefill attention as ``full_attention`` passes it:
     (B, S, H, D) tensors viewed as (B, H, S, D).  The boot prefill's shape
-    (B=1, S=8, the engine's boot, and a shorter prompt's S=5) and a long
+    (B=1, S=8, the engine's boot, and a shorter prompt's S=5), the
+    verifier's (``LM.apply`` over two challenges of 16-64 prompt and 16
+    response tokens: B=2, S=48 and S=80, timed at S=80) and a long
     two-row prompt (B=2, S=1024, timed: its own launch count is 0 on the
     serving run, 1 per 2048-token prefill)."""
     from repro_torch.kernels.flash_attention import ops, ref
@@ -343,11 +352,11 @@ def check_dense_flash(gen, dev):
                 for n in (H, Hkv, Hkv)]
 
     errs = {}
-    for B, S in ((1, 8), (1, 5), (2, 1024)):
+    for B, S in ((1, 8), (1, 5), (2, 48), (2, 80), (2, 1024)):
         q, k, v = inputs(B, S)
         for dtype in (torch.float32, torch.bfloat16):
             cases = ((True, None, None), (True, 256, None), (True, None, 50.0),
-                     (False, None, None)) if S > 8 else ((True, None, None),)
+                     (False, None, None)) if S > 80 else ((True, None, None),)
             for causal, window, softcap in cases:
                 kw = dict(causal=causal, window=window, softcap=softcap)
                 x = [t.to(dtype) for t in (q, k, v)]
@@ -372,6 +381,9 @@ def check_dense_flash(gen, dev):
     sx, s_ms, s_plain_ms, (s_bound_ms, _) = timed(1, 8, 50, 10)
     skr, svr = (t.repeat_interleave(H // Hkv, dim=1) for t in sx[1:])
     s_library_ms = time_ms(lambda: sdpa(sx[0], skr, svr, is_causal=True))
+    vx, v_ms, v_plain_ms, (v_bound_ms, v_bound_by) = timed(2, 80, 50, 10)
+    vkr, vvr = (t.repeat_interleave(H // Hkv, dim=1) for t in vx[1:])
+    v_library_ms = time_ms(lambda: sdpa(vx[0], vkr, vvr, is_causal=True))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
@@ -381,6 +393,11 @@ def check_dense_flash(gen, dev):
             "serving": {"shape": "B=1 S=8 H=32 Hkv=8 D=128 causal bf16 (the boot prefill)",
                         "ms": s_ms[0], "event_ms": s_ms[1], "plain_ms": s_plain_ms,
                         "bound_ms": s_bound_ms, "library_ms": s_library_ms},
+            "verification": {"shape": "B=2 S=80 H=32 Hkv=8 D=128 causal bf16 (the "
+                                      "verifier's LM.apply over two challenges)",
+                             "ms": v_ms[0], "event_ms": v_ms[1], "plain_ms": v_plain_ms,
+                             "bound_ms": v_bound_ms, "bound_by": v_bound_by,
+                             "library_ms": v_library_ms},
             "errs": errs}
 
 
@@ -948,11 +965,17 @@ PAGED_KERNELS = {"paged_decode_attention": ("decode_kernel<__nv_bfloat16, true>"
                                            "scalar_kernel<true", "scalar_kernelILb1E")}
 
 
-def _paged_kernel_ms(rows):
-    """Device ms and launches of the two paged kernels among profile
-    ``rows`` of (name, ms, count)."""
+# ... and behind the flash kernel's dense entry
+ATTN_KERNELS = {**PAGED_KERNELS, "flash_attention": ("tc_kernel<false", "tc_kernelILb0E",
+                                                     "scalar_kernel<false",
+                                                     "scalar_kernelILb0E")}
+
+
+def _paged_kernel_ms(rows, kernels=None):
+    """Device ms and launches of ``kernels`` (default: the two paged
+    kernels) among profile ``rows`` of (name, ms, count)."""
     out = {}
-    for wrapper, keys in PAGED_KERNELS.items():
+    for wrapper, keys in (kernels or PAGED_KERNELS).items():
         hit = [(ms, n) for name, ms, n in rows if any(k in name for k in keys)]
         out[wrapper] = {"ms": sum(ms for ms, _ in hit), "launches": sum(n for _, n in hit)}
     return out
@@ -1125,11 +1148,12 @@ def overlay_f32_parity(seed, dev):
             "counts": counts, "tokens": raw[0]}
 
 
-def _device_busy_s(fn, top=8):
+def _device_busy_s(fn, top=8, kernels=None):
     """Run ``fn`` under torch.profiler tracing the card only.  Returns the
     summed time of its kernels and copies on the device, in seconds (0 if
     none seen), the ``top`` kernel names by device time ([name, ms,
-    count]) and the two paged kernels' time (``_paged_kernel_ms``).  It
+    count]) and the time of ``kernels`` (default: the two paged kernels;
+    ``_paged_kernel_ms``).  It
     sums the tracer's raw device events: building the profiler's per-op
     tables (``key_averages``) over a serving run's ~250,000 events took
     ~60 s a run on an H100 machine."""
@@ -1145,7 +1169,7 @@ def _device_busy_s(fn, top=8):
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return (sum(ns for ns, _ in by_name.values()) / 1e9,
             [[name[:120], ns / 1e6, n] for name, (ns, n) in rows[:top]],
-            _paged_kernel_ms([(name, ns / 1e6, n) for name, (ns, n) in rows]))
+            _paged_kernel_ms([(name, ns / 1e6, n) for name, (ns, n) in rows], kernels))
 
 
 def _migration_costs(cfg, params, dev, holder, handle, depth, rng, reps=5):
@@ -1273,23 +1297,26 @@ CRYPTO_MODULES = ("ed25519", "onion", "chacha", "sida", "ida", "shamir", "gf256"
 CLOVE_TYPES = ("clove_fwd", "prompt_clove", "response_clove")
 
 
-def _privacy_overlay(cfg, params, dev, max_len, **kw):
+def _privacy_overlay(cfg, params, dev, max_len, score_fns=None, **kw):
     """The port's ``build_overlay`` on the card (its model nodes' HR-trees
     hash there), each of its two model nodes given its own ``RealEngine``
-    over the one shared ``params``; the global ``random`` (the nodes' sync
-    start times) restarted first.  Returns the overlay and the log of what
-    its ``SimNet`` sends: every response clove's signature by message, and
-    the bytes of every clove message."""
+    over the one shared ``params`` (or over ``params[i]``, given a list),
+    the committee scoring with ``score_fns``; the global ``random`` (the
+    nodes' sync start times) restarted first.  Returns the overlay and the
+    log of what its ``SimNet`` sends: every response clove's signature by
+    message, and the bytes of every clove message."""
     import random
     from repro_torch.models.lm import LM
     from repro_torch.overlay.network import OverlayConfig, build_overlay
     from repro_torch.serving.engine import RealEngine
     random.seed(0)
-    ov = build_overlay(OverlayConfig(n_users=24, n_models=2, seed=0, **kw), device=dev)
+    ov = build_overlay(OverlayConfig(n_users=24, n_models=2, seed=0, **kw),
+                       score_fns=score_fns, device=dev)
     model = LM(cfg, dev)
-    for m in ov.models:
+    for i, m in enumerate(ov.models):
         assert m.hrtree.device.type == torch.device(dev).type
-        m.real_engine = RealEngine(cfg, model, params, max_len=max_len, device=dev)
+        m.real_engine = RealEngine(cfg, model, params[i] if isinstance(params, list)
+                                   else params, max_len=max_len, device=dev)
     log = {"sigs": {}, "clove_bytes": 0, "clove_msgs": 0}
     send, models = ov.net.send, {m.node_id for m in ov.models}
 
@@ -1478,6 +1505,260 @@ def privacy_overlay_bf16(seed, dev, params):
             "cprofile_wall_s": cwall, "crypto_host_s": crypto_s,
             "crypto_host_s_total": sum(crypto_s.values()),
             "launches": launches}, launches
+
+
+# --------------------------------------------------------------------------
+# serving-quality verification: the committee's challenges through the
+# overlay, scored by the log-prob verifier
+# --------------------------------------------------------------------------
+def _teacher_argmax(verifier, prompt, response):
+    """The verifier's argmax at each response position of ``prompt +
+    response`` (the token greedy decoding would pick there)."""
+    dev = verifier.model.device
+    lp = verifier._logprobs(verifier.params, torch.tensor([prompt + response],
+                                                          dtype=torch.int32, device=dev))[0]
+    return lp[len(prompt) - 1:len(prompt) - 1 + len(response)].argmax(-1).tolist()
+
+
+def verification_f32_parity(seed, dev):
+    """The log-prob verifier (``core/verification.py`` over ``LM.apply``) at
+    full width, 2 layers, float32 (TF32 off).  An honest node's paged
+    engine serves four 16-64-token prompts, 16 greedy tokens each; the
+    verifier on the card reads every served token as the argmax of its
+    teacher-forced log-probs at that position (the flash kernel's dense
+    entry against its paged entry and the paged decode, on one model);
+    ``LM.apply``'s logits over two of the pairs padded into one batch, and
+    every pair's log-probs, equal the CPU plain path's within 2e-4; the
+    padded batch's credibilities equal the per-pair ones (rtol 2e-3, atol
+    1e-4, ``tests/test_verification_batch.py``'s tolerance)."""
+    from repro_torch import configs
+    from repro_torch.core import verification as ver
+    from repro_torch.models.lm import LM
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import RealEngine
+    cfg = dataclasses.replace(configs.get_config(NAME), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    prompts = _random_prompts(seed, cfg.vocab, 4, 16, 64)
+    _reset_launches()
+    eng = RealEngine(cfg, LM(cfg, dev), params, max_len=128, device=dev)
+    done, *_ = _serve(eng, prompts, 16)
+    pairs = [(p, done[i].output) for i, p in enumerate(prompts)]
+    card = ver.VerifierModel(cfg, LM(cfg, dev), params)
+    argmax_equal = [_teacher_argmax(card, p, r) == r for p, r in pairs]
+    batch = ver.credibility_batch(card, pairs)
+    single = [ver.credibility(card, p, r) for p, r in pairs]
+    launches = _launches()
+    del eng
+    assert all(argmax_equal), f"served tokens that are not the verifier's argmax: {argmax_equal}"
+    np.testing.assert_allclose(batch, single, rtol=2e-3, atol=1e-4)
+    assert launches["flash_attention"] > 0, launches
+    assert launches["paged_decode_attention"] > 0 and launches["paged_flash_attention"] > 0
+
+    cpu = torch.device("cpu")
+    host = ver.VerifierModel(cfg, LM(cfg, cpu), _to(params, cpu))
+    toks = np.zeros((2, max(len(p) + len(r) for p, r in pairs[:2])), np.int32)
+    for i, (p, r) in enumerate(pairs[:2]):
+        toks[i, :len(p) + len(r)] = p + r
+    logits = [v.model.apply(v.params, torch.from_numpy(toks).to(v.model.device)).cpu()
+              for v in (card, host)]
+    assert torch.isfinite(logits[0]).all()
+    torch.testing.assert_close(logits[0], logits[1], atol=2e-4, rtol=2e-4)
+    lp_err = 0.0
+    for p, r in pairs:
+        a, b = ver.response_logprobs(card, p, r), ver.response_logprobs(host, p, r)
+        np.testing.assert_allclose(a, b, atol=2e-4, rtol=2e-4)
+        lp_err = max(lp_err, float(np.abs(a - b).max()))
+    return {"phase": "verification_f32_parity", "config": f"{NAME} n_layers=2 float32",
+            "reduced": ["n_layers 32 -> 2"], "pairs": len(pairs),
+            "prompt_lens": [len(p) for p in prompts], "response_len": 16,
+            "served_tokens_are_verifier_argmax": sum(argmax_equal),
+            "apply_shape": list(logits[0].shape),
+            "card_vs_cpu_max_abs_err": {"apply_logits": (logits[0] - logits[1]).abs().max().item(),
+                                        "response_logprobs": lp_err},
+            "credibility_batch": batch, "credibility_single": single,
+            "launches": launches,
+            "tol": "argmax exact; card vs CPU atol=rtol=2e-4; batch vs single "
+                   "rtol=2e-3 atol=1e-4"}
+
+
+def _impostor(params, gen, levels=1, noise=0.08):
+    """``benchmarks/gt_model.py::_quantize`` on the port's weights: every
+    leaf with ndim >= 2 rounded to ``levels`` steps of its largest
+    magnitude s, plus ``noise`` * s Gaussian noise from ``gen``; other
+    leaves shared.  A new tree, built a slice of rows at a time so the
+    float32 temporaries stay near 1 GB."""
+    if isinstance(params, dict):
+        return {k: _impostor(v, gen, levels, noise) for k, v in params.items()}
+    if isinstance(params, tuple):
+        return tuple(_impostor(v, gen, levels, noise) for v in params)
+    x = params
+    if x.ndim < 2:
+        return x
+    s = x.abs().max().float() + 1e-9
+    out = torch.empty_like(x)
+    step = max(1, (1 << 28) // x[0].numel())
+    for i in range(0, x.shape[0], step):
+        y = torch.round(x[i:i + step].float() / s * levels) / levels * s
+        if noise:
+            y += noise * s * torch.randn(y.shape, generator=gen, device=x.device)
+        out[i:i + step] = y
+    return out
+
+
+def _epoch(ov, challenges, log, max_new, wait=300.0):
+    """One committee epoch through the overlay: agree on ``challenges``,
+    the leader sends them through its anonymous client, the network runs
+    until every response is in (or ``wait`` simulated seconds pass), then
+    ``run_epoch`` scores what came back.  Returns the epoch's result, the
+    collected responses, the payloads the leader received and the count
+    whose signature verifies, and the host seconds of each step."""
+    com = ov.committee
+    com.agree_challenges(challenges)
+    leader = ov.verifiers[com.leader()]
+    got = {}
+    t0 = time.monotonic()
+    leader.send_challenges(ov.net, challenges, max_new=max_new)
+    on_resp = leader.client.on_response
+
+    def record(net, payload):
+        got[payload["msg_id"]] = payload
+        on_resp(net, payload)
+    leader.client.on_response = record
+    end = ov.net.t + wait
+    while leader.missing() and ov.net.t < end:
+        ov.net.run_until(ov.net.t + 1.0)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    responses = leader.collect()
+    res = com.run_epoch(lambda _leader, _challenges: responses)
+    t2 = time.monotonic()
+    return res, responses, got, _verify_sigs(ov, log, got), leader.missing(), \
+        {"serve_s": t1 - t0, "epoch_s": t2 - t1}
+
+
+def verification_bf16(seed, dev, params):
+    """Serving-quality verification at full width and depth (32 layers,
+    bf16) on ``serve_bf16``'s weights: ``build_overlay`` with 24 users, 4
+    verification nodes and two signing model nodes with their own
+    ``RealEngine`` (max_len 1024, 513 pages): m0 on the weights, m1 on an
+    impostor copy of them (``_impostor``: the harshest step "m3" of
+    ``benchmarks/gt_model.py``).  Each verification node scores with
+    ``avg_credibility`` batched through ``credibility_batch`` over one
+    shared ``VerifierModel`` on the honest weights.  Four epochs, each: a
+    new 16-64-token challenge a node, sent by the leader through the
+    overlay (16 tokens served), then ``run_epoch``.  Model nodes serve
+    their challenges themselves (``fwd_mode = "none"``): a forwarded
+    challenge comes back from another server and counts as missing.
+    Then verifications per minute as ``benchmarks/bench_verification.py``
+    measures them (16 prompts of 16 tokens, 16 greedy tokens from m0,
+    scored one by one, and the same pairs in one ``credibility_batch``),
+    the one-by-one window again under torch.profiler (the device's idle
+    share, the dense flash entry's device time)."""
+    from repro_torch import configs
+    from repro_torch.core import verification as ver
+    from repro_torch.core.consensus import Challenge
+    from repro_torch.models.lm import LM
+    cfg = configs.get_config(NAME)
+    t0 = time.monotonic()
+    bad = _impostor(params, torch.Generator(device=dev).manual_seed(seed + 1))
+    torch.cuda.synchronize()
+    impostor_s = time.monotonic() - t0
+    verifier = ver.VerifierModel(cfg, LM(cfg, dev), params)
+    score_s = []
+
+    def score(pairs):
+        t = time.monotonic()
+        c = float(np.mean(ver.credibility_batch(verifier, pairs))) if pairs else 0.0
+        score_s.append(time.monotonic() - t)
+        return c
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ov, log = _privacy_overlay(cfg, [params, bad], dev, 1024, score_fns=[score] * 4,
+                               use_crypto=True, n_verifiers=4, n_proxies=4, sida_n=4,
+                               sida_k=3, sync_every=2.0)
+    build_s = time.monotonic() - t0
+    for m in ov.models:
+        m.fwd_mode = "none"
+    epochs, creds, agree = [], {m.node_id: [] for m in ov.models}, []
+    for e in range(4):
+        prompts = _random_prompts(seed + 100 + e, cfg.vocab, len(ov.models), 16, 64)
+        chs = [Challenge(m.node_id, tuple(p)) for m, p in zip(ov.models, prompts)]
+        n0 = len(score_s)
+        res, responses, got, verified, missing, secs = _epoch(ov, chs, log, 16)
+        assert res.committed, res
+        for r in responses:
+            creds[r.model_node].append(res.scores[r.model_node])
+            if r.model_node == "m0":
+                am = _teacher_argmax(verifier, list(r.prompt), list(r.response))
+                agree.append(sum(a == t for a, t in zip(am, r.response)) / len(r.response))
+        epochs.append({"epoch": res.epoch, "leader": res.leader, "responses": len(responses),
+                       "signatures_verified": verified, "missing": missing,
+                       "credibility": res.scores, "reputations": res.reputations,
+                       "score_calls": len(score_s) - n0,
+                       "scoring_s": sum(score_s[n0:]), **secs,
+                       "response_lens": [len(r.response) for r in responses]})
+    for m in ov.models:
+        m.real_engine.allocator.check()
+    untrusted = sorted(ov.committee.untrusted())
+    responses = sum(e["responses"] for e in epochs)
+    verified = sum(e["signatures_verified"] for e in epochs)
+    n_ch = 4 * len(ov.models)
+    assert responses == n_ch and verified == n_ch, epochs
+    mean = {n: float(np.mean(c)) for n, c in creds.items()}
+    assert mean["m0"] > mean["m1"], mean
+
+    # verifications per minute, as benchmarks/bench_verification.py: 16
+    # prompts of 16 tokens with m0's 16 greedy tokens, scored one by one
+    bench = _random_prompts(seed + 200, cfg.vocab, 16, 16, 16)
+    done, *_ = _serve(ov.models[0].real_engine, bench, 16)
+    pairs = [(p, done[i].output) for i, p in enumerate(bench)]
+    ver.credibility(verifier, *pairs[0])                       # warm-up
+
+    def one_by_one():
+        return [ver.credibility(verifier, p, r) for p, r in pairs]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    singles = one_by_one()
+    single_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    batched = ver.credibility_batch(verifier, pairs)
+    batch_s = time.monotonic() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    np.testing.assert_allclose(batched, singles, rtol=2e-3, atol=1e-4)
+    walls = []
+
+    def traced():
+        t = time.monotonic()
+        one_by_one()
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t)
+    busy, top, attn = _device_busy_s(traced, kernels=ATTN_KERNELS)
+    del ov, log, bad
+    _free()
+    return {"phase": "verification_bf16",
+            "config": f"{NAME} full (32 layers) bf16, m0 honest, m1 impostor "
+                      "(levels=1, noise=0.08), 4 verifiers, 24 users",
+            "impostor_s": impostor_s, "build_s": build_s, "epochs": epochs,
+            "challenges": n_ch, "responses": responses, "signatures_verified": verified,
+            "mean_credibility": mean, "untrusted": untrusted,
+            "honest_argmax_agree_share_bf16": agree,
+            "scoring_s_per_epoch": [e["scoring_s"] for e in epochs],
+            "max_memory_allocated": peak,
+            "verifications_per_min": {"one_by_one": len(pairs) / single_s * 60,
+                                      "batched": len(pairs) / batch_s * 60,
+                                      "pairs": len(pairs), "prompt_tokens": 16,
+                                      "response_tokens": 16, "one_by_one_s": single_s,
+                                      "batched_s": batch_s},
+            "scoring_window": {"wall_s": walls[0], "device_busy_s": busy,
+                               "idle_share": 1 - busy / walls[0] if busy else "not measured",
+                               "attention_kernels": attn, "top_kernels": top},
+            "launches": launches,
+            "note": "random weights: absolute credibilities and the 0.4 trust "
+                    "threshold mean nothing here; only honest > impostor is gated"}, launches
 
 
 def _free():
@@ -1888,6 +2169,13 @@ def main():
     # the privacy path on the same weights: users, onion proxies, signing
     line, _ = privacy_overlay_bf16(args.seed, dev, params)
     emit(line)
+    _free()
+    # serving-quality verification: the log-prob verifier (the flash
+    # kernel's dense entry) over the committee's challenges
+    emit(verification_f32_parity(args.seed, dev))
+    _free()
+    line, verification_launches = verification_bf16(args.seed, dev, params)
+    emit(line)
     del params
     _free()
 
@@ -1917,6 +2205,10 @@ def main():
                 overlay_launches if k["name"] == "chunk_hash" else
                 xlstm_launches if k["name"] == "mlstm" else dense_launches)
         k["launches"] = path[k["name"]]
+        if k["name"] == "flash_attention":      # its dense entry runs on two paths
+            k["launches_by_path"] = {"jamba": dense_launches["flash_attention"],
+                                     "verification": verification_launches["flash_attention"]}
+            k["launches"] += verification_launches["flash_attention"]
     # a time_ms that fell back to CUDA events timed the host's gaps too
     emit({"phase": "timing", "timed_by_events": len(PROFILER_MISSES)})
     emit({"kernels": kernels})

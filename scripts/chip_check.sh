@@ -7,6 +7,10 @@
 #
 #     bash scripts/chip_check.sh OUT [TREE [BASE]]
 #
+# SMOKE=scripts/verification_phases.py (or another script of the tree
+# that takes --out) runs that script in place of chip_smoke.py, here and
+# in the script-alone check.
+#
 # OUT receives smoke.log, smoke.err, cuda_tests.log and chip_smoke.py's
 # long outputs; TREE (default: the current directory) is the checkout to
 # run, for example an unpacked `git archive` of the tree.  BASE, another
@@ -24,11 +28,12 @@ base=""
 cd "${2:-.}" || exit 2
 tree=$(pwd)
 
+smoke=${SMOKE:-chip_smoke.py}
 t0=$(date +%s)
-python3 chip_smoke.py --out "$out" 2> "$out/smoke.err" |
+python3 "$smoke" --out "$out" 2> "$out/smoke.err" |
     while IFS= read -r line; do echo "$(( $(date +%s) - t0 )) $line"; done > "$out/smoke.log"
 smoke_rc=${PIPESTATUS[0]}
-echo "chip_smoke.py rc=$smoke_rc after $(( $(date +%s) - t0 )) s"
+echo "$smoke rc=$smoke_rc after $(( $(date +%s) - t0 )) s"
 tail -n 3 "$out/smoke.log" | cut -c1-300
 tail -c 1500 "$out/smoke.err"
 
@@ -39,9 +44,9 @@ echo "card tests rc=$tests_rc"
 tail -n 3 "$out/cuda_tests.log"
 
 alone=$(mktemp -d)
-cp chip_smoke.py "$alone/"
-(cd "$alone" && python3 chip_smoke.py > stdout.txt 2> stderr.txt
- echo "chip_smoke.py alone rc=$? with $(wc -c < stdout.txt) bytes of output")
+cp "$smoke" "$alone/"
+(cd "$alone" && python3 "$(basename "$smoke")" > stdout.txt 2> stderr.txt
+ rc=$?; echo "$(basename "$smoke") alone rc=$rc with $(wc -c < stdout.txt) bytes of output")
 rm -rf "$alone"
 
 turns_rc=0

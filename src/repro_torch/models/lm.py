@@ -1,6 +1,6 @@
-"""Decoder LM over the paged KV pool and the dense slot pool (port of the
-serving paths of ``repro/models/lm.py`` for attention, Mamba, mLSTM, sLSTM
-and MoE layers).
+"""Decoder LM over the paged KV pool and the dense slot pool, and its
+full-sequence forward (port of the serving paths and ``apply`` of
+``repro/models/lm.py`` for attention, Mamba, mLSTM, sLSTM and MoE layers).
 
 Params are the reference's nested dicts: ``cfg.pattern`` positions are a
 tuple in ``params["blocks"]``, each leaf stacked over ``cfg.n_repeats`` on
@@ -84,13 +84,20 @@ def _cache_size(spec, max_len):
     return min(spec.window, max_len) if spec.window else max_len
 
 
+def _self_attention(cfg, spec, p, x, positions):
+    """Causal self-attention over a whole sequence (positions 0..S-1)
+    through the flash kernel's dense entry.  Returns (out, k, v)."""
+    q, k, v = attention.project_qkv(cfg, p, x, positions)
+    out = attention.out_proj(cfg, p, attention.full_attention(
+        cfg, q, k, v, window=spec.window))
+    return out, k, v
+
+
 def _attn_prefill(cfg, spec, p, x, positions, max_len):
     """Self-attention over the whole prompt plus its dense cache: the last
     ``size`` positions' K/V (a ring by position for a windowed layer)."""
     B, S, _ = x.shape
-    q, k, v = attention.project_qkv(cfg, p, x, positions)
-    out = attention.out_proj(cfg, p, attention.full_attention(
-        cfg, q, k, v, window=spec.window))
+    out, k, v = _self_attention(cfg, spec, p, x, positions)
     size = _cache_size(spec, max_len)
     kc = k.new_zeros((B, size, cfg.n_kv_heads, cfg.d_head))
     vc = torch.zeros_like(kc)
@@ -111,6 +118,18 @@ def layer_prefill(cfg, spec, p, x, positions, max_len):
         h, cache = _RECURRENT[spec.mixer].forward(cfg, p["mixer"], h,
                                                   return_cache=True)
     return _residual(cfg, spec, p, x, h), cache
+
+
+def layer_forward_full(cfg, spec, p, x, positions):
+    """A whole sequence through one layer, building no cache (the
+    reference's ``layer_forward_full`` without encoder memory).  x: (B, S,
+    d); positions: (S,) = 0..S-1."""
+    h = common.apply_norm(cfg, p["norm1"], x)
+    if spec.mixer == "attn":
+        h = _self_attention(cfg, spec, p["mixer"], h, positions)[0]
+    else:
+        h = _RECURRENT[spec.mixer].forward(cfg, p["mixer"], h)
+    return _residual(cfg, spec, p, x, h)
 
 
 def _decode_lengths(spec, pos, size, active):
@@ -280,9 +299,9 @@ def _layer_slice(tree, r):
 
 
 class LM(nn.Module):
-    """The model's paged serving entry points.  Holds the config and the
-    device; the weights are a parameter dict (``repro_torch.params``)
-    passed to every call, as in the reference."""
+    """The model's serving entry points and its full forward.  Holds the
+    config and the device; the weights are a parameter dict
+    (``repro_torch.params``) passed to every call, as in the reference."""
 
     def __init__(self, cfg, device="cuda"):
         super().__init__()
@@ -321,6 +340,20 @@ class LM(nn.Module):
         """Only attention KV has per-position state to page; recurrent
         mixers keep the dense slot pool."""
         return all(s.mixer == "attn" for s in self.cfg.pattern)
+
+    # ---------------- full forward ----------------
+    @torch.no_grad()
+    def apply(self, params, tokens):
+        """Full-sequence forward, tokens (B, S) from position 0 -> (B, S,
+        V) float32 logits at every position (the reference's
+        ``LM.apply``, without encoder memory, remat, the MoE aux loss or
+        query blocks).  Without autograd, like the other entry points:
+        training will need a graded variant."""
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self._embed(params, tokens)
+        for spec, p, _ in self._layers(params):
+            x = layer_forward_full(self.cfg, spec, p, x, positions)
+        return self._head(params, x)
 
     # ---------------- dense slot pool ----------------
     def cache_zeros(self, B, max_len):

@@ -1,7 +1,11 @@
 """Model node: serving engine + HR-tree state sync + overlay forwarding
 (§3.3, Fig 5) + signed responses (§3.4); port of
-``repro/overlay/model_node.py``, same behaviour, without the
-``behaviour`` / ``respond_fn`` hooks of the dishonest-node experiments.
+``repro/overlay/model_node.py``, same behaviour, with the hooks of the
+dishonest-node experiments: ``behaviour`` (``honest``, ``swap_model`` or
+``drop``: a ``drop`` node observes a prompt and never answers it;
+``swap_model`` is a label only, as in the reference, and serves honestly)
+and ``respond_fn`` (tokens -> output tokens, in place of the engine: a
+node that answers with another model).
 
 On receiving >= k prompt cloves it recovers the request, runs Algorithm 2
 (sketch affinity or replication, else HR-tree match -> cache-affinity
@@ -44,7 +48,7 @@ class ModelNode:
                  fwd_cfg: ForwardingConfig = ForwardingConfig(),
                  chunk_lengths=(64,), sync_every: float = 5.0,
                  real_engine=None, use_crypto: bool = True,
-                 kv_chunk_bytes: int = 1 << 16,
+                 behaviour: str = "honest", kv_chunk_bytes: int = 1 << 16,
                  kv_fetch_timeout: float = 30.0, device="cuda"):
         self.node_id = node_id
         self.llm = llm
@@ -62,6 +66,7 @@ class ModelNode:
         self.fwd_cfg = fwd_cfg
         self.sync_every = sync_every
         self.use_crypto = use_crypto
+        self.behaviour = behaviour          # honest | swap_model | drop
         # ablations (Fig 16): full = HR-tree + load balance, lb_only = load
         # balance without the HR-tree, none = always serve locally
         self.fwd_mode = "full"
@@ -98,6 +103,7 @@ class ModelNode:
                         "kv_export_refused": 0}
         self.kv_chunk_bytes = kv_chunk_bytes
         self.replicator = Replicator(self, timeout_s=kv_fetch_timeout)
+        self.respond_fn = None              # (tokens)->(out_tokens) override
 
     # ------------------------------------------------------------------
     def join_group(self, members: list):
@@ -278,6 +284,8 @@ class ModelNode:
         replication target)."""
         tokens = payload["prompt"]
         self.sentry.observe(tokens)
+        if self.behaviour == "drop":
+            return
         if not forwarded and self.fwd_mode != "none":
             if self.fwd_mode == "full":
                 tree, cfg = self.hrtree, self.fwd_cfg
@@ -333,7 +341,7 @@ class ModelNode:
         self._recent_prompts.append(list(tokens))
         if len(self._recent_prompts) > 512:
             self._recent_prompts = self._recent_prompts[-256:]
-        if self.real_engine is not None:
+        if self.real_engine is not None and self.respond_fn is None:
             self._submit_real(payload, max_new)
         net.call_after(total, self._finish, net, payload, max_new)
 
@@ -359,7 +367,14 @@ class ModelNode:
         self.active_requests = max(0, self.active_requests - 1)
         self.peers[self.node_id].active_requests = self.active_requests
         rid = self._rid_by_msg.pop(payload["msg_id"], None)
-        if self.real_engine is not None:
+        if self.respond_fn is not None:
+            if rid is not None:     # set while in flight: retire the engine's
+                self._drain_real(rid)           # request so it cannot linger
+            out = list(self.respond_fn(payload["prompt"]))
+        elif self.real_engine is not None:
+            if rid is None:         # unset while in flight: the engine serves it now
+                self._submit_real(payload, n_out)
+                rid = self._rid_by_msg.pop(payload["msg_id"])
             out = self._drain_real(rid)
         else:
             out = [int(x) % 1000 for x in range(n_out)]

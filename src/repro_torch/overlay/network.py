@@ -73,12 +73,6 @@ def build_overlay(cfg: OverlayConfig, score_fns: Optional[list] = None,
                   model_behaviours: Optional[dict] = None,
                   device="cuda") -> Overlay:
     dev = require_device(device)
-    dishonest = {k: v for k, v in (model_behaviours or {}).items() if v != "honest"}
-    if dishonest:
-        raise NotImplementedError(
-            f"model behaviours {dishonest}: the port's ModelNode serves honestly "
-            "only; its dishonest behaviours come with the port of the verifier "
-            "(core/verification.py), which is not ported yet")
     rng = random.Random(cfg.seed)
     net = SimNet(default_latency=cfg.latency_s, seed=cfg.seed)
 
@@ -101,13 +95,14 @@ def build_overlay(cfg: OverlayConfig, score_fns: Optional[list] = None,
     models = []
     for i in range(cfg.n_models):
         hw = (cfg.hw_scores[i] if cfg.hw_scores else 5.0)
+        beh = (model_behaviours or {}).get(f"m{i}", "honest")
         m = ModelNode(f"m{i}", llm="llm", hw_score=hw,
                       engine=LatencyEngine(cfg.engine_cfg(hw_score=hw),
                                            cache_bytes=cfg.cache_bytes),
                       fwd_cfg=cfg.fwd_cfg,
                       chunk_lengths=cfg.chunk_lengths,
                       sync_every=cfg.sync_every,
-                      use_crypto=cfg.use_crypto, device=dev)
+                      use_crypto=cfg.use_crypto, behaviour=beh, device=dev)
         models.append(m)
         net.add_node(m.node_id, m)
         registry.register_model(NodeRecord(m.node_id, hw_score=hw,

@@ -73,3 +73,10 @@ def test_entry_points_default_to_the_card():
     from repro_torch.overlay.network import OverlayConfig, build_overlay
     with pytest.raises(RuntimeError, match="no CUDA card"):
         build_overlay(OverlayConfig())
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        build_overlay(OverlayConfig(), model_behaviours={"m1": "drop"})
+
+
+def test_the_verifier_is_checked():
+    """The verification slice's module is among the files checked."""
+    assert ROOT / "src" / "repro_torch" / "core" / "verification.py" in PORT_FILES

@@ -840,6 +840,34 @@ def test_privacy_overlay_on_card_matches_cpu(card, monkeypatch):
     assert len(got_card[0]) == 4 and all(len(r["output"]) == 8 for r in got_card[0].values())
 
 
+def test_verifier_on_card_matches_cpu(card):
+    """The log-prob verifier (``LM.apply`` through the flash kernel's dense
+    entry, then ``log_softmax``) on the card and on the CPU from the same
+    float32 weights: full-sequence logits, log-probs of every response,
+    per pair and padded into one batch, within 2e-4; credibilities too."""
+    from repro_torch.core import verification as ver
+    cfg = configs.get_config(NAME).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(5)
+    pairs = [(rng.integers(0, cfg.vocab, 16 + 8 * i).tolist(),
+              rng.integers(0, cfg.vocab, 16).tolist()) for i in range(3)] + [([], [4, 2])]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 40)).astype(np.int32))
+    vs = {dev: ver.VerifierModel(cfg, LM(cfg, dev), _to(params, torch.device(dev)))
+          for dev in ("cpu", "cuda")}
+    n = flash_ops.flash_attention.launches
+    logits = {dev: v.model.apply(v.params, toks.to(dev)).cpu() for dev, v in vs.items()}
+    assert flash_ops.flash_attention.launches == n + cfg.n_layers
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=2e-4, rtol=2e-4)
+    for p, r in pairs:
+        np.testing.assert_allclose(ver.response_logprobs(vs["cuda"], p, r),
+                                   ver.response_logprobs(vs["cpu"], p, r), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(ver.credibility_batch(vs["cuda"], pairs),
+                               ver.credibility_batch(vs["cpu"], pairs), atol=1e-5, rtol=2e-4)
+    np.testing.assert_allclose([ver.credibility(vs["cuda"], p, r) for p, r in pairs],
+                               [ver.credibility(vs["cpu"], p, r) for p, r in pairs],
+                               atol=1e-5, rtol=2e-4)
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}

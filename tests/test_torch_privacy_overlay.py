@@ -55,12 +55,12 @@ PKGS = {
 }
 
 
-def build(p, seed=0, **kw):
+def build(p, seed=0, score_fns=None, model_behaviours=None, **kw):
     """``p``'s overlay, with ``os.urandom`` and the global ``random``
     restarted from ``seed``."""
     os.urandom = random.Random(seed).randbytes
     random.seed(seed)
-    return p.build(p.Config(**kw))
+    return p.build(p.Config(**kw), score_fns=score_fns, model_behaviours=model_behaviours)
 
 
 @pytest.fixture(autouse=True)
@@ -267,15 +267,6 @@ def test_anonymity_metric_ordering():
     assert out["torch"] == out["jax"]
     gt, on, gc = out["torch"]
     assert 0.0 <= on <= 1.0 and gt > 0.9 and gt >= gc
-
-
-def test_dishonest_behaviours_are_not_ported():
-    with pytest.raises(NotImplementedError, match="verification"):
-        tnet.build_overlay(tnet.OverlayConfig(n_users=4, n_models=2),
-                           model_behaviours={"m1": "swap_model"}, device="cpu")
-    ov = tnet.build_overlay(tnet.OverlayConfig(n_users=4, n_models=2),
-                            model_behaviours={"m0": "honest"}, device="cpu")
-    assert [m.node_id for m in ov.models] == ["m0", "m1"]
 
 
 def test_model_nodes_sign_by_default():
