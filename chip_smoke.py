@@ -35,7 +35,17 @@ and drives the port's serving paths, each at full width:
   argmax and the card equals the CPU; and all 32 layers in bf16, an
   honest and an impostor node whose committee challenges go through the
   overlay and are scored on the card for four epochs, then
-  verifications per minute.
+  verifications per minute;
+* the other model families: one repeat of each of eight configs' patterns
+  at full width in float32 against the CPU (``h2o-danube-1.8b``,
+  ``gemma2-9b``, ``yi-34b``, ``granite-20b``, ``dbrx-132b`` and
+  ``moonshot-v1-16b-a3b`` through the paged entry points past a 4096-token
+  history; ``llama-3.2-vision-11b`` and ``whisper-base`` through ``apply``,
+  ``prefill(aux)``, ``decode`` and ``encode``); the six paged configs served
+  in bf16 at full width (yi and dbrx cut in depth to fit the card, danube
+  and gemma2 with a request past their 4096 window, danube also with
+  speculation); vision at full depth and whisper served in bf16, each
+  request with its own 1600 image embeddings or 1500 frames.
 
 It prints one JSON line per phase.  Every phase must pass: any failure
 ends the run with a nonzero exit.  With no CUDA card it exits nonzero
@@ -245,6 +255,7 @@ def check_paged_decode(gen, dev):
     nbytes = _paged_decode_bytes(lengths, H, Hkv, D, 2)
     visible = int(lengths.sum())
     bound_ms, bound_by = bound(nbytes, 4 * visible * H * D, torch.bfloat16)
+    layouts = _paged_decode_layouts(gen, dev, lengths, errs)
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/paged_decode/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/decode_attention/paged.py:94",
@@ -252,12 +263,67 @@ def check_paged_decode(gen, dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             "n_splits": ops.n_splits(B, Hkv, pt.shape[1]),
             "timed_at": "B=4 H=32 Hkv=8 D=128 BLOCK=32 n_pg=32 lengths=[1000,517,0,33] bf16",
-            "errs": errs}
+            "layouts": layouts, "errs": errs}
 
 
-def _flash_case(gen, dev, C):
-    B, H, D = 4, 32, 128
-    ka, va, pt = _paged_inputs(gen, dev)
+def _paged_decode_layouts(gen, dev, lengths, errs):
+    """The paged decode at the other paged configs' head layouts (gemma2's
+    D=256 with its softcap, granite's 48 query heads on one KV head, yi's
+    8 a group with the padded one's query zero, as its zero ``wq`` columns
+    make it, danube's D=80, dbrx, moonshot) at the serving shape's lengths
+    and page table: float32 and bf16 held against the plain version (into
+    ``errs``) plain, with the config's softcap, and with a 256-key window
+    (shorter than the lengths, so it engages) and the softcap; bf16 timed
+    with the config's softcap, as every decode of its model calls it,
+    beside its bound, the plain version and SDPA."""
+    from repro_torch.kernels.paged_decode import ops, ref
+    live = lengths > 0
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name in PAGED_FAMILIES:
+        cfg = _family(name)
+        H, Hkv, D = cfg.n_heads + cfg.head_pad, cfg.n_kv_heads, cfg.d_head
+        pad = cfg.head_pad // Hkv
+        cap = dict(softcap=cfg.attn_softcap) if cfg.attn_softcap else {}
+        ka, va, pt = _paged_inputs(gen, dev, Hkv=Hkv, D=D)
+        q = torch.randn(len(lengths), H, D, generator=gen, device=dev)
+        if pad:                        # the last query head of each group
+            q.view(len(lengths), Hkv, H // Hkv, D)[:, :, -pad:] = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [t.to(dtype) for t in (q, ka, va)]
+            for kw in {str(k): k for k in (dict(), cap, dict(window=256, **cap))}.values():
+                got = ops.paged_decode_attention(*x, pt, lengths, **kw)
+                want = ref.paged_decode_attention_ref(*[t.float() for t in x], pt,
+                                                      lengths, **kw)
+                torch.cuda.synchronize()
+                errs[f"{name}/{str(dtype)[6:]}/w{kw.get('window')}/cap{kw.get('softcap')}"] = \
+                    close(got[live], want[live], dtype)
+                assert not got[~live].any(), "dead row must be zeros"
+        x = [t.to(torch.bfloat16) for t in (q, ka, va)]
+        kd = ref.gather_dense(x[1], pt).repeat_interleave(H // Hkv, dim=1)
+        vd = ref.gather_dense(x[2], pt).repeat_interleave(H // Hkv, dim=1)
+        mask = (torch.arange(kd.shape[2], device=dev)[None] < lengths[:, None])[:, None, None]
+        b_ms, b_by = bound(_paged_decode_bytes(lengths, H, Hkv, D, 2),
+                           4 * int(lengths.sum()) * H * D, torch.bfloat16)
+        scale = cap.get("softcap")
+        out[name] = {"shape": f"B=4 H={H} Hkv={Hkv} D={D} n_pg=32 lengths=[1000,517,0,33] "
+                              f"softcap={scale} bf16",
+                     "n_splits": ops.n_splits(len(lengths), Hkv, pt.shape[1]),
+                     "ms": time_ms(lambda: ops.paged_decode_attention(*x, pt, lengths, **cap)),
+                     "plain_ms": time_ms(lambda: ref.paged_decode_attention_ref(
+                         *x, pt, lengths, **cap), iters=10),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     # no PyTorch call applies the softcap: SDPA without it
+                     "library_ms": time_ms(lambda: sdpa(x[0][:, :, None], kd, vd,
+                                                        attn_mask=mask)),
+                     "library": "SDPA" + (" without the softcap" if scale else "")}
+        del ka, va, kd, vd
+    return out
+
+
+def _flash_case(gen, dev, C, H=32, Hkv=8, D=128):
+    B = 4
+    ka, va, pt = _paged_inputs(gen, dev, Hkv=Hkv, D=D)
     q = torch.randn(B, C, H, D, generator=gen, device=dev)
     if C == 32:       # prefill chunks: block-aligned starts, one dead row
         pos0 = torch.tensor([0, 256, 512, 960], dtype=torch.int32, device=dev)
@@ -321,19 +387,130 @@ def check_paged_flash(gen, dev):
     library_ms = time_ms(lambda: sdpa(qd, kd, vd, attn_mask=mask))
     nbytes, flops = _paged_flash_cost(pos0, n_tok, 32, H, Hkv, 128, 2)
     bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+    layouts = _paged_flash_layouts(gen, dev, errs)
     return {"name": "paged_flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
             **_summary(errs), "ms": ms, "event_ms": ev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             "timed_at": "B=4 C=32 H=32 Hkv=8 D=128 pos0=[0,256,512,960] active=[1,1,0,1] bf16",
-            "errs": errs}
+            "layouts": layouts, "errs": errs}
+
+
+def _paged_flash_layouts(gen, dev, errs):
+    """The paged flash entry at the other paged configs' head layouts, as
+    ``_paged_decode_layouts`` takes them (yi's padded query heads zero):
+    prefill chunks and verify windows in float32 and bf16 held against
+    the plain version (into ``errs``) plain, with the config's softcap,
+    and with a 256-key window (the chunks' positions run past it) and the
+    softcap; the bf16 prefill chunk timed with the config's softcap beside
+    its bound, the plain version and SDPA over the pages gathered densely
+    (without the softcap, which no PyTorch call applies)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.paged_decode.ref import gather_dense
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name in PAGED_FAMILIES:
+        cfg = _family(name)
+        H, Hkv, D = cfg.n_heads + cfg.head_pad, cfg.n_kv_heads, cfg.d_head
+        pad = cfg.head_pad // Hkv
+        cap = dict(softcap=cfg.attn_softcap) if cfg.attn_softcap else {}
+        for C in (32, 5):
+            q, ka, va, pt, pos0, n_tok = _flash_case(gen, dev, C, H, Hkv, D)
+            if pad:                    # the last query head of each group
+                q.view(*q.shape[:2], Hkv, H // Hkv, D)[..., -pad:, :] = 0
+            active = n_tok > 0
+            valid = active[:, None] & (torch.arange(C, device=dev)[None] < n_tok[:, None])
+            for dtype in (torch.float32, torch.bfloat16):
+                x = [t.to(dtype) for t in (q, ka, va)]
+                for kw in {str(k): k for k in (dict(), cap, dict(window=256, **cap))}.values():
+                    got = ops.paged_flash_attention(*x, pt, pos0, active, **kw)
+                    want = ref.paged_attention_ref(*[t.float() for t in x], pt, pos0, active,
+                                                   **kw)
+                    torch.cuda.synchronize()
+                    errs[f"{name}/C{C}/{str(dtype)[6:]}/w{kw.get('window')}"
+                         f"/cap{kw.get('softcap')}"] = close(got[valid], want[valid], dtype)
+                    assert not got[~active].any(), "dead row must be zeros"
+        # timing: a prefill chunk with the config's softcap
+        q, ka, va, pt, pos0, n_tok = _flash_case(gen, dev, 32, H, Hkv, D)
+        if pad:
+            q.view(*q.shape[:2], Hkv, H // Hkv, D)[..., -pad:, :] = 0
+        active = n_tok > 0
+        x = [t.to(torch.bfloat16) for t in (q, ka, va)]
+        kd = gather_dense(x[1], pt).repeat_interleave(H // Hkv, dim=1)
+        vd = gather_dense(x[2], pt).repeat_interleave(H // Hkv, dim=1)
+        qpos = pos0[:, None] + torch.arange(32, device=dev)
+        mask = (torch.arange(kd.shape[2], device=dev)[None, None] <= qpos[..., None])[:, None]
+        b_ms, b_by = bound(*_paged_flash_cost(pos0, n_tok, 32, H, Hkv, D, 2), torch.bfloat16)
+        out[name] = {"shape": f"B=4 C=32 H={H} Hkv={Hkv} D={D} pos0=[0,256,512,960] "
+                              f"active=[1,1,0,1] softcap={cap.get('softcap')} bf16",
+                     "ms": time_ms(lambda: ops.paged_flash_attention(*x, pt, pos0, active,
+                                                                     **cap)),
+                     "plain_ms": time_ms(lambda: ref.paged_attention_ref(
+                         *x, pt, pos0, active, **cap), iters=10),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": time_ms(lambda: sdpa(x[0].transpose(1, 2), kd, vd,
+                                                        attn_mask=mask)),
+                     "library": "SDPA" + (" without the softcap" if cap else "")}
+        del q, ka, va, kd, vd, x
+    return out
 
 
 def _dense_flash_cost(B, H, Hkv, S, D, esize):
     """q read and out written, K/V read once; the causal half of QK^T and PV."""
     return (2 * (B * H * S * D + B * Hkv * S * D) * esize,
             4 * B * H * D * S * (S + 1) // 2)
+
+
+def _full_flash_cost(B, H, Hkv, Sq, Skv, D, esize):
+    """Non-causal: q read and out written, K/V read once; every query
+    against every key in QK^T and PV."""
+    return (2 * (B * H * Sq * D + B * Hkv * Skv * D) * esize, 4 * B * H * D * Sq * Skv)
+
+
+# non-causal dense entries of the encoder-decoder paths: (B, H, Hkv, D, Sq,
+# Skv); the first two are timed
+FULL_FLASH_SHAPES = {"cross": (4, 32, 8, 128, 256, 1600),      # vision's prefill
+                     "encoder": (4, 8, 8, 64, 1500, 1500),     # whisper's encoder
+                     "cross_short": (2, 32, 8, 128, 24, 1600),
+                     "whisper_cross": (4, 8, 8, 64, 24, 1500),
+                     "whisper_cross_200": (2, 8, 8, 64, 200, 1500)}
+
+
+def _full_flash(gen, dev, errs):
+    """The dense entry without a causal mask and with keys of their own
+    length, as ``LM.encode`` and the cross-attention layers call it: every
+    ``FULL_FLASH_SHAPES`` entry in float32 and bf16 against the plain
+    version (into ``errs``; softcap 50 at the vision prefill's shape too),
+    the first two timed in bf16 beside their bound, the plain version and
+    SDPA."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, (B, H, Hkv, D, Sq, Skv) in FULL_FLASH_SHAPES.items():
+        q = torch.randn(B, Sq, H, D, generator=gen, device=dev).transpose(1, 2)
+        k, v = (torch.randn(B, Skv, Hkv, D, generator=gen, device=dev).transpose(1, 2)
+                for _ in range(2))
+        for dtype in (torch.float32, torch.bfloat16):
+            for softcap in ((None, 50.0) if name == "cross" else (None,)):
+                kw = dict(causal=False, softcap=softcap)
+                x = [t.to(dtype) for t in (q, k, v)]
+                got = ops.flash_attention(*x, **kw)
+                want = ref.attention_ref(*[t.float() for t in x], **kw)
+                torch.cuda.synchronize()
+                errs[f"{name}/B{B}/Sq{Sq}/Skv{Skv}/{str(dtype)[6:]}/cap{softcap}"] = \
+                    close(got, want, dtype)
+        if name not in ("cross", "encoder"):
+            continue
+        x = [t.to(torch.bfloat16) for t in (q, k, v)]
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in x[1:])
+        b_ms, b_by = bound(*_full_flash_cost(B, H, Hkv, Sq, Skv, D, 2), torch.bfloat16)
+        out[name] = {"shape": f"B={B} H={H} Hkv={Hkv} D={D} Sq={Sq} Skv={Skv} non-causal bf16",
+                     "ms": time_ms(lambda: ops.flash_attention(*x, causal=False), iters=20),
+                     "plain_ms": time_ms(lambda: ref.attention_ref(*x, causal=False), iters=5),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": time_ms(lambda: sdpa(x[0], kr, vr), iters=20)}
+    return out
 
 
 def check_dense_flash(gen, dev):
@@ -384,6 +561,7 @@ def check_dense_flash(gen, dev):
     vx, v_ms, v_plain_ms, (v_bound_ms, v_bound_by) = timed(2, 80, 50, 10)
     vkr, vvr = (t.repeat_interleave(H // Hkv, dim=1) for t in vx[1:])
     v_library_ms = time_ms(lambda: sdpa(vx[0], vkr, vvr, is_causal=True))
+    full = _full_flash(gen, dev, errs)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
@@ -398,7 +576,7 @@ def check_dense_flash(gen, dev):
                              "ms": v_ms[0], "event_ms": v_ms[1], "plain_ms": v_plain_ms,
                              "bound_ms": v_bound_ms, "bound_by": v_bound_by,
                              "library_ms": v_library_ms},
-            "errs": errs}
+            **full, "errs": errs}
 
 
 def _decode_cost(lengths, H, Hkv, D, esize):
@@ -456,6 +634,7 @@ def check_dense_decode(gen, dev):
     mask = (torch.arange(S, device=dev)[None] < lengths[:, None])[:, None, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(x[0][:, :, None], kd, vd, attn_mask=mask))
+    memory = _decode_memory(gen, dev, errs)
     one, sx = cases[2][0], [t.to(torch.bfloat16) for t in cases[2][1]]
     s_ms, s_plain_ms, (s_bound_ms, _) = timed(one, sx)
     skd, svd = (t.transpose(1, 2).repeat_interleave(H // Hkv, dim=1) for t in sx[1:])
@@ -473,7 +652,45 @@ def check_dense_decode(gen, dev):
                                  "prompt token)",
                         "ms": s_ms[0], "event_ms": s_ms[1], "plain_ms": s_plain_ms,
                         "bound_ms": s_bound_ms, "library_ms": s_library_ms},
-            "errs": errs}
+            "memory": memory, "errs": errs}
+
+
+# cross-attention decodes over a static memory, every position valid: (H,
+# Hkv, D, S) of vision's 1600 image tokens (timed) and whisper's 1500 frames
+DECODE_MEMORY_SHAPES = {"vision": (32, 8, 128, 1600), "whisper": (8, 8, 64, 1500)}
+
+
+def _decode_memory(gen, dev, errs):
+    """The dense decode as a cross-attention layer calls it: B=4 rows, each
+    attending all S memory positions, float32 and bf16 against the plain
+    version (into ``errs``); vision's shape timed in bf16 beside its bound,
+    the plain version and SDPA."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    B = 4
+    out = {}
+    for name, (H, Hkv, D, S) in DECODE_MEMORY_SHAPES.items():
+        q, k, v = (torch.randn(B, *shape, generator=gen, device=dev)
+                   for shape in ((H, D), (S, Hkv, D), (S, Hkv, D)))
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [t.to(dtype) for t in (q, k, v)]
+            got = ops.decode_attention(*x, lengths)
+            want = ref.decode_attention_ref(*[t.float() for t in x], lengths)
+            torch.cuda.synchronize()
+            errs[f"memory/{name}/S{S}/{str(dtype)[6:]}"] = close(got, want, dtype)
+        if name != "vision":
+            continue
+        x = [t.to(torch.bfloat16) for t in (q, k, v)]
+        kd, vd = (t.transpose(1, 2).repeat_interleave(H // Hkv, dim=1) for t in x[1:])
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        b_ms, b_by = bound(*_decode_cost(lengths, H, Hkv, D, 2), torch.bfloat16)
+        out = {"shape": f"B=4 H={H} Hkv={Hkv} D={D} S={S} all valid bf16 "
+                        f"n_splits={ops.n_splits(B, Hkv, S)} (vision's cross-attention decode)",
+               "ms": time_ms(lambda: ops.decode_attention(*x, lengths)),
+               "plain_ms": time_ms(lambda: ref.decode_attention_ref(*x, lengths), iters=10),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": time_ms(lambda: sdpa(x[0][:, :, None], kd, vd))}
+    return out
 
 
 def _scan_cost(B, S, H, P, N, L, esize, h0=True):
@@ -969,6 +1186,12 @@ PAGED_KERNELS = {"paged_decode_attention": ("decode_kernel<__nv_bfloat16, true>"
 ATTN_KERNELS = {**PAGED_KERNELS, "flash_attention": ("tc_kernel<false", "tc_kernelILb0E",
                                                      "scalar_kernel<false",
                                                      "scalar_kernelILb0E")}
+# the dense slot pool's two: the flash dense entry and the dense decode
+DENSE_KERNELS = {"flash_attention": ATTN_KERNELS["flash_attention"],
+                 "decode_attention": ("decode_kernel<__nv_bfloat16, false>",
+                                      "decode_kernel<float, false>",
+                                      "decode_kernelI13__nv_bfloat16Lb0E",
+                                      "decode_kernelIfLb0E")}
 
 
 def _paged_kernel_ms(rows, kernels=None):
@@ -982,39 +1205,35 @@ def _paged_kernel_ms(rows, kernels=None):
 
 
 def _profile(cfg, params, prompts, dev, out, fname="profile_bf16.txt", max_new=16,
-             count=()):
+             count=(), max_len=1024, num_pages=None):
     """Device time by kernel over a short non-speculative serve of
-    ``prompts`` (``max_new`` new tokens each): the device's busy share of
-    the wall time, and the kernels that take it (full table under
+    ``prompts`` (``max_new`` new tokens each) on a new engine of
+    ``max_len`` and ``num_pages`` (default: the engine's), after a warm-up
+    request, the card traced alone (``_device_rows``): the device's busy
+    share of the wall time, and the kernels that take it (full table under
     ``--out``); the wrappers' launches in the window, and for each key of
     ``count`` the device kernels whose names hold it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.lm import LM
     from repro_torch.serving.engine import RealEngine
-    eng = RealEngine(cfg, LM(cfg, dev), params, max_len=1024, device=dev)
+    eng = RealEngine(cfg, LM(cfg, dev), params, max_len=max_len, device=dev,
+                     **({"num_pages": num_pages} if num_pages else {}))
     _serve(eng, prompts[:1], 2)                               # warm-up
     before = _launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, s, wall, _ = _serve(eng, prompts, max_new)
+    got = []
+    rows = _device_rows(lambda: got.append(_serve(eng, prompts, max_new)))
+    _, s, wall, _ = got[0]
     launches = {k: n - before[k] for k, n in _launches().items()}
-    # device-side events only: a CPU op also reports the time of the
-    # kernels it launched, which would count them twice
-    rows = sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                  reverse=True)
     _write(out, fname, "\n".join(
-        f"{us / 1e3:12.3f} ms {n:8d}x  {k}" for us, k, n in rows))
-    busy = sum(us for us, _, _ in rows) / 1e6
+        f"{ns / 1e6:12.3f} ms {n:8d}x  {k}" for k, ns, n in rows))
+    busy = sum(ns for _, ns, _ in rows) / 1e9
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": (1 - busy / wall) if busy else "not measured",
             "decode_calls": s.metrics["decode_calls"],
             "prefill_dispatches": eng.prefill_dispatches,
-            "paged_kernels": _paged_kernel_ms([(k, us / 1e3, n) for us, k, n in rows]),
+            "paged_kernels": _paged_kernel_ms([(k, ns / 1e6, n) for k, ns, n in rows]),
             "launches": launches,
-            "kernel_counts": {key: sum(n for _, k, n in rows if key in k) for key in count},
-            "top": [[k, us / 1e3, n] for us, k, n in rows[:12]]}
+            "kernel_counts": {key: sum(n for k, _, n in rows if key in k) for key in count},
+            "top": [[k, ns / 1e6, n] for k, ns, n in rows[:12]]}
 
 
 # --------------------------------------------------------------------------
@@ -1148,15 +1367,13 @@ def overlay_f32_parity(seed, dev):
             "counts": counts, "tokens": raw[0]}
 
 
-def _device_busy_s(fn, top=8, kernels=None):
-    """Run ``fn`` under torch.profiler tracing the card only.  Returns the
-    summed time of its kernels and copies on the device, in seconds (0 if
-    none seen), the ``top`` kernel names by device time ([name, ms,
-    count]) and the time of ``kernels`` (default: the two paged kernels;
-    ``_paged_kernel_ms``).  It
-    sums the tracer's raw device events: building the profiler's per-op
+def _device_rows(fn):
+    """Run ``fn`` under torch.profiler tracing the card only.  Returns
+    (name, device ns, count) of each kernel and copy it ran, by device time.
+    It sums the tracer's raw device events: building the profiler's per-op
     tables (``key_averages``) over a serving run's ~250,000 events took
-    ~60 s a run on an H100 machine."""
+    ~60 s a run on an H100 machine, and tracing the host's ops too slows
+    the host that is being measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1166,10 +1383,18 @@ def _device_busy_s(fn, top=8, kernels=None):
         if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
             ns, n = by_name.get(e.name(), (0, 0))
             by_name[e.name()] = (ns + e.duration_ns(), n + 1)
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    return (sum(ns for ns, _ in by_name.values()) / 1e9,
-            [[name[:120], ns / 1e6, n] for name, (ns, n) in rows[:top]],
-            _paged_kernel_ms([(name, ns / 1e6, n) for name, (ns, n) in rows], kernels))
+    return sorted(((name, ns, n) for name, (ns, n) in by_name.items()), key=lambda r: -r[1])
+
+
+def _device_busy_s(fn, top=8, kernels=None):
+    """``_device_rows`` of ``fn``, summed: the time of its kernels and
+    copies on the device in seconds (0 if none seen), the ``top`` kernel
+    names by device time ([name, ms, count]) and the time of ``kernels``
+    (default: the two paged kernels; ``_paged_kernel_ms``)."""
+    rows = _device_rows(fn)
+    return (sum(ns for _, ns, _ in rows) / 1e9,
+            [[name[:120], ns / 1e6, n] for name, ns, n in rows[:top]],
+            _paged_kernel_ms([(name, ns / 1e6, n) for name, ns, n in rows], kernels))
 
 
 def _migration_costs(cfg, params, dev, holder, handle, depth, rng, reps=5):
@@ -2111,6 +2336,398 @@ def xlstm_serve_bf16(seed, dev, out):
                              "tokens_per_s": 2048 / prefill_s}}, launches
 
 
+# --------------------------------------------------------------------------
+# the other model families: six decoder-only configs on the paged pool, and
+# the encoder and cross-attention of whisper and vision
+# --------------------------------------------------------------------------
+PAGED_FAMILIES = ("h2o-danube-1.8b", "gemma2-9b", "yi-34b", "granite-20b", "dbrx-132b",
+                  "moonshot-v1-16b-a3b")
+ENCDEC = ("llama-3.2-vision-11b", "whisper-base")
+# depth cuts of the bf16 serving runs, where the weights and the arena
+# would pass ~70 GB of the card's 80 (bf16 weights at full depth: yi ~69 GB,
+# dbrx ~264 GB); every width is the published one
+FAMILY_CUTS = {"yi-34b": (48, "n_layers 60 -> 48: 60 layers are ~69 GB of bf16 weights, "
+                               "~73 GB with the arena"),
+               "dbrx-132b": (8, "n_layers 40 -> 8: 40 layers are ~264 GB of bf16 weights "
+                                "(16 experts of 3 x 6144 x 10752 a layer)")}
+LONG_PROMPT = 4600        # danube's and gemma2's extra request: past their 4096 window
+
+
+def _family(name, **kw):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(name), **kw)
+
+
+def _weight_bytes(params):
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def _close_cpu(card, cpu, name, errs):
+    """Card logits against the CPU's within 2e-4; the largest error into
+    ``errs[name]``."""
+    card, cpu = card.float().cpu(), cpu.float().cpu()
+    assert torch.isfinite(card).all(), f"{name}: non-finite logits"
+    torch.testing.assert_close(card, cpu, atol=2e-4, rtol=2e-4, msg=name)
+    errs[name] = max(errs.get(name, 0.0), (card - cpu).abs().max().item())
+
+
+def _paged_family_parity(name, seed, dev):
+    """One repeat of a paged config's pattern at full width in float32 on
+    the card and on the CPU (plain versions), from the same weights and
+    the same arena: two rows whose first 4096 positions hold random K/V
+    (so a 4096 window leaves some out), then f32_parity's calls past them:
+    two prefill chunks (the second with a dead row), a decode and a verify
+    window; logits within 2e-4."""
+    from repro_torch.models.lm import LM
+    from repro_torch.params import init_params
+    cfg = _family(name, n_layers=len(_family(name).pattern), dtype="float32",
+                  param_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    cpu = torch.device("cpu")
+    cparams = _to(params, cpu)
+    rng = np.random.default_rng(seed)
+    hist = 4096
+    n_pg = hist // BLK + 4
+    pt = np.stack([np.arange(1, n_pg + 1), np.arange(n_pg + 1, 2 * n_pg + 1)]).astype(np.int32)
+    shape = (cfg.n_repeats, 2 * n_pg + 1, BLK, cfg.n_kv_heads, cfg.d_head)
+    history = [{n: rng.standard_normal(shape, dtype=np.float32) for n in ("k", "v")}
+               for _ in cfg.pattern]
+    tok = rng.integers(0, cfg.vocab, size=(2, BLK)).astype(np.int32)
+    calls = [("prefill_paged", (pt, tok, np.array([hist, hist], np.int32)), {}),
+             ("prefill_paged", (pt, tok[::-1].copy(), np.array([hist + 32, hist], np.int32)),
+              {"active": np.array([True, False])}),
+             ("decode_paged", (pt, tok[:, :1].copy(), np.array([hist + 64, hist + 32], np.int32)),
+              {}),
+             ("verify_paged", (pt, tok[:, 3:8].copy(), np.array([hist + 65, hist + 33], np.int32),
+                               np.array([5, 2], np.int32)), {})]
+    outs = {}
+    for side, d, p in (("card", dev, params), ("cpu", cpu, cparams)):
+        m = LM(cfg, d)
+        arena = tuple({n: torch.tensor(a, device=d) for n, a in layer.items()}
+                      for layer in history)
+        if side == "card":
+            _reset_launches()
+        outs[side] = []
+        for fn, args, kw in calls:
+            logits, _ = getattr(m, fn)(p, arena, *[torch.tensor(a, device=d) for a in args],
+                                       **{k: torch.tensor(v, device=d) for k, v in kw.items()})
+            outs[side].append(logits.float().cpu())
+        if side == "card":
+            launches = _launches()
+        del arena
+    assert launches["paged_flash_attention"] == 3 * cfg.n_layers
+    assert launches["paged_decode_attention"] == cfg.n_layers
+    errs = {}
+    for (fn, _, kw), a, b in zip(calls, outs["card"], outs["cpu"]):
+        if "active" in kw:                                 # row 1 is dead
+            a, b = a[:1], b[:1]
+        if fn == "verify_paged":                           # row 1 has 2 real tokens
+            a, b = torch.cat([a[0], a[1, :2]]), torch.cat([b[0], b[1, :2]])
+        _close_cpu(a, b, fn, errs)
+    del params, cparams
+    _free()
+    return {"layers": cfg.n_layers, "history": hist, "card_launches": launches,
+            "card_vs_cpu_max_abs_err": errs}
+
+
+def _aux(cfg, rng, B, T=None):
+    """The stub frontends' output: whisper's frames (T of them), vision's
+    1600 image embeddings; standard normal, float32."""
+    if cfg.is_encdec:
+        return {"frames": rng.standard_normal((B, T, cfg.d_model), dtype=np.float32)}
+    return {"image_embeds": rng.standard_normal((B, cfg.n_image_tokens, cfg.d_model),
+                                                dtype=np.float32)}
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _greedy(model, params, prompts, aux, max_new, max_len):
+    """Each prompt's own ``prefill(aux)`` (its time to the first token on
+    the host), then one batched ``decode`` a step for ``max_new`` greedy
+    tokens over a slot pool of the prompts' caches.  Returns the tokens
+    (B, max_new), the prefill seconds per prompt and the decode seconds."""
+    from repro_torch.models import lm
+    dev = model.device
+    B = len(prompts)
+    T = next(iter(aux.values())).shape[1]           # frames or image tokens
+    pool = model.cache_zeros(B, max_len, T_mem=T)
+    tok = torch.empty((B, 1), dtype=torch.int32, device=dev)
+    prefill_s = []
+    for i, p in enumerate(prompts):
+        _sync(dev)
+        t0 = time.monotonic()
+        logits, cache = model.prefill(params, torch.tensor([p], device=dev),
+                                      aux={k: v[i:i + 1] for k, v in aux.items()},
+                                      max_len=max_len)
+        tok[i, 0] = logits[0].argmax()
+        _sync(dev)
+        prefill_s.append(time.monotonic() - t0)
+        lm.cache_slot_write(pool, cache, i)
+        del cache
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    out = [tok.clone()]
+    t0 = time.monotonic()
+    for _ in range(max_new - 1):
+        logits, pool = model.decode(params, pool, tok, pos)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        out.append(tok)
+        pos = pos + 1
+    _sync(dev)
+    return torch.cat(out, dim=1).cpu(), prefill_s, time.monotonic() - t0
+
+
+def _encdec_family_parity(name, seed, dev):
+    """One repeat of vision's or whisper's pattern at full width in float32
+    (whisper with all 6 encoder layers over 1500 frames; vision with 1600
+    image embeddings), on the card and on the CPU from the same weights and
+    ``aux``: ``apply``, ``prefill(aux)`` and two ``decode`` steps, and
+    ``encode``; logits within 2e-4; then 8 greedy tokens for two prompts,
+    equal."""
+    from repro_torch.models.lm import LM
+    from repro_torch.params import init_params
+    cfg = _family(name, n_layers=len(_family(name).pattern), dtype="float32",
+                  param_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    cpu = torch.device("cpu")
+    cparams = _to(params, cpu)
+    rng = np.random.default_rng(seed)
+    B, S = 2, 40
+    tok = rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
+    aux = _aux(cfg, rng, B, 1500)
+    prompts = [tok[0, :16].tolist(), tok[1, :11].tolist()]
+    outs, greedy = {}, {}
+    for side, d, p in (("card", dev, params), ("cpu", cpu, cparams)):
+        m = LM(cfg, d)
+        a = {k: torch.from_numpy(v).to(d) for k, v in aux.items()}
+        t = torch.from_numpy(tok).to(d)
+        if side == "card":
+            _reset_launches()
+        res = [("apply", m.apply(p, t, aux=a))]
+        logits, cache = m.prefill(p, t[:, :S - 2], aux=a, max_len=S + 8)
+        res.append(("prefill", logits))
+        for i in range(S - 2, S):
+            logits, cache = m.decode(p, cache, t[:, i:i + 1],
+                                     torch.full((B,), i, dtype=torch.int32, device=d))
+            res.append(("decode", logits))
+        if cfg.is_encdec:
+            res.append(("encode", m.encode(p, a["frames"])))
+        if side == "card":
+            launches = _launches()
+        outs[side] = [(k, v.float().cpu()) for k, v in res]
+        greedy[side] = _greedy(m, p, prompts, a, 8, 32)[0]
+        del cache, a
+    assert launches["flash_attention"] > 0 and launches["decode_attention"] > 0
+    errs = {}
+    for (k, a), (_, b) in zip(outs["card"], outs["cpu"]):
+        _close_cpu(a, b, k, errs)
+    assert torch.equal(greedy["card"], greedy["cpu"]), "f32 greedy tokens: card != CPU"
+    del params, cparams
+    _free()
+    return {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+            "memory": 1500 if cfg.is_encdec else cfg.n_image_tokens,
+            "card_launches": launches, "card_vs_cpu_max_abs_err": errs,
+            "greedy_tokens_equal": True, "greedy_tokens": greedy["card"].tolist()}
+
+
+@torch.inference_mode()
+def families_f32_parity(seed, dev):
+    """The eight configs beside llama, jamba and xlstm, one repeat of each
+    pattern at full width in float32 (TF32 off), on the card against the
+    CPU's plain path: the six paged configs through ``prefill_paged`` /
+    ``decode_paged`` / ``verify_paged``, vision and whisper through
+    ``apply`` / ``prefill(aux)`` / ``decode`` (and ``encode``)."""
+    out = {}
+    for name in PAGED_FAMILIES:
+        out[name] = _paged_family_parity(name, seed, dev)
+    for name in ENCDEC:
+        out[name] = _encdec_family_parity(name, seed, dev)
+    return {"phase": "families_f32_parity", "configs": out,
+            "reduced": ["n_layers: one repeat of each pattern (whisper: its 6 encoder "
+                        "layers whole)"],
+            "tol": "logits atol=rtol=2e-4; greedy tokens exact"}
+
+
+def _family_serve(cfg, params, prompts, dev, max_len, out, name, max_new=32, profile=True):
+    """``_serve`` on a new engine (after a warm-up request of a prompt no
+    other shares): its tokens, wall, TTFT, engine counters and the
+    wrappers' launches; then, with ``profile``, ``_profile``'s traced
+    window on another new engine of the same pages, the first 4 prompts
+    with 8 new tokens each: the device's idle share there, its top kernels
+    and the paged kernels' device time and launches.  Tracing the whole
+    runs (gemma2's alone launched over 400,000 kernels) took ~140 s of
+    post-processing beside their 93 s of serving on an H100 machine."""
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import RealEngine
+    num_pages = 1 + 8 * -(-max_len // BLK)
+    eng = RealEngine(cfg, LM(cfg, dev), params, max_len=max_len, num_pages=num_pages,
+                     device=dev)
+    _serve(eng, [[1, 2, 3] * 11], 2)        # warm-up, sharing no prefix
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    done, s, wall, ttft = _serve(eng, prompts, max_new)
+    launches = _launches()
+    gen = sum(len(r.output) for r in done.values())
+    assert len(done) == len(prompts) and gen == max_new * len(prompts)
+    assert launches["paged_decode_attention"] > 0 and launches["paged_flash_attention"] > 0
+    prefill = sorted(r.ttft for r in done.values())
+    ttft = sorted(ttft.values())
+    run = {"wall_s": wall, "generated_tokens": gen, "tokens_per_s": gen / wall,
+           "ttft_s_mean": sum(ttft) / len(ttft), "ttft_s_max": ttft[-1],
+           "admission_prefill_s_mean": sum(prefill) / len(prefill),
+           "admission_prefill_s_max": prefill[-1],
+           "prefill_dispatches": eng.prefill_dispatches, "prefill_tokens": eng.prefill_tokens,
+           "hit_tokens": sum(r.cached_tokens for r in done.values()),
+           "decode_calls": s.metrics["decode_calls"], "rounds": s.metrics["rounds"],
+           "spec_accept_rate": eng.spec_accept_rate, "spec_dispatches": eng.spec_dispatches,
+           "launches": launches, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "tokens": {i: r.output for i, r in done.items()}}
+    if profile:
+        del eng, s, done
+        _free()
+        run["profile"] = {"window": "the first 4 requests, 8 new tokens each, on a new engine",
+                          **_profile(cfg, params, prompts[:4], dev, out,
+                                     f"profile_{name}_bf16.txt", 8, max_len=max_len,
+                                     num_pages=num_pages)}
+    return run
+
+
+def families_serve_bf16(seed, dev, out):
+    """The six paged configs served at full width in bf16 (random weights
+    from ``seed``; depth cut only as ``FAMILY_CUTS`` says), one at a time
+    through ``RealEngine`` + ``Scheduler``: ``serve_bf16``'s 8 requests
+    (200-600 tokens, 4 opening with one 256-token prefix), 32 new tokens,
+    4 slots, then a traced window for the device's idle share and the
+    paged kernels' time (``_family_serve``); danube and gemma2 add one request of
+    ``LONG_PROMPT`` tokens (max_len 4736), so their 4096 window engages,
+    and danube runs again with speculation (spec_k=4).  Returns the line
+    and the wrappers' launches summed over the configs."""
+    from repro_torch.params import init_params
+    runs, total = {}, {}
+    for name in PAGED_FAMILIES:
+        cut = FAMILY_CUTS.get(name)
+        cfg = _family(name, **({"n_layers": cut[0]} if cut else {}))
+        t_config = t0 = time.monotonic()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                             dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        prompts = _traffic(seed, cfg.vocab)
+        long = any(s.window for s in cfg.pattern)
+        if long:
+            prompts.append(np.random.default_rng(seed + 1).integers(
+                0, cfg.vocab, LONG_PROMPT).tolist())
+        max_len = 4736 if long else 1024
+        r = {"layers": cfg.n_layers, "reduced": [cut[1]] if cut else [],
+             "weight_bytes": _weight_bytes(params), "init_s": init_s,
+             "prompt_lens": [len(p) for p in prompts], "max_len": max_len}
+        r["run"] = _family_serve(cfg, params, prompts, dev, max_len, out, name)
+        for k, n in r["run"]["launches"].items():
+            total[k] = total.get(k, 0) + n
+        tokens = {"nonspec": r["run"].pop("tokens")}
+        if name == "h2o-danube-1.8b":
+            scfg = dataclasses.replace(cfg, spec_enabled=True, spec_k=4)
+            r["spec"] = _family_serve(scfg, params, prompts, dev, max_len, out, name,
+                                      profile=False)
+            assert r["spec"]["spec_dispatches"] > 0
+            for k, n in r["spec"]["launches"].items():
+                total[k] = total.get(k, 0) + n
+            tokens["spec"] = r["spec"].pop("tokens")
+            r["spec_rows_equal_nonspec"] = sum(tokens["spec"][i] == tokens["nonspec"][i]
+                                               for i in tokens["spec"])
+        _write(out, f"serve_{name}_tokens.json", json.dumps(tokens))
+        runs[name] = r
+        del params
+        _free()
+        r["seconds"] = time.monotonic() - t_config
+    return {"phase": "families_serve_bf16", "requests": 8, "max_new": 32, "max_active": 4,
+            "long_prompt": LONG_PROMPT, "configs": runs, "launches": total}, total
+
+
+def encdec_serve_bf16(seed, dev, out):
+    """Vision at full width and depth (40 layers) and whisper at full size
+    in bf16, random weights from ``seed``: B=4 requests, each with its own
+    memory (vision: 1600 image embeddings; whisper: 1500 frames, 30 s of
+    audio after the stub frontend's 2x downsampling), prompts of 64-256
+    (vision) or 4-64 (whisper) tokens, each prefilled alone through
+    ``LM.prefill(aux)``, then 32 greedy tokens a row through batched
+    ``LM.decode`` over a slot pool of their caches; a shorter window
+    traced (kernel activity only) for the device's idle share.  Whisper's
+    encoder is also timed alone at B=4.  Gates: finite logits, every
+    step's token in the vocab."""
+    from repro_torch.models.lm import LM
+    from repro_torch.params import init_params
+    runs, total = {}, {}
+    for name, (lo, hi) in zip(ENCDEC, ((64, 256), (4, 64))):
+        cfg = _family(name)
+        t0 = time.monotonic()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                             dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        rng = np.random.default_rng(seed)
+        prompts = _random_prompts(seed, cfg.vocab, 4, lo, hi)
+        aux = {k: torch.from_numpy(v).to(dev, torch.bfloat16)
+               for k, v in _aux(cfg, rng, 4, 1500).items()}
+        model = LM(cfg, dev)
+        max_len = max(len(p) for p in prompts) + 32
+        _greedy(model, params, [prompts[0][:8]], {k: v[:1] for k, v in aux.items()}, 2,
+                max_len)                                              # warm-up
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        toks, prefill_s, decode_s = _greedy(model, params, prompts, aux, 32, max_len)
+        wall = time.monotonic() - t0
+        launches = _launches()
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        assert launches["flash_attention"] > 0 and launches["decode_attention"] > 0
+        assert ((toks >= 0) & (toks < cfg.vocab)).all()
+        logits = model.apply(params, torch.tensor([prompts[0]], device=dev),
+                             aux={k: v[:1] for k, v in aux.items()})
+        assert torch.isfinite(logits[..., :cfg.vocab]).all(), f"{name}: non-finite logits"
+        # the device's idle share over a window: 4 prefills of ``lo``
+        # tokens and 8 tokens a row
+        window = []
+
+        def traced():
+            t0 = time.monotonic()
+            _greedy(model, params, [p[:lo] for p in prompts], aux, 8, max_len)
+            window.append(time.monotonic() - t0)
+        busy, top, kernels = _device_busy_s(traced, kernels=DENSE_KERNELS)
+        r = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+             "weight_bytes": _weight_bytes(params), "init_s": init_s,
+             "prompt_lens": [len(p) for p in prompts],
+             "memory": "1500 frames" if cfg.is_encdec else f"{cfg.n_image_tokens} image tokens",
+             "wall_s": wall, "generated_tokens": toks.numel(),
+             "tokens_per_s": toks.numel() / wall,
+             "prefill_s": prefill_s, "prefill_s_mean": sum(prefill_s) / len(prefill_s),
+             "decode_s": decode_s, "decode_tokens_per_s": 4 * 31 / decode_s,
+             "launches": launches,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "profile": {"window": f"4 prompts of {lo} tokens, 8 new each",
+                         "wall_s": window[0], "device_busy_s": busy,
+                         "idle_share": 1 - busy / window[0] if busy else "not measured",
+                         "attention_kernels": kernels, "top_kernels": top}}
+        if cfg.is_encdec:
+            frames = aux["frames"]
+            model.encode(params, frames)                              # warm-up
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            model.encode(params, frames)
+            torch.cuda.synchronize()
+            r["encoder_s"] = time.monotonic() - t0
+            r["encoder_device_ms"] = time_ms(lambda: model.encode(params, frames), iters=5)
+        _write(out, f"serve_{name}_tokens.json", json.dumps(toks.tolist()))
+        runs[name] = r
+        del params, aux, model
+        _free()
+    return {"phase": "encdec_serve_bf16", "requests": 4, "max_new": 32, "configs": runs,
+            "launches": total}, total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2196,19 +2813,34 @@ def main():
     _free()
     line, xlstm_launches = xlstm_serve_bf16(args.seed, dev, args.out)
     emit(line)
+    _free()
 
+    # the other families: six decoder-only configs on the paged pool (both
+    # paged kernels), and the encoder and cross-attention of vision and
+    # whisper (the flash kernel's dense entry and the dense decode)
+    emit(families_f32_parity(args.seed, dev))
+    _free()
+    line, family_launches = families_serve_bf16(args.seed, dev, args.out)
+    emit(line)
+    _free()
+    line, encdec_launches = encdec_serve_bf16(args.seed, dev, args.out)
+    emit(line)
+
+    # each kernel's launches on every serving path that runs it
+    paths = {"paged_decode_attention": {"llama": paged_launches, "families": family_launches},
+             "paged_flash_attention": {"llama": paged_launches, "families": family_launches},
+             "flash_attention": {"jamba": dense_launches,
+                                 "verification": verification_launches,
+                                 "encdec": encdec_launches},
+             "decode_attention": {"jamba": dense_launches, "encdec": encdec_launches},
+             "mamba_scan": {"jamba": dense_launches}, "mlstm": {"xlstm": xlstm_launches},
+             "chunk_hash": {"overlay": overlay_launches}}
     for k in kernels:
         k.pop("errs")
         k.pop("library", None)
         k.pop("tol", None)
-        path = (paged_launches if k["name"].startswith("paged_") else
-                overlay_launches if k["name"] == "chunk_hash" else
-                xlstm_launches if k["name"] == "mlstm" else dense_launches)
-        k["launches"] = path[k["name"]]
-        if k["name"] == "flash_attention":      # its dense entry runs on two paths
-            k["launches_by_path"] = {"jamba": dense_launches["flash_attention"],
-                                     "verification": verification_launches["flash_attention"]}
-            k["launches"] += verification_launches["flash_attention"]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in paths[k["name"]].items()}
+        k["launches"] = sum(k["launches_by_path"].values())
     # a time_ms that fell back to CUDA events timed the host's gaps too
     emit({"phase": "timing", "timed_by_events": len(PROFILER_MISSES)})
     emit({"kernels": kernels})

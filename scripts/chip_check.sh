@@ -7,9 +7,9 @@
 #
 #     bash scripts/chip_check.sh OUT [TREE [BASE]]
 #
-# SMOKE=scripts/verification_phases.py (or another script of the tree
-# that takes --out) runs that script in place of chip_smoke.py, here and
-# in the script-alone check.
+# SMOKE="scripts/phases.py families" (or another script of the tree that
+# takes --out, with its arguments) runs that script in place of
+# chip_smoke.py, here and in the script-alone check.
 #
 # OUT receives smoke.log, smoke.err, cuda_tests.log and chip_smoke.py's
 # long outputs; TREE (default: the current directory) is the checkout to
@@ -28,9 +28,10 @@ base=""
 cd "${2:-.}" || exit 2
 tree=$(pwd)
 
-smoke=${SMOKE:-chip_smoke.py}
+read -r smoke smoke_args <<< "${SMOKE:-chip_smoke.py}"
 t0=$(date +%s)
-python3 "$smoke" --out "$out" 2> "$out/smoke.err" |
+# shellcheck disable=SC2086  # the script's arguments, split on spaces
+python3 "$smoke" $smoke_args --out "$out" 2> "$out/smoke.err" |
     while IFS= read -r line; do echo "$(( $(date +%s) - t0 )) $line"; done > "$out/smoke.log"
 smoke_rc=${PIPESTATUS[0]}
 echo "$smoke rc=$smoke_rc after $(( $(date +%s) - t0 )) s"
@@ -45,7 +46,8 @@ tail -n 3 "$out/cuda_tests.log"
 
 alone=$(mktemp -d)
 cp "$smoke" "$alone/"
-(cd "$alone" && python3 "$(basename "$smoke")" > stdout.txt 2> stderr.txt
+# shellcheck disable=SC2086
+(cd "$alone" && python3 "$(basename "$smoke")" $smoke_args > stdout.txt 2> stderr.txt
  rc=$?; echo "$(basename "$smoke") alone rc=$rc with $(wc -c < stdout.txt) bytes of output")
 rm -rf "$alone"
 

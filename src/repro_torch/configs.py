@@ -1,13 +1,14 @@
-"""Architecture configs for the port: the attention, MoE, Mamba and xLSTM
-fields of ``repro/configs/base.py`` (``LayerSpec``, ``MoESpec``,
-``MambaSpec``, ``XLSTMSpec``, ``ArchConfig``, ``reduced``), kept as an own
-copy so the port never imports JAX.  The port has no ``use_kernels``: it
-launches its kernels for every CUDA tensor and runs the plain versions for
-every CPU tensor.
+"""Architecture configs for the port: the fields of
+``repro/configs/base.py`` (``LayerSpec``, ``MoESpec``, ``MambaSpec``,
+``XLSTMSpec``, ``ArchConfig``, ``reduced``) and its eleven registered
+configs, kept as an own copy so the port never imports JAX.  The port has
+no ``use_kernels``: it launches its kernels for every CUDA tensor and runs
+the plain versions for every CPU tensor.  Neither has it the reference's
+dry-run helpers (``input_specs``, ``param_counts``, the long-context
+policy).
 
-Encoder fields and the ``cross_attn`` mixer arrive with the slice that
-ports that family; ``tests/test_torch_common.py`` holds every field here
-equal to the reference config, full and reduced.
+``tests/test_torch_common.py`` holds every field here equal to the
+reference config, full and reduced, for all eleven.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-MIXERS = ("attn", "mamba", "mlstm", "slstm")
+MIXERS = ("attn", "cross_attn", "mamba", "mlstm", "slstm")
 FFNS = ("dense", "moe", "none")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -32,15 +33,14 @@ def torch_dtype(name: str) -> torch.dtype:
 class LayerSpec:
     """One position inside the repeating block pattern."""
 
-    mixer: str = "attn"
+    mixer: str = "attn"           # attn | cross_attn | mamba | mlstm | slstm
     window: Optional[int] = None  # sliding-window size for local attention
-    ffn: str = "dense"
+    ffn: str = "dense"            # dense | moe | none
 
     def __post_init__(self):
         if self.mixer not in MIXERS or self.ffn not in FFNS:
-            raise NotImplementedError(
-                f"{self.mixer}/{self.ffn} layers arrive with a later slice "
-                "of the port (encoder and cross-attention)")
+            raise ValueError(f"unknown layer {self.mixer}/{self.ffn}: mixers "
+                             f"{MIXERS}, FFNs {FFNS}")
 
 
 @dataclass(frozen=True)
@@ -97,6 +97,10 @@ class ArchConfig:
     mamba: Optional[MambaSpec] = None
     xlstm: Optional[XLSTMSpec] = None
 
+    is_encdec: bool = False       # whisper: an encoder over ``frames``
+    n_enc_layers: int = 0
+    n_image_tokens: int = 0       # vision: cross-attention memory length
+
     dtype: str = "bfloat16"       # activation/compute dtype
     param_dtype: str = "float32"  # storage dtype (serving casts to dtype)
 
@@ -151,6 +155,9 @@ class ArchConfig:
             n_kv_heads=(min(self.n_kv_heads, 2)
                         if self.n_kv_heads < self.n_heads else 4),
             d_head=16, d_ff=128 if self.d_ff else 0, vocab=512,
+            n_enc_layers=(min(self.n_enc_layers, len(self.pattern))
+                          if self.is_encdec else 0),
+            n_image_tokens=16 if self.n_image_tokens else 0,
             pattern=pattern, dtype="float32", param_dtype="float32", **kw)
 
 
@@ -166,6 +173,10 @@ def get_config(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_configs() -> list:
+    return sorted(_REGISTRY)
 
 
 # The paper's own testbed model: Meta-Llama-3-8B (GenTorrent §5.1).
@@ -226,4 +237,160 @@ register(ArchConfig(
                     conv_width=4),
     tie_embeddings=True,
     source="arXiv:2405.04517; unverified",
+))
+
+
+# Sliding-window attention (mistral-style, window 4096) on every layer.
+register(ArchConfig(
+    name="h2o-danube-1.8b",
+    family="dense",
+    n_layers=24,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=6912,
+    vocab=32_000,
+    pattern=(LayerSpec(mixer="attn", window=4096),),
+    rope_theta=10_000.0,
+    source="arXiv:2401.16818; hf",
+))
+
+
+# Alternating local (4096-window) and global attention, attention softcap
+# 50, final softcap 30, GeGLU, tied embeddings scaled by sqrt(d_model),
+# sandwich norms.
+register(ArchConfig(
+    name="gemma2-9b",
+    family="dense",
+    n_layers=42,
+    d_model=3584,
+    n_heads=16,
+    n_kv_heads=8,
+    d_head=256,
+    d_ff=14336,
+    vocab=256_000,
+    pattern=(LayerSpec(mixer="attn", window=4096, ffn="dense"),
+             LayerSpec(mixer="attn", window=None, ffn="dense")),
+    rope_theta=10_000.0,
+    attn_softcap=50.0,
+    final_softcap=30.0,
+    act="gelu",
+    glu=True,
+    tie_embeddings=True,
+    embed_scale=True,
+    double_norm=True,
+    source="arXiv:2408.00118; hf",
+))
+
+
+# Llama-architecture GQA; 56 query heads zero-padded to 64 per KV group.
+register(ArchConfig(
+    name="yi-34b",
+    family="dense",
+    n_layers=60,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    d_ff=20480,
+    vocab=64_000,
+    pattern=(LayerSpec(mixer="attn"),),
+    rope_theta=5_000_000.0,
+    head_pad=8,
+    source="arXiv:2403.04652; hf",
+))
+
+
+# Llama-architecture code model with one KV head (MQA, G = 48).
+register(ArchConfig(
+    name="granite-20b",
+    family="dense",
+    n_layers=52,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=1,
+    d_ff=24576,
+    vocab=49152,
+    pattern=(LayerSpec(mixer="attn"),),
+    rope_theta=10_000.0,
+    source="arXiv:2405.04324; hf",
+))
+
+
+# MoE on every layer: 16 experts, top-4.
+register(ArchConfig(
+    name="dbrx-132b",
+    family="moe",
+    n_layers=40,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    d_ff=10752,
+    vocab=100352,
+    pattern=(LayerSpec(mixer="attn", ffn="moe"),),
+    moe=MoESpec(num_experts=16, top_k=4, d_ff_expert=10752, num_shared=0),
+    rope_theta=500_000.0,
+    source="hf:databricks/dbrx-base; unverified",
+))
+
+
+# Fine-grained MoE: 64 experts, top-6, and 2 shared experts.
+register(ArchConfig(
+    name="moonshot-v1-16b-a3b",
+    family="moe",
+    n_layers=48,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=1408,
+    vocab=163840,
+    pattern=(LayerSpec(mixer="attn", ffn="moe"),),
+    moe=MoESpec(num_experts=64, top_k=6, d_ff_expert=1408, num_shared=2),
+    rope_theta=50_000.0,
+    source="hf:moonshotai/Moonlight-16B-A3B; hf",
+))
+
+
+# Four self-attention layers, then one cross-attention layer over 1600
+# image-embedding tokens (the vision frontend is a stub: the embeddings
+# come in as ``aux["image_embeds"]``).
+register(ArchConfig(
+    name="llama-3.2-vision-11b",
+    family="vlm",
+    n_layers=40,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=14336,
+    vocab=128256,
+    pattern=tuple([LayerSpec(mixer="attn")] * 4
+                  + [LayerSpec(mixer="cross_attn")]),
+    rope_theta=500_000.0,
+    n_image_tokens=1600,
+    source="hf:meta-llama/Llama-3.2-11B-Vision; unverified",
+))
+
+
+# Encoder-decoder: 6 encoder layers over the frames of a stub conv frontend
+# (``aux["frames"]``); a decoder layer is a self-attention position without
+# FFN and a cross-attention position with one.  LayerNorm, plain GELU FFN,
+# learned positions (rope_theta 0).
+register(ArchConfig(
+    name="whisper-base",
+    family="audio",
+    n_layers=12,
+    d_model=512,
+    n_heads=8,
+    n_kv_heads=8,
+    d_ff=2048,
+    vocab=51865,
+    pattern=(LayerSpec(mixer="attn", ffn="none"),
+             LayerSpec(mixer="cross_attn", ffn="dense")),
+    is_encdec=True,
+    n_enc_layers=6,
+    act="gelu",
+    glu=False,
+    norm="ln",
+    rope_theta=0.0,
+    tie_embeddings=True,
+    source="arXiv:2212.04356; unverified",
 ))

@@ -63,6 +63,22 @@ def project_qkv(cfg, p, x, positions=None, rope: bool = True):
     return q, k, v
 
 
+def project_q_cross(cfg, p, x, positions):
+    """A cross-attention layer's queries: the padded ``wq``, RoPE when the
+    config has it (the memory's keys get none; the reference's
+    ``attn_layer_forward(memory=...)`` and cross ``layer_decode``)."""
+    q = _proj(x, _pad_heads_w(cfg, p["wq"].to(cfg.compute_dtype), 1))
+    if cfg.rope_theta > 0:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def project_kv_memory(cfg, p, mem):
+    """Cross-attention K/V from a (B, T, d) memory, no RoPE."""
+    dt = cfg.compute_dtype
+    return _proj(mem, p["wk"].to(dt)), _proj(mem, p["wv"].to(dt))
+
+
 def out_proj(cfg, p, o):
     wo = _pad_heads_w(cfg, p["wo"].to(cfg.compute_dtype), 0)
     n, h, d = wo.shape
@@ -73,15 +89,27 @@ def out_proj(cfg, p, o):
 # Dense caches (the slot pool): (B, S, nkv, h) per layer
 # --------------------------------------------------------------------------
 
-def full_attention(cfg, q, k, v, window: Optional[int] = None):
-    """Causal self-attention over a whole prompt (positions 0..S-1).  q:
-    (B, S, nq, h); k, v: (B, S, nkv, h) -> (B, S, nq, h), through the
-    dense entry of the flash attention kernel, which reads these layouts
-    through its strides (heads-before-positions views, no copies)."""
+def full_attention(cfg, q, k, v, causal: bool = True,
+                   window: Optional[int] = None):
+    """Attention of a whole sequence, queries at positions 0..Sq-1 and
+    keys at 0..Skv-1: causal self-attention over a prompt, or (``causal=
+    False``) the encoder's self-attention and cross-attention over a
+    memory of Skv positions.  q: (B, Sq, nq, h); k, v: (B, Skv, nkv, h) ->
+    (B, Sq, nq, h), through the dense entry of the flash attention kernel,
+    which reads these layouts through its strides (heads-before-positions
+    views, no copies)."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True, window=window,
+                        v.transpose(1, 2), causal=causal, window=window,
                         softcap=cfg.attn_softcap or None, scale=_scale(cfg))
     return o.transpose(1, 2)
+
+
+def cross_attention(cfg, p, x, positions, k, v):
+    """A cross-attention layer over a memory's K/V (``project_kv_memory``):
+    queries of x (B, S, d) at ``positions``, every memory position visible
+    (no causal mask, no window) -> (B, S, d)."""
+    q = project_q_cross(cfg, p, x, positions)
+    return out_proj(cfg, p, full_attention(cfg, q, k, v, causal=False))
 
 
 def decode_attention(cfg, q, k_cache, v_cache, lengths):

@@ -44,6 +44,15 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int, device=None):
+    """(n, d) float32 table of the encoder's fixed positions: the sines of
+    pos / 10000^(2i/d) in the first half of d, their cosines in the second."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10_000.0, device=device), 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def _gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 

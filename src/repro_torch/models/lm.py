@@ -1,6 +1,7 @@
 """Decoder LM over the paged KV pool and the dense slot pool, and its
-full-sequence forward (port of the serving paths and ``apply`` of
-``repro/models/lm.py`` for attention, Mamba, mLSTM, sLSTM and MoE layers).
+full-sequence forward (port of the serving paths, ``apply`` and ``encode``
+of ``repro/models/lm.py`` for attention, cross-attention, Mamba, mLSTM,
+sLSTM and MoE layers, and the encoder of the encoder-decoder family).
 
 Params are the reference's nested dicts: ``cfg.pattern`` positions are a
 tuple in ``params["blocks"]``, each leaf stacked over ``cfg.n_repeats`` on
@@ -9,7 +10,9 @@ Paged arenas and dense caches keep the reference layouts, tuples over
 pattern positions of dicts of tensors stacked over repeats: an arena's
 ``{"k", "v"}`` are ``(R, P, BLOCK, nkv, dh)``; a dense cache holds, per
 attention layer, ``{"k", "v"}`` of ``(R, B, size, nkv, dh)`` (size =
-window or max_len) and, per Mamba layer, ``{"conv", "h"}``, per mLSTM
+window or max_len), per cross-attention layer ``{"k", "v"}`` of the
+memory's K/V, ``(R, B, T_mem, nkv, dh)`` (static: decoding reads it and
+never writes it), per Mamba layer ``{"conv", "h"}``, per mLSTM
 layer ``{"C", "n", "m", "conv"}``, per sLSTM layer ``{"h", "c", "n",
 "m"}``.  Both are updated **in place**: each entry point returns the object
 it was given.
@@ -22,7 +25,10 @@ import torch
 from torch import nn
 
 from repro_torch import require_device
+from repro_torch.configs import LayerSpec
 from repro_torch.models import attention, common, mamba, moe, xlstm
+
+MAX_LEARNED_POS = 65_536  # rows of the learned position table (whisper)
 
 
 def ffn_forward(cfg, p, x):
@@ -93,6 +99,14 @@ def _self_attention(cfg, spec, p, x, positions):
     return out, k, v
 
 
+def _cross_prefill(cfg, p, x, positions, memory):
+    """Cross-attention over ``memory`` (B, T, d); its cache is the
+    memory's K/V, which decoding reads as they are."""
+    k, v = attention.project_kv_memory(cfg, p, memory)
+    return attention.cross_attention(cfg, p, x, positions, k, v), \
+        {"k": k, "v": v}
+
+
 def _attn_prefill(cfg, spec, p, x, positions, max_len):
     """Self-attention over the whole prompt plus its dense cache: the last
     ``size`` positions' K/V (a ring by position for a windowed layer)."""
@@ -108,25 +122,30 @@ def _attn_prefill(cfg, spec, p, x, positions, max_len):
     return out, {"k": kc, "v": vc}
 
 
-def layer_prefill(cfg, spec, p, x, positions, max_len):
+def layer_prefill(cfg, spec, p, x, positions, max_len, memory=None):
     """A whole prompt through one layer.  x: (B, S, d); positions: (S,)
-    = 0..S-1.  Returns (x, the layer's batch-B dense cache)."""
+    = 0..S-1; memory: (B, T, d), what a cross-attention layer attends.
+    Returns (x, the layer's batch-B dense cache)."""
     h = common.apply_norm(cfg, p["norm1"], x)
     if spec.mixer == "attn":
         h, cache = _attn_prefill(cfg, spec, p["mixer"], h, positions, max_len)
+    elif spec.mixer == "cross_attn":
+        h, cache = _cross_prefill(cfg, p["mixer"], h, positions, memory)
     else:
         h, cache = _RECURRENT[spec.mixer].forward(cfg, p["mixer"], h,
                                                   return_cache=True)
     return _residual(cfg, spec, p, x, h), cache
 
 
-def layer_forward_full(cfg, spec, p, x, positions):
+def layer_forward_full(cfg, spec, p, x, positions, memory=None):
     """A whole sequence through one layer, building no cache (the
-    reference's ``layer_forward_full`` without encoder memory).  x: (B, S,
-    d); positions: (S,) = 0..S-1."""
+    reference's ``layer_forward_full``).  x: (B, S, d); positions: (S,) =
+    0..S-1; memory: (B, T, d), what a cross-attention layer attends."""
     h = common.apply_norm(cfg, p["norm1"], x)
     if spec.mixer == "attn":
         h = _self_attention(cfg, spec, p["mixer"], h, positions)[0]
+    elif spec.mixer == "cross_attn":
+        h = _cross_prefill(cfg, p["mixer"], h, positions, memory)[0]
     else:
         h = _RECURRENT[spec.mixer].forward(cfg, p["mixer"], h)
     return _residual(cfg, spec, p, x, h)
@@ -159,6 +178,14 @@ def layer_decode(cfg, spec, p, x, pos, cache, active=None):
             cfg, q, cache["k"], cache["v"],
             _decode_lengths(spec, pos, size, active))
         h = attention.out_proj(cfg, p["mixer"], o)
+    elif spec.mixer == "cross_attn":
+        # every memory position is visible to a live row
+        q = attention.project_q_cross(cfg, p["mixer"], h, pos[:, None])
+        T = torch.full_like(pos, cache["k"].shape[1])
+        o = attention.decode_attention(
+            cfg, q, cache["k"], cache["v"],
+            T if active is None else torch.where(active, T, 0))
+        h = attention.out_proj(cfg, p["mixer"], o)
     else:
         h, new = _RECURRENT[spec.mixer].decode(cfg, p["mixer"], h, cache)
         for n, t in cache.items():
@@ -166,9 +193,10 @@ def layer_decode(cfg, spec, p, x, pos, cache, active=None):
     return _residual(cfg, spec, p, x, h)
 
 
-def layer_cache_zeros(cfg, spec, B, max_len, device):
-    if spec.mixer == "attn":
-        shape = (B, _cache_size(spec, max_len), cfg.n_kv_heads, cfg.d_head)
+def layer_cache_zeros(cfg, spec, B, max_len, device, T_mem=0):
+    if spec.mixer in ("attn", "cross_attn"):
+        size = _cache_size(spec, max_len) if spec.mixer == "attn" else T_mem
+        shape = (B, size, cfg.n_kv_heads, cfg.d_head)
         return {n: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
                 for n in ("k", "v")}
     return _RECURRENT[spec.mixer].empty(cfg, B, device)
@@ -298,6 +326,32 @@ def _layer_slice(tree, r):
             for k, v in tree.items()}
 
 
+# --------------------------------------------------------------------------
+# The encoder (whisper): bidirectional self-attention over frames
+# --------------------------------------------------------------------------
+
+ENC_SPEC = LayerSpec(mixer="attn", ffn="dense")   # every encoder layer
+
+
+def encode(cfg, p, frames):
+    """frames: (B, T, d), the stub conv frontend's output -> (B, T, d).
+    Fixed sinusoidal positions are added to the frames; each of the
+    ``n_enc_layers`` layers (``p["layers"]``, stacked) is non-causal
+    self-attention without RoPE through the flash kernel's dense entry,
+    then a dense FFN; ``p["final_norm"]`` last."""
+    T = frames.shape[1]
+    x = frames + common.sinusoidal_positions(
+        T, cfg.d_model, frames.device).to(frames.dtype)
+    for r in range(cfg.n_enc_layers):
+        lp = _layer_slice(p["layers"], r)
+        h = common.apply_norm(cfg, lp["norm1"], x)
+        q, k, v = attention.project_qkv(cfg, lp["mixer"], h, rope=False)
+        x = x + attention.out_proj(cfg, lp["mixer"], attention.full_attention(
+            cfg, q, k, v, causal=False))
+        x = _ffn_block(cfg, ENC_SPEC, lp, x)
+    return common.apply_norm(cfg, p["final_norm"], x)
+
+
 class LM(nn.Module):
     """The model's serving entry points and its full forward.  Holds the
     config and the device; the weights are a parameter dict
@@ -318,10 +372,29 @@ class LM(nn.Module):
                        None if state is None else
                        {n: t[r] for n, t in state[i].items()})
 
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, positions):
+        """Token embeddings, plus the learned position rows (clamped to the
+        table) where the config has no RoPE; ``positions`` broadcasts
+        against ``tokens``."""
         cfg = self.cfg
-        return common.take_embedding(params["embed"], tokens,
-                                     cfg.embed_scale, cfg.compute_dtype)
+        x = common.take_embedding(params["embed"], tokens,
+                                  cfg.embed_scale, cfg.compute_dtype)
+        if cfg.rope_theta <= 0:
+            idx = positions.long().clamp(max=MAX_LEARNED_POS - 1)
+            x = x + params["pos_embed"][idx].to(cfg.compute_dtype)
+        return x
+
+    def _memory(self, params, aux):
+        """What the cross-attention layers attend: the encoder's output
+        over ``aux["frames"]`` (whisper), or ``aux["image_embeds"]``
+        (vision), in the compute dtype; None for a decoder-only config.  A
+        missing key raises ``KeyError``, as in the reference."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            return self.encode(params, aux["frames"])
+        if cfg.n_image_tokens:
+            return aux["image_embeds"].to(cfg.compute_dtype)
+        return None
 
     def _logits(self, params, x):
         cfg = self.cfg
@@ -338,44 +411,57 @@ class LM(nn.Module):
 
     def supports_paging(self) -> bool:
         """Only attention KV has per-position state to page; recurrent
-        mixers keep the dense slot pool."""
+        and cross-attention mixers keep the dense slot pool."""
         return all(s.mixer == "attn" for s in self.cfg.pattern)
 
     # ---------------- full forward ----------------
     @torch.no_grad()
-    def apply(self, params, tokens):
+    def encode(self, params, frames):
+        """The encoder over frames (B, T, d), cast to the compute dtype ->
+        (B, T, d) (``encode``)."""
+        return encode(self.cfg, params["encoder"],
+                      frames.to(self.cfg.compute_dtype))
+
+    @torch.no_grad()
+    def apply(self, params, tokens, aux=None):
         """Full-sequence forward, tokens (B, S) from position 0 -> (B, S,
         V) float32 logits at every position (the reference's
-        ``LM.apply``, without encoder memory, remat, the MoE aux loss or
-        query blocks).  Without autograd, like the other entry points:
-        training will need a graded variant."""
+        ``LM.apply``, without remat, the MoE aux loss or query blocks).
+        ``aux``: ``{"frames"}`` or ``{"image_embeds"}`` for the configs
+        with cross-attention.  Without autograd, like the other entry
+        points: training will need a graded variant."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, positions)
+        memory = self._memory(params, aux or {})
         for spec, p, _ in self._layers(params):
-            x = layer_forward_full(self.cfg, spec, p, x, positions)
+            x = layer_forward_full(self.cfg, spec, p, x, positions, memory)
         return self._head(params, x)
 
     # ---------------- dense slot pool ----------------
-    def cache_zeros(self, B, max_len):
-        """A dense cache for ``B`` rows of up to ``max_len`` positions:
-        per pattern position, leaves stacked over repeats (R, B, ...)."""
+    def cache_zeros(self, B, max_len, T_mem=0):
+        """A dense cache for ``B`` rows of up to ``max_len`` positions
+        (``T_mem`` memory positions for a cross-attention layer): per
+        pattern position, leaves stacked over repeats (R, B, ...)."""
         R = self.cfg.n_repeats
         return tuple({n: torch.stack([t] * R) for n, t in layer_cache_zeros(
-            self.cfg, spec, B, max_len, self.device).items()}
+            self.cfg, spec, B, max_len, self.device, T_mem).items()}
             for spec in self.cfg.pattern)
 
     @torch.no_grad()
-    def prefill(self, params, tokens, max_len=None):
+    def prefill(self, params, tokens, aux=None, max_len=None):
         """A whole prompt, tokens (B, S), from position 0.  Returns the
         last position's (B, V) logits and a new dense cache sized for
-        ``max_len`` (default S)."""
+        ``max_len`` (default S); a cross-attention layer's cache holds the
+        memory's K/V (``aux`` as for ``apply``)."""
         cfg = self.cfg
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, positions)
+        memory = self._memory(params, aux or {})
         caches = [[] for _ in cfg.pattern]          # [position][repeat]
         for i, (spec, p, _) in enumerate(self._layers(params)):
-            x, c = layer_prefill(cfg, spec, p, x, positions, max_len or S)
+            x, c = layer_prefill(cfg, spec, p, x, positions, max_len or S,
+                                 memory)
             caches[i % len(cfg.pattern)].append(c)
         cache = tuple({n: torch.stack([c[n] for c in cs]) for n in cs[0]}
                       for cs in caches)
@@ -385,8 +471,9 @@ class LM(nn.Module):
     def decode(self, params, cache, tokens, pos, active=None):
         """tokens (B, 1), pos (B,) absolute position of the new token ->
         ((B, V) logits, cache).  ``active``: optional (B,) bool slot-pool
-        mask (dead rows decode too, masked, instead of a new shape)."""
-        x = self._embed(params, tokens)
+        mask (dead rows decode too, masked, instead of a new shape).  A
+        cross-attention layer reads its memory's K/V from the cache."""
+        x = self._embed(params, tokens, pos[:, None])
         for spec, p, c in self._layers(params, cache):
             x = layer_decode(self.cfg, spec, p, x, pos, c, active=active)
         return self._head(params, x[:, -1]), cache
@@ -411,7 +498,8 @@ class LM(nn.Module):
         write page and returns ((B, C, V) logits, arena).  ``active``:
         optional (B,) bool for batched admission (dead rows write to the
         scratch page)."""
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, pos0[:, None] + torch.arange(
+            tokens.shape[1], device=tokens.device))
         for spec, p, ar in self._layers(params, arena):
             x = layer_prefill_paged(self.cfg, spec, p, x, pos0, ar,
                                     page_tables, active=active)
@@ -422,7 +510,7 @@ class LM(nn.Module):
                      active=None, write=True):
         """tokens (B, 1), pos (B,), page_tables (B, n_pg) -> ((B, V)
         logits, arena).  ``write=False`` leaves the arena untouched."""
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, pos[:, None])
         for spec, p, ar in self._layers(params, arena):
             x = layer_decode_paged(self.cfg, spec, p, x, pos, ar, page_tables,
                                    active=active, write=write)
@@ -435,7 +523,8 @@ class LM(nn.Module):
         to W-1 drafts — from position pos (B,); n_tok (B,) real tokens per
         row.  Returns ((B, W, V) logits equal to W sequential decodes,
         arena)."""
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, pos[:, None] + torch.arange(
+            tokens.shape[1], device=tokens.device))
         for spec, p, ar in self._layers(params, arena):
             x = layer_verify_paged(self.cfg, spec, p, x, pos, ar, page_tables,
                                    n_tok=n_tok)

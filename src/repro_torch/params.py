@@ -3,7 +3,10 @@ here from a seed.
 
 The tree is the reference's (``repro/models/lm.py`` ``LM.init``): nested
 dicts with the same keys, ``blocks`` a tuple over pattern positions whose
-leaves are stacked over ``cfg.n_repeats`` on axis 0.
+leaves are stacked over ``cfg.n_repeats`` on axis 0; for an
+encoder-decoder, ``encoder`` (``layers`` stacked over ``cfg.n_enc_layers``
+and ``final_norm``); without RoPE, a learned ``pos_embed`` table of
+``MAX_LEARNED_POS`` rows.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import require_device
+from repro_torch.models import lm as lm_model
 from repro_torch.models import mamba as mamba_model
 from repro_torch.models import xlstm as xlstm_model
 
@@ -38,21 +42,22 @@ def from_jax_params(tree, device="cuda", dtype=None):
 def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
     """Random weights with the reference's init rules: truncated normal in
     [-2, 2] scaled by 1/sqrt(fan_in) for projections (attention, dense and
-    expert FFNs, router, Mamba, xLSTM), normal(0.02) for the embedding and
-    LM head, ones for norm scales.  ``generator`` must live
+    expert FFNs, router, Mamba, xLSTM), normal(0.02) for the embedding,
+    the LM head and the learned positions, ones for norm scales, zeros for
+    LayerNorm biases.  ``generator`` must live
     on ``device``; ``dtype`` defaults to ``cfg.params_dtype``.  The numbers
     differ from the reference's for the same seed (another generator)."""
     dev = require_device(device)
     dtype = dtype or cfg.params_dtype
     R, d = cfg.n_repeats, cfg.d_model
 
-    def dense(shape, fan_in, per_expert=False):
-        """Stacked (R, *shape), one repeat (``per_expert``: one expert of
+    def dense(shape, fan_in, per_expert=False, n=R):
+        """Stacked (n, *shape), one layer (``per_expert``: one expert of
         the leading axis) at a time in float32, so a full-width model never
         holds a float32 copy of itself."""
-        out = torch.empty((R, *shape), dtype=dtype, device=dev)
+        out = torch.empty((n, *shape), dtype=dtype, device=dev)
         part = shape[1:] if per_expert else shape
-        for r in range(R):
+        for r in range(n):
             for e in range(shape[0] if per_expert else 1):
                 w = torch.empty(part, dtype=torch.float32, device=dev)
                 torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
@@ -61,27 +66,31 @@ def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
                 (out[r, e] if per_expert else out[r]).copy_(w)
         return out
 
-    def embed():
-        w = torch.randn((cfg.padded_vocab, d), generator=generator,
+    def embed(rows=cfg.padded_vocab):
+        w = torch.randn((rows, d), generator=generator,
                         device=dev, dtype=torch.float32)
         return (w * 0.02).to(dtype)
 
-    def norm(stacked=True):
-        shape = (R, d) if stacked else (d,)
+    def norm(n=R):
+        """Stacked over n layers; n None: one norm."""
+        shape = (d,) if n is None else (n, d)
         p = {"scale": torch.ones(shape, dtype=dtype, device=dev)}
         if cfg.norm == "ln":
             p["bias"] = torch.zeros(shape, dtype=dtype, device=dev)
         return p
 
-    def glu(ff, shape=()):
-        return {"w_gate": dense((*shape, d, ff), d, bool(shape)),
-                "w_up": dense((*shape, d, ff), d, bool(shape)),
-                "w_down": dense((*shape, ff, d), ff, bool(shape))}
+    def glu(ff, shape=(), n=R):
+        return {"w_gate": dense((*shape, d, ff), d, bool(shape), n),
+                "w_up": dense((*shape, d, ff), d, bool(shape), n),
+                "w_down": dense((*shape, ff, d), ff, bool(shape), n)}
 
-    def attn():
+    def attn(n=R):
+        """Self- and cross-attention alike (``init_attn``)."""
         nq, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-        return {"wq": dense((d, nq, dh), d), "wk": dense((d, nkv, dh), d),
-                "wv": dense((d, nkv, dh), d), "wo": dense((nq, dh, d), nq * dh)}
+        return {"wq": dense((d, nq, dh), d, n=n),
+                "wk": dense((d, nkv, dh), d, n=n),
+                "wv": dense((d, nkv, dh), d, n=n),
+                "wo": dense((nq, dh, d), nq * dh, n=n)}
 
     def mamba():
         """``repro/models/mamba.py`` ``init_mamba``: A = -exp(A_log) with
@@ -138,27 +147,35 @@ def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
             p["shared"] = glu(m.num_shared * m.d_ff_expert)
         return p
 
-    blocks = []
-    for spec in cfg.pattern:
-        p = {"norm1": norm(),
-             "mixer": {"attn": attn, "mamba": mamba, "mlstm": mlstm,
-                       "slstm": slstm}[spec.mixer]()}
+    def layer(spec, n=R):
+        """One pattern position stacked over n layers (``init_layer``)."""
+        p = {"norm1": norm(n=n),
+             "mixer": attn(n) if spec.mixer in ("attn", "cross_attn") else
+             {"mamba": mamba, "mlstm": mlstm, "slstm": slstm}[spec.mixer]()}
         if cfg.double_norm:
-            p["norm1b"] = norm()
+            p["norm1b"] = norm(n=n)
         if spec.ffn != "none":
-            p["norm2"] = norm()
+            p["norm2"] = norm(n=n)
             if spec.ffn == "moe":
                 p["ffn"] = moe()
             elif cfg.glu:
-                p["ffn"] = glu(cfg.d_ff)
+                p["ffn"] = glu(cfg.d_ff, n=n)
             else:
-                p["ffn"] = {"w_in": dense((d, cfg.d_ff), d),
-                            "w_out": dense((cfg.d_ff, d), cfg.d_ff)}
+                p["ffn"] = {"w_in": dense((d, cfg.d_ff), d, n=n),
+                            "w_out": dense((cfg.d_ff, d), cfg.d_ff, n=n)}
             if cfg.double_norm:
-                p["norm2b"] = norm()
-        blocks.append(p)
-    params = {"embed": embed(), "final_norm": norm(stacked=False),
-              "blocks": tuple(blocks)}
+                p["norm2b"] = norm(n=n)
+        return p
+
+    # drawn in the reference's key order: embed, blocks, lm_head, encoder,
+    # pos_embed
+    params = {"embed": embed(), "final_norm": norm(None)}
+    params["blocks"] = tuple(layer(spec) for spec in cfg.pattern)
     if not cfg.tie_embeddings:
         params["lm_head"] = embed()
+    if cfg.is_encdec:
+        params["encoder"] = {"layers": layer(lm_model.ENC_SPEC, cfg.n_enc_layers),
+                             "final_norm": norm(None)}
+    if cfg.rope_theta <= 0:
+        params["pos_embed"] = embed(lm_model.MAX_LEARNED_POS)
     return params

@@ -17,6 +17,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
+SCRIPT_FILES = sorted((ROOT / "scripts").glob("*phases.py"))
 
 
 def _imported(path):
@@ -27,7 +28,7 @@ def _imported(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", PORT_FILES,
+@pytest.mark.parametrize("path", PORT_FILES + SCRIPT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     for name in _imported(path):

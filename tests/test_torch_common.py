@@ -17,9 +17,15 @@ from repro_torch.models import common  # noqa: E402
 NAME = "gentorrent-llama3-8b"
 
 
+NEW_FAMILIES = ["h2o-danube-1.8b", "gemma2-9b", "yi-34b", "granite-20b",
+                "dbrx-132b", "moonshot-v1-16b-a3b", "llama-3.2-vision-11b",
+                "whisper-base"]
+
+
 def _pair(kind):
     name = NAME
-    for prefix, other in (("jamba-", "jamba-v0.1-52b"), ("xlstm-", "xlstm-1.3b")):
+    for prefix, other in (("jamba-", "jamba-v0.1-52b"), ("xlstm-", "xlstm-1.3b"),
+                          *((f"{n}/", n) for n in NEW_FAMILIES)):
         if kind.startswith(prefix):
             name, kind = other, kind.removeprefix(prefix)
     jcfg, tcfg = base.get_config(name), configs.get_config(name)
@@ -33,7 +39,9 @@ def _pair(kind):
 
 @pytest.mark.parametrize("kind", ["full", "reduced", "reduced-2l",
                                   "jamba-full", "jamba-reduced",
-                                  "xlstm-full", "xlstm-reduced"])
+                                  "xlstm-full", "xlstm-reduced",
+                                  *(f"{n}/{k}" for n in NEW_FAMILIES
+                                    for k in ("full", "reduced"))])
 def test_config_fields_equal_reference(kind):
     jcfg, tcfg = _pair(kind)
     for f in dataclasses.fields(tcfg):
@@ -49,6 +57,18 @@ def test_config_fields_equal_reference(kind):
     assert tcfg.d_inner_mamba == jcfg.d_inner_mamba
     assert tcfg.compute_dtype == configs.torch_dtype(jcfg.dtype)
     assert str(jcfg.compute_dtype) == str(tcfg.compute_dtype).split(".")[1]
+
+
+def test_registry_equals_reference():
+    assert configs.list_configs() == base.list_configs()
+
+
+def test_cross_attention_layers_construct():
+    """The port takes every mixer of the reference; an unknown one raises."""
+    assert configs.LayerSpec(mixer="cross_attn").mixer == "cross_attn"
+    assert configs.MIXERS == base.MIXERS and configs.FFNS == base.FFNS
+    with pytest.raises(ValueError, match="unknown layer"):
+        configs.LayerSpec(mixer="conv")
 
 
 def _cfg_pair(norm):

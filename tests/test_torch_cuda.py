@@ -383,7 +383,7 @@ def test_dense_decode_is_one_kernel_a_call(card, lengths):
 
 
 @pytest.mark.parametrize("D", [16, 64, 80, 128, 256])
-@pytest.mark.parametrize("G", [1, 2, 4, 6, 7, 48])
+@pytest.mark.parametrize("G", [1, 2, 4, 6, 7, 8, 48])
 def test_flash_bf16_every_head_layout(card, D, G):
     """The tensor-core body at every registered config's head dim (padded
     to 64, 128 or 256 in shared memory) and GQA group: the dense entry on
@@ -874,3 +874,140 @@ def _to(tree, dev):
     if isinstance(tree, tuple):
         return tuple(_to(v, dev) for v in tree)
     return tree.to(dev)
+
+
+# ------------------------------------------------------------------------
+# The other families: the dense entry without a causal mask and with keys
+# of their own length (encoder, cross-attention), the dense decode over a
+# static memory, the paged decode at every registered head layout, and one
+# full-width float32 layer of each config on the card against the CPU
+# ------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,H,Hkv,D", [(24, 1600, 32, 8, 128), (200, 1600, 32, 8, 128),
+                                            (24, 1500, 8, 8, 64), (200, 1500, 8, 8, 64)])
+def test_flash_noncausal_keys_of_their_own_length(card, dtype, Sq, Skv, H, Hkv, D):
+    """Cross-attention prefill as ``attention.full_attention(causal=False)``
+    passes it: (B, S, H, D) views, Sq queries against Skv memory keys (the
+    last 64-key tile ragged at 1500), vision's and whisper's heads."""
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(40 + Sq + Skv)
+    q = _randn(rng, 2, Sq, H, D).to(card, dt).transpose(1, 2)
+    k, v = (_randn(rng, 2, Skv, Hkv, D).to(card, dt).transpose(1, 2) for _ in range(2))
+    for softcap in (None, 50.0):
+        got = flash_ops.flash_attention(q, k, v, causal=False, softcap=softcap)
+        want = flash_ref.attention_ref(q.float(), k.float(), v.float(), causal=False,
+                                       softcap=softcap)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hkv,D,S", [(8, 8, 64, 1500), (32, 8, 128, 1600)])
+def test_dense_decode_over_a_static_memory(card, dtype, H, Hkv, D, S):
+    """A cross-attention decode: every row attends all S memory positions
+    (whisper's 1500 frames at G=1, D=64; vision's 1600 image tokens at
+    G=4, D=128)."""
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(50 + S)
+    q = _randn(rng, 4, H, D).to(card, dt)
+    k, v = (_randn(rng, 4, S, Hkv, D).to(card, dt) for _ in range(2))
+    lengths = torch.full((4,), S, dtype=torch.int32, device=card)
+    got = dense_ops.decode_attention(q, k, v, lengths)
+    want = dense_ref.decode_attention_ref(q.float(), k.float(), v.float(), lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, **TOL[dtype])
+
+
+def _decode_layouts():
+    """(G, D) of every registered config's attention, full and reduced,
+    with its padded query heads."""
+    seen = set()
+    for name in configs.list_configs():
+        full = configs.get_config(name)
+        for cfg in (full, full.reduced()):
+            if any("attn" in s.mixer for s in cfg.pattern):
+                seen.add(((cfg.n_heads + cfg.head_pad) // cfg.n_kv_heads, cfg.d_head))
+    return sorted(seen)
+
+
+@pytest.mark.parametrize("G,D", _decode_layouts(), ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_every_head_layout(card, G, D, dtype):
+    """The paged decode at every registered config's GQA group and head
+    dim (the twin of ``test_flash_bf16_every_head_layout``), with a window
+    and a softcap too, lengths past a page and a dead row."""
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(60 + G + D)
+    Hkv = 2
+    ka, va, pt = (t.to(dt) if t.is_floating_point() else t
+                  for t in _arena(rng, card, P=40, Hkv=Hkv, D=D, B=3, n_pg=8))
+    q = _randn(rng, 3, G * Hkv, D).to(card, dt)
+    lengths = torch.tensor([256, 37, 0], dtype=torch.int32, device=card)
+    for kw in (dict(), dict(window=40, softcap=30.0)):
+        got = decode_ops.paged_decode_attention(q, ka, va, pt, lengths, **kw)
+        want = decode_ref.paged_decode_attention_ref(q.float(), ka.float(), va.float(), pt,
+                                                     lengths, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float()[:2], want[:2], **TOL[dtype])
+        assert not got[2].any()
+
+
+# one layer of each config at full width: the pattern position that shows
+# its family (gemma2's windowed one with the softcaps, vision's and
+# whisper's cross-attention, whisper with one encoder layer)
+FULL_WIDTH_LAYER = {"h2o-danube-1.8b": 0, "gemma2-9b": 0, "yi-34b": 0, "granite-20b": 0,
+                    "dbrx-132b": 0, "moonshot-v1-16b-a3b": 0,
+                    "llama-3.2-vision-11b": 4, "whisper-base": 1}
+
+
+def _full_width_layer(name):
+    full = configs.get_config(name)
+    return dataclasses.replace(full, n_layers=1, pattern=(full.pattern[FULL_WIDTH_LAYER[name]],),
+                               n_enc_layers=min(full.n_enc_layers, 1), dtype="float32",
+                               param_dtype="float32")
+
+
+@pytest.mark.parametrize("name", list(FULL_WIDTH_LAYER))
+def test_full_width_layer_on_card_matches_cpu(card, name):
+    """One float32 layer at the config's published widths, its embedding
+    and head included, on the card (kernels) and on the CPU (plain
+    versions) from the same weights, within 2e-4: the paged configs'
+    ``prefill_paged``, ``decode_paged`` and ``verify_paged`` over an
+    8-page arena; vision's and whisper's ``prefill(aux)`` over their full memory
+    (1600 image tokens; 1500 frames through the encoder) and two
+    ``decode`` steps."""
+    cfg = _full_width_layer(name)
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(0), device=card)
+    rng = np.random.default_rng(70)
+    tok = rng.integers(0, cfg.vocab, size=(2, BLK)).astype(np.int32)
+    outs = {}
+    if LM(cfg, "cpu").supports_paging():
+        pt = np.array([[3, 5, 1, 7], [4, 2, 6, 0]], np.int32)
+        calls = [("prefill_paged", (pt, tok, np.array([0, 0], np.int32))),
+                 ("prefill_paged", (pt, tok[::-1].copy(), np.array([32, 32], np.int32))),
+                 ("decode_paged", (pt, tok[:, :1].copy(), np.array([64, 64], np.int32))),
+                 ("verify_paged", (pt, tok[:, 3:8].copy(), np.array([65, 65], np.int32),
+                                   np.array([5, 5], np.int32)))]
+        for dev in ("cuda", "cpu"):
+            m, p = LM(cfg, dev), _to(params, torch.device(dev))
+            arena = m.paged_arena_zeros(8, BLK)
+            outs[dev] = [getattr(m, fn)(p, arena, *[torch.tensor(a, device=dev) for a in args])
+                         [0].float().cpu() for fn, args in calls]
+    else:
+        mem = 1500 if cfg.is_encdec else cfg.n_image_tokens
+        aux = rng.standard_normal((2, mem, cfg.d_model), dtype=np.float32)
+        key = "frames" if cfg.is_encdec else "image_embeds"
+        for dev in ("cuda", "cpu"):
+            m, p = LM(cfg, dev), _to(params, torch.device(dev))
+            t = torch.from_numpy(tok).to(dev)
+            logits, cache = m.prefill(p, t[:, :24], aux={key: torch.from_numpy(aux).to(dev)},
+                                      max_len=32)
+            res = [logits.cpu()]
+            for i in range(24, 26):
+                logits, cache = m.decode(p, cache, t[:, i:i + 1],
+                                         torch.full((2,), i, dtype=torch.int32, device=dev))
+                res.append(logits.cpu())
+            outs[dev] = res
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)

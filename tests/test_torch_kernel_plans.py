@@ -245,6 +245,53 @@ def test_dense_decode_one_row_combines_its_live_splits(length):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("H,Hkv,D,S", [(32, 8, 128, 1600), (8, 8, 64, 1500)],
+                         ids=["vision", "whisper"])
+def test_dense_decode_over_a_static_memory_combines_every_split(H, Hkv, D, S):
+    """A cross-attention decode (B=4 rows, every one of S memory positions
+    visible; S = 1500 leaves a ragged last tile): the splits' spans cover
+    every tile once and their plain partials, combined as the kernel
+    combines them, equal the unsplit plain version within 1e-6."""
+    rng = np.random.default_rng(S)
+    B = 4
+    tiles = -(-S // BLK)
+    splits = dense_ops.n_splits(B, Hkv, S)
+    assert 1 < splits <= tiles
+    spans = decode_ops.split_spans(S, None, tiles, splits, BLK, positions=S)
+    assert [j for lo, hi in spans for j in range(lo, hi)] == list(range(tiles))
+    q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+            for _ in range(2))
+    lengths = torch.full((B,), S, dtype=torch.int32)
+    pad = tiles * BLK - S                 # the ragged tile's missing positions
+    arena = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)).reshape(B * tiles, BLK, Hkv, D)
+             for t in (k, v)]
+    table = torch.arange(B * tiles, dtype=torch.int32).reshape(B, tiles)
+    parts = [decode_ref.partials_ref(q, *arena, table, lengths, torch.full((B,), lo),
+                                     torch.full((B,), hi), scale=D ** -0.5)
+             for lo, hi in spans if lo < hi]
+    acc, m, l = (torch.stack([p[i] for p in parts], dim=2) for i in range(3))
+    got = decode_ref.combine_partials(acc, m, l)
+    want = dense_ref.decode_attention_ref(q, k, v, lengths)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("G,D,Sq", [(1, 64, 1500), (1, 64, 24), (1, 64, 4), (4, 128, 256),
+                                    (4, 128, 24)])
+def test_flash_plan_at_the_encoder_and_cross_shapes(G, D, Sq, dtype):
+    """Whisper's encoder (1500 queries, G=1, D=64) and its decoder prompts'
+    cross-attention, vision's cross-attention prefill (G=4, D=128): the
+    query tiles of the grid cover every query once, within the block's
+    rows and shared memory; the keys' count does not enter the plan."""
+    flash_ops.check_heads(G * 8, 8, D, dtype)
+    p = flash_ops.plan(G, D, Sq, dtype)
+    tiles = -(-Sq // p["tq"])
+    assert (tiles - 1) * p["tq"] < Sq <= tiles * p["tq"]
+    assert p["rows"] == G * p["tq"] <= p["max_rows"]
+    assert p["smem"] <= flash_ops.SMEM_LIMIT
+
+
 def test_dense_decode_spans_clamp_to_the_cache():
     """A length past a ragged cache (S = 1000) is clamped to S, as the
     kernel clamps it: a window that starts past the cache sees nothing."""

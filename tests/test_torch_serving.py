@@ -312,5 +312,15 @@ def test_step_issues_one_pool_dispatch(stacks):
 
 @pytest.mark.parametrize("mixer", ["cross_attn"])
 def test_unported_families_raise(mixer):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        configs.LayerSpec(mixer=mixer)
+    """A config with cross-attention runs through ``LM.prefill(aux)`` and
+    ``LM.decode`` (``tests/test_torch_encdec.py``), not the engine: neither
+    package's ``RealEngine`` passes ``aux`` to the model, so both raise
+    ``KeyError`` on the missing memory (ROADMAP queue 3)."""
+    name = "llama-3.2-vision-11b"
+    assert any(s.mixer == mixer for s in configs.get_config(name).pattern)
+    st = _stacks(name)
+    for side in ("jax", "torch"):
+        eng = st[side].engine(max_len=64)
+        assert not eng.paged
+        with pytest.raises(KeyError, match="image_embeds"):
+            eng.generate(st[side].Request(0, [1, 2, 3], max_new=2))
