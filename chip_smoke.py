@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
-holds each against its plain PyTorch version at the serving paths' shapes,
-and drives the port's serving paths, each at full width:
+holds each against its plain PyTorch version at the shapes its paths give
+it, and drives the port's serving and training paths, each at full width:
 
 * the paged KV pool with ``gentorrent-llama3-8b`` (two layers in float32
   for token parity, all 32 layers in bf16 for the serving numbers);
@@ -45,7 +45,14 @@ and drives the port's serving paths, each at full width:
   in bf16 at full width (yi and dbrx cut in depth to fit the card, danube
   and gemma2 with a request past their 4096 window, danube also with
   speculation); vision at full depth and whisper served in bf16, each
-  request with its own 1600 image embeddings or 1500 frames.
+  request with its own 1600 image embeddings or 1500 frames;
+* training (``make_train_step``: ``lm_loss`` under autograd, the flash
+  kernel's forward with its lse and its backward kernel, AdamW): one step
+  of six reduced configs in float32 on the card against the CPU, where
+  jamba and xlstm refuse a gradient on the card (the scan and the mLSTM
+  have no backward kernel); ``gentorrent-llama3-8b`` at full width cut to
+  4 layers, float32 weights and AdamW state with bf16 compute, trained for
+  a few steps of B=2 x 2048 tokens.
 
 It prints one JSON line per phase.  Every phase must pass: any failure
 ends the run with a nonzero exit.  With no CUDA card it exits nonzero
@@ -579,6 +586,92 @@ def check_dense_flash(gen, dev):
             **full, "errs": errs}
 
 
+# the backward's cases: (B, H, Hkv, Sq, Skv, D, causal, window, softcap): the
+# training shape, danube's D=80 under a 256-key window, gemma2's D=256 with
+# its softcap 50, granite's 48 query heads on one KV head, a non-causal
+# cross-attention over 1600 keys; float32 at a quarter of the sequence
+FLASH_BWD_SHAPES = {"train": (2, 32, 8, 2048, 2048, 128, True, None, None),
+                    "window": (1, 32, 8, 1024, 1024, 80, True, 256, None),
+                    "softcap": (1, 16, 8, 512, 512, 256, True, None, 50.0),
+                    "granite": (1, 48, 1, 512, 512, 128, True, None, None),
+                    "cross": (2, 32, 8, 256, 1600, 128, False, None, None)}
+# each gradient's largest error relative to its largest entry
+FLASH_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _flash_bwd_cost(B, H, Hkv, Sq, Skv, D, causal, esize):
+    """Bytes and FLOPs of the backward: q, o, dO, K, V (and the f32 lse)
+    read once, dQ, dK, dV written once; five products of the visible
+    (query, key) pairs by D (Q K^T, dO V^T, dV, dK, dQ)."""
+    pairs = B * H * (Sq * (Sq + 1) // 2 if causal and Sq == Skv else Sq * Skv)
+    nbytes = (4 * B * H * Sq * D + 4 * B * Hkv * Skv * D) * esize + 4 * B * H * Sq
+    return nbytes, 5 * 2 * pairs * D
+
+
+def check_flash_bwd(gen, dev):
+    """Row 2b: the flash kernel's backward (``flash_attention_bwd``, after
+    the forward's lse) against ``attention_bwd_ref`` at every
+    ``FLASH_BWD_SHAPES`` case, f32 and bf16, each gradient within
+    ``FLASH_BWD_TOL`` of its largest entry; then timed in bf16 at the
+    training shape beside its bound, the plain version and the backward of
+    SDPA (the backward pass alone)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    errs = {}
+
+    def inputs(B, H, Hkv, Sq, Skv, D, dtype):
+        q = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dtype).transpose(1, 2)
+        k, v = (torch.randn(B, Skv, Hkv, D, generator=gen, device=dev).to(dtype)
+                .transpose(1, 2) for _ in range(2))
+        do = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dtype).transpose(1, 2)
+        return q, k, v, do
+
+    for name, (B, H, Hkv, Sq, Skv, D, causal, window, softcap) in FLASH_BWD_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            sq, skv = (Sq, Skv) if dtype == torch.bfloat16 else \
+                (Sq // 4, Skv // 4 if Skv == Sq else Skv)
+            q, k, v, do = inputs(B, H, Hkv, sq, skv, D, dtype)
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            o, lse = ops._dense_forward(q, k, v, causal, window, softcap, D ** -0.5,
+                                        with_lse=True)
+            got = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+            torch.cuda.synchronize()
+            want = ref.attention_bwd_ref(q, k, v, o, do, lse, **kw)
+            lse_err = (lse - ref.lse_ref(q, k, **kw)).abs().max().item()
+            assert lse_err <= 1e-4, (name, dtype, lse_err)
+            for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+                err = ((a.float() - b).abs().max() / b.abs().max()).item()
+                assert err <= FLASH_BWD_TOL[dtype], (name, dtype, gname, err)
+                key = f"{name}/Sq{sq}/Skv{skv}/D{D}/{str(dtype)[6:]}/{gname}"
+                errs[key] = [(a.float() - b).abs().max().item(), err / FLASH_BWD_TOL[dtype]]
+            del q, k, v, do, o, lse, got, want
+
+    B, H, Hkv, S, Skv, D, causal, _, _ = FLASH_BWD_SHAPES["train"]
+    q, k, v, do = inputs(B, H, Hkv, S, Skv, D, torch.bfloat16)
+    o, lse = ops._dense_forward(q, k, v, True, None, None, D ** -0.5, with_lse=True)
+    ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do, lse), iters=5, warmup=2)
+    plain_ms = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, do, lse), iters=2, warmup=1)
+    b_ms, b_by = bound(*_flash_bwd_cost(B, H, Hkv, S, Skv, D, True, 2), torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    x = [t.detach().repeat_interleave(H // t.shape[1], dim=1).requires_grad_(True)
+         for t in (q, k, v)]
+    out = sdpa(*x, is_causal=True)
+    library_ms = time_ms(lambda: torch.autograd.grad(out, x, do, retain_graph=True),
+                         iters=10, warmup=2)
+    fwd_ms = time_ms(lambda: ops._dense_forward(q, k, v, True, None, None, D ** -0.5,
+                                                with_lse=True), iters=10, warmup=2)
+    del x, out
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:83 (backward of; "
+                        "the reference differentiates its jnp attention)",
+            **_summary(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms,
+            "forward_with_lse_ms": fwd_ms,
+            "timed_at": "B=2 H=32 Hkv=8 S=2048 D=128 causal bf16, (B,S,H,D) views; "
+                        "library: SDPA's backward alone on H-expanded K/V",
+            "errs": errs}
+
+
 def _decode_cost(lengths, H, Hkv, D, esize):
     """Bytes and FLOPs of a dense decode call: q of live rows, every row's
     output and length, and the visible K/V; QK^T and PV over it."""
@@ -1004,6 +1097,7 @@ def _wrappers():
     return {"paged_decode_attention": d.paged_decode_attention,
             "paged_flash_attention": f.paged_flash_attention,
             "flash_attention": f.flash_attention,
+            "flash_attention_bwd": f.flash_attention_bwd,
             "decode_attention": dd.decode_attention,
             "mamba_scan": m.mamba_scan,
             "mlstm": ml.mlstm_chunkwise,
@@ -2728,6 +2822,159 @@ def encdec_serve_bf16(seed, dev, out):
             "launches": total}, total
 
 
+# --------------------------------------------------------------------------
+# the training path: lm_loss, autograd through the flash kernel's backward,
+# AdamW (training/train_step.py)
+# --------------------------------------------------------------------------
+TRAIN_PARITY = (NAME, "h2o-danube-1.8b", "gemma2-9b", "moonshot-v1-16b-a3b", "whisper-base",
+                "llama-3.2-vision-11b")
+TRAIN_REFUSED = (JAMBA, XLSTM)    # the scan and the mLSTM have no backward kernel
+# flash kernel device functions behind the training step: the dense
+# entry's forward bodies and the backward's three kernels
+TRAIN_KERNELS = {"flash_attention": DENSE_KERNELS["flash_attention"],
+                 "flash_attention_bwd": ("delta_kernel", "dkdv_kernel", "dq_kernel")}
+TRAIN_CUT = ["n_layers 32 -> 4: 4 layers are ~1.92 B parameters, ~31 GB of float32 "
+             "weights, gradients and AdamW state; 32 layers would need ~128 GB"]
+
+
+def _train_batch(cfg, seed, B, S, dev):
+    """A batch of ``MarkovCorpus(cfg.vocab, seed=0)`` (``batches`` seeded
+    ``seed``), with the stub frontends' frames or image embeddings."""
+    from repro_torch.training.data import MarkovCorpus
+    b = next(MarkovCorpus(cfg.vocab, seed=0).batches(B, S, 1, seed=seed))
+    if cfg.is_encdec or cfg.n_image_tokens:
+        b.update(_aux(cfg, np.random.default_rng(seed), B, T=40))
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def train_f32_parity(seed, dev):
+    """One ``make_train_step`` step on the card against the same step on
+    the CPU (plain versions), float32 with TF32 off, for the reduced
+    ``TRAIN_PARITY`` configs (llama; danube's window; gemma2's softcaps;
+    moonshot's MoE aux loss; whisper's encoder over 40 frames; vision's
+    image embeddings), weights from ``init_params`` seeded ``seed``: the
+    loss, the gradient norm and every updated parameter within 2e-4, and
+    the flash kernel's forward and backward launched on the card.  Then
+    jamba's and xlstm's ``lm_loss`` on the card refuse a gradient (the
+    scan and the mLSTM have no backward kernel)."""
+    from repro_torch import configs
+    from repro_torch.models.lm import LM, lm_loss
+    from repro_torch.params import init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import make_train_step
+    adamw = opt.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    cpu = torch.device("cpu")
+    runs = {}
+    for name in TRAIN_PARITY:
+        cfg = configs.get_config(name).reduced()
+        params = init_params(cfg, torch.Generator().manual_seed(seed), cpu)
+        res = {}
+        for side, d in (("card", dev), ("cpu", cpu)):
+            step = make_train_step(cfg, LM(cfg, d), adamw)
+            p = _to(params, d)
+            if side == "card":
+                _reset_launches()
+            new, _, m = step(p, opt.init_state(p), _train_batch(cfg, seed, 2, 48, d))
+            _sync(d)
+            if side == "card":
+                launches = _launches()
+            res[side] = ([m["loss"].cpu(), m["grad_norm"].cpu()]
+                         + [t.float().cpu() for t in _leaves(new)])
+        errs = {}
+        for i, (a, b) in enumerate(zip(res["card"], res["cpu"])):
+            _close_cpu(a, b, "loss" if i == 0 else "grad_norm" if i == 1 else "params", errs)
+        # every decoder layer of these configs attends; remat runs each
+        # decoder layer's forward twice, the encoder (outside it) once
+        n_enc = cfg.n_enc_layers if cfg.is_encdec else 0
+        assert launches["flash_attention_bwd"] == cfg.n_layers + n_enc, (name, launches)
+        assert launches["flash_attention"] == 2 * cfg.n_layers + n_enc, (name, launches)
+        runs[name] = {"loss": res["card"][0].item(), "grad_norm": res["card"][1].item(),
+                      "card_vs_cpu_max_abs_err": errs,
+                      "launches": {k: launches[k] for k in TRAIN_KERNELS}}
+    refused = {}
+    for name in TRAIN_REFUSED:
+        cfg = configs.get_config(name).reduced()
+        p = opt.tree_map(lambda t: t.requires_grad_(True),
+                         init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev))
+        b = _train_batch(cfg, seed, 2, 48, dev)
+        try:
+            lm_loss(cfg, LM(cfg, dev), p, b["tokens"], b["labels"])
+        except RuntimeError as e:
+            refused[name] = str(e)
+        assert name in refused and "has no backward kernel" in refused[name], name
+    return {"phase": "train_f32_parity", "configs": runs, "refused_on_card": refused,
+            "tol": "atol=rtol=2e-4, card vs CPU"}
+
+
+def train_bf16(seed, dev, out):
+    """``gentorrent-llama3-8b`` at full width (d_model 4096, 32/8 heads,
+    d_ff 14336, vocab 128256) cut to 4 layers (``TRAIN_CUT``), trained by
+    ``make_train_step``: float32 weights and AdamW state, bf16 compute,
+    remat on, B=2 S=2048 from ``MarkovCorpus(vocab, seed=0)``.
+    One warm-up step, 5 timed steps (synchronised host clock), then one
+    step traced on the card alone for its idle share and the flash
+    kernel's forward and backward device time and launches.  Every loss
+    must be finite.  Returns (line, the wrappers' launches over the timed
+    steps)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.params import init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import make_train_step
+    cfg = _family(NAME, n_layers=4)
+    assert cfg.compute_dtype == torch.bfloat16 and cfg.params_dtype == torch.float32
+    B, S = 2, 2048
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    state = opt.init_state(params)
+    step = make_train_step(cfg, LM(cfg, dev), opt.AdamWConfig(lr=3e-4, warmup_steps=2,
+                                                              total_steps=10))
+    batches = [_train_batch(cfg, 100 + i, B, S, dev) for i in range(7)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = [], []
+    params, state, m = step(params, state, batches[0])             # warm-up
+    losses.append(m["loss"].item())
+    _reset_launches()
+    for b in batches[1:6]:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        losses.append(m["loss"].item())
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    before = _launches()
+    got = []
+
+    def traced():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got.append(step(params, state, batches[6]))
+        torch.cuda.synchronize()
+        got.append(time.monotonic() - t0)
+    rows = _device_rows(traced)
+    (_, _, m), wall = got
+    losses.append(m["loss"].item())
+    traced_launches = {k: n - before[k] for k, n in _launches().items()}
+    _write(out, "profile_train_bf16.txt", "\n".join(
+        f"{ns / 1e6:12.3f} ms {n:8d}x  {k}" for k, ns, n in rows))
+    busy = sum(ns for _, ns, _ in rows) / 1e9
+    assert all(np.isfinite(losses)), losses
+    mean_s = sum(secs) / len(secs)
+    del got, m, params, state, batches
+    return {"phase": "train_bf16", "config": NAME, "reduced": TRAIN_CUT,
+            "params": n_params, "batch": B, "seq": S, "remat": "full",
+            "losses": losses, "step_s": secs, "mean_step_s": mean_s,
+            "tokens_per_s": B * S / mean_s, "peak_device_bytes": peak,
+            "traced_step": {"wall_s": wall, "device_busy_s": busy,
+                            "idle_share": 1 - busy / wall if busy else "not measured",
+                            "kernels": _paged_kernel_ms(
+                                [(k, ns / 1e6, n) for k, ns, n in rows], TRAIN_KERNELS),
+                            "launches": {k: traced_launches[k] for k in TRAIN_KERNELS},
+                            "top": [[k[:120], ns / 1e6, n] for k, ns, n in rows[:10]]},
+            "launches": {k: launches[k] for k in TRAIN_KERNELS}}, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2758,12 +3005,15 @@ def main():
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = [check_paged_decode(gen, dev), check_paged_flash(gen, dev),
-               check_dense_flash(gen, dev), check_dense_decode(gen, dev),
-               check_mamba_scan(gen, dev), check_mlstm(gen, dev),
+               check_dense_flash(gen, dev), check_flash_bwd(gen, dev),
+               check_dense_decode(gen, dev), check_mamba_scan(gen, dev), check_mlstm(gen, dev),
                check_chunk_hash(args.seed, dev)]
     emit({"phase": "kernels", "tol": {"float32": "atol=rtol=2e-5; mlstm's h 2e-4 "
                                                  "(its denominator cancels)",
                                       "bfloat16": "atol=rtol=2e-2 vs f32 plain on bf16 inputs",
+                                      "flash_attention_bwd": "each gradient's max error within "
+                                                             "2e-5 (f32) or 2e-2 (bf16) of its "
+                                                             "largest entry",
                                       "chunk_hash": "exact"},
           "errs": "per case [max abs error, worst err / (atol + rtol * |plain|)]",
           "timed_by_events": len(PROFILER_MISSES), "kernels": kernels})
@@ -2825,13 +3075,23 @@ def main():
     _free()
     line, encdec_launches = encdec_serve_bf16(args.seed, dev, args.out)
     emit(line)
+    _free()
 
-    # each kernel's launches on every serving path that runs it
+    # the training path: the flash kernel's dense entry forward (with its
+    # lse) and its backward kernel, under autograd and AdamW
+    emit(train_f32_parity(args.seed, dev))
+    _free()
+    line, train_launches = train_bf16(args.seed, dev, args.out)
+    emit(line)
+    _free()
+
+    # each kernel's launches on every path that runs it
     paths = {"paged_decode_attention": {"llama": paged_launches, "families": family_launches},
              "paged_flash_attention": {"llama": paged_launches, "families": family_launches},
              "flash_attention": {"jamba": dense_launches,
                                  "verification": verification_launches,
-                                 "encdec": encdec_launches},
+                                 "encdec": encdec_launches, "training": train_launches},
+             "flash_attention_bwd": {"training": train_launches},
              "decode_attention": {"jamba": dense_launches, "encdec": encdec_launches},
              "mamba_scan": {"jamba": dense_launches}, "mlstm": {"xlstm": xlstm_launches},
              "chunk_hash": {"overlay": overlay_launches}}

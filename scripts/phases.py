@@ -15,7 +15,11 @@ GROUP is one of:
   dense decode over a static memory, both paged entries at every paged
   config's head layout), then ``families_f32_parity``,
   ``families_serve_bf16`` and ``encdec_serve_bf16``; the card tests of
-  those shapes and families.
+  those shapes and families;
+* ``training``: the flash kernel's backward against its plain version
+  (row 2b of the ``kernels`` line), then ``train_f32_parity`` and
+  ``train_bf16``; card tests of the backward, the refused gradients and
+  ``lm_loss`` on the card.
 
 Builds the kernels the group runs, prints the card's name and power
 limit, then one JSON line a phase as ``chip_smoke.py`` prints it, with
@@ -71,12 +75,18 @@ def _groups(c, seed, dev, out):
             lambda: c.families_serve_bf16(seed, dev, out),
             lambda: c.encdec_serve_bf16(seed, dev, out)],
             "noncausal or static_memory or every_head_layout or full_width_layer"),
+        "training": (["flash_attention", "flash_attention_bwd"], [
+            lambda: {"phase": "kernels", "kernels": [c.check_flash_bwd(
+                torch.Generator(device=dev).manual_seed(seed), dev)]},
+            lambda: c.train_f32_parity(seed, dev),
+            lambda: c.train_bf16(seed, dev, out)],
+            "bwd or backward or refuse_a_gradient or float64"),
     }
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("group", choices=("privacy", "verification", "families"))
+    ap.add_argument("group", choices=("privacy", "verification", "families", "training"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None,
                     help="directory that also receives the phases' lines")

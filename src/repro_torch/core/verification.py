@@ -30,9 +30,11 @@ class VerifierModel:
     params: object
 
     def _logprobs(self, params, tokens):
-        """(B, S) int32 tokens -> (B, S, V) float32 log-probabilities."""
-        logits = self.model.apply(params, tokens)
-        return torch.log_softmax(logits.float(), dim=-1)
+        """(B, S) int32 tokens -> (B, S, V) float32 log-probabilities, with
+        no autograd graph (``LM.apply`` is graded where grad mode is on)."""
+        with torch.no_grad():
+            logits = self.model.apply(params, tokens)
+            return torch.log_softmax(logits.float(), dim=-1)
 
 
 EPS_PROB = 1e-8  # Algorithm 3's small constant for unmatched tokens

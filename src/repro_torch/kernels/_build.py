@@ -101,3 +101,16 @@ def function(name: str, symbol: str, argtypes: list):
 def check(err: int, what: str):
     if err:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def refuse_grad(what: str, *tensors):
+    """Raises where autograd would need a gradient through kernel ``what``,
+    which has no backward kernel: its output, filled through ctypes, would
+    carry no ``grad_fn`` and silently give zero gradients below it.  Call
+    on the CUDA path only; the plain versions on the CPU stay
+    differentiable."""
+    import torch
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{what} has no backward kernel: call it under "
+                           "torch.no_grad(), or on CPU tensors")

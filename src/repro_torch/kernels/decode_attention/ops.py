@@ -49,6 +49,7 @@ def decode_attention(q, k, v, lengths, *, window=None, softcap=None,
     if not q.is_cuda:
         return ref.decode_attention_ref(q, k, v, lengths, window=window,
                                         softcap=softcap, scale=scale)
+    _build.refuse_grad("decode_attention", q, k, v)
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:

@@ -85,6 +85,7 @@ struct Args {
   const int* page_table;  // paged: (B, n_pg)
   const int* pos0;        // paged: (B,) position of query 0
   const int* active;      // paged: (B,) or null (all rows live)
+  float* lse;             // dense: (B, H, Sq) float32 or null (not written)
   int H, Hkv, D, Sq;
   int Skv;                // dense: key count; paged: n_pg * 32
   int n_pg, P;            // paged: table width, arena pages
@@ -95,6 +96,11 @@ struct Args {
   long long o_sb, o_ss, o_sh;     // o strides
   long long kv_sb, kv_ss, kv_sh;  // dense k / v strides for batch, key, head
 };
+
+// row (b, head h, query i) of the dense entry's lse, (B, H, Sq) contiguous
+__device__ __forceinline__ long long lse_off(const Args& a, int b, int h, int i) {
+  return ((long long)b * a.H + h) * a.Sq + i;
+}
 
 __device__ __forceinline__ float dot4(const float4& a, const float4& b, float s) {
   return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, s))));
@@ -287,6 +293,11 @@ __global__ void __launch_bounds__(kThreads) scalar_kernel(Args a) {
     const int r = i / D;
     if (r % a.tq < q_n) store(o + o_off(r) + (i - r * D), acc_s[i] / fmaxf(l_s[r], 1e-20f));
   }
+  if (!PAGED && a.lse != nullptr)  // the backward's log-sum-exp of each row
+    for (int r = tid; r < R; r += kThreads)
+      if (r % a.tq < q_n)
+        a.lse[lse_off(a, b, g * G + r / a.tq, q_lo + r % a.tq)] =
+            l_s[r] > 0.f ? m_s[r] + logf(l_s[r]) : __int_as_float(0x7f800000);  // +inf: no key seen
 }
 
 // ---------------------------------------------------------------------------
@@ -296,6 +307,7 @@ constexpr int kKeys = 64;    // keys per K/V tile: two pages on the paged entry
 constexpr int kPage = 32;    // the arena's page size
 constexpr int kStages = 3;   // K/V tiles in the cp.async ring
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory of tc_kernel, from a 1024-byte aligned base: Q, rows x DP
 // bf16 as DP / 64 column blocks, then kStages x (K tile, V tile), each
@@ -541,6 +553,10 @@ __global__ void __launch_bounds__(128 * NWG) tc_kernel(Args a) {
     float t = l[e] + __shfl_xor_sync(0xffffffffu, l[e], 1);
     t += __shfl_xor_sync(0xffffffffu, t, 2);
     inv[e] = t > 0.f ? 1.f / t : 0.f;
+    // the backward's log-sum-exp of the row, natural log (m is in log2 units)
+    if (!PAGED && a.lse != nullptr && live[e] && (lane & 3) == 0)
+      a.lse[lse_off(a, b, g * G + row[e] / a.tq, q_lo + row[e] % a.tq)] =
+          t > 0.f ? (m[e] + log2f(t)) * kLn2 : __int_as_float(0x7f800000);  // +inf: no key seen
   }
 #pragma unroll
   for (int cb = 0; cb < kCB; ++cb)
@@ -610,15 +626,18 @@ int dispatch(const Args& a, int B, int dtype, void* stream) {
 // none; dtype 0 = float32 (scalar body), 1 = bfloat16 (tensor cores).  tq:
 // query indices per block (ops.py plan: G * tq rows, at most 128 in bf16,
 // 64 at D > 128, and 64 in float32).  The wrapper guarantees D a multiple
-// of 8 and at most 256, and 16-byte aligned q, K and V rows.  Returns
-// cudaGetLastError() after the launch (0 = success).
+// of 8 and at most 256, and 16-byte aligned q, K and V rows.  lse: null,
+// or (B, H, S) float32 contiguous, which receives each query row's
+// log-sum-exp of its scaled, soft-capped and masked scores (the backward's
+// input, flash_attention_bwd.cu).  Returns cudaGetLastError() after the
+// launch (0 = success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                int H, int Hkv, int S, int Skv, int D, int tq, int causal,
                                int window, float softcap, float scale,
                                const long long* q_st, const long long* o_st,
-                               const long long* kv_st, int dtype, void* stream) {
+                               const long long* kv_st, int dtype, void* stream, float* lse) {
   Args a{};
-  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
   a.H = H; a.Hkv = Hkv; a.D = D; a.Sq = S; a.Skv = Skv; a.n_pg = 0; a.tq = tq;
   a.causal = causal; a.window = window; a.softcap = softcap; a.scale = scale;
   a.q_sb = q_st[0]; a.q_ss = q_st[1]; a.q_sh = q_st[2];

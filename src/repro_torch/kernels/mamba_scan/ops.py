@@ -83,6 +83,7 @@ def mamba_scan(xbar, loga, Bm, Cm, h0=None, *, chunk):
     H, P) in xbar's dtype and the final state (B, H, N, P) float32."""
     if not xbar.is_cuda:
         return ref.mamba_scan_ref(xbar, loga, Bm, Cm, h0, chunk=chunk)
+    _build.refuse_grad("mamba_scan", xbar, loga, Bm, Cm, h0)
     B, S, H, P = xbar.shape
     N = Bm.shape[-1]
     L = min(chunk, S)

@@ -37,7 +37,11 @@ def mamba_scan_ref(xbar, loga, Bm, Cm, h0=None, *, chunk):
             * torch.exp(lcum)[..., None]
         cb = torch.einsum("bsn,btn->bst", cm, bm)[:, None]       # (B, 1, L, L)
         dec = (lcum[:, :, None, :] - lcum[:, None, :, :]).permute(0, 3, 1, 2)
-        att = torch.where(mask, cb.float() * torch.exp(dec), 0.0)
+        # the mask goes in before the exponential: above the diagonal dec > 0
+        # and exp(dec) may overflow, whose gradient (0 * inf) would be NaN
+        # (the reference's where-after-exp gives NaN gradients there)
+        att = torch.where(mask, cb.float() * torch.exp(torch.where(mask, dec, -torch.inf)),
+                          0.0)
         y_intra = torch.einsum("bhst,bthp->bshp", att.to(xb.dtype), xb)
         w = torch.exp(lcum[:, -1:] - lcum)                      # (B, L, H)
         hb = torch.einsum("bln,blhp->bhnp", bm.float(),

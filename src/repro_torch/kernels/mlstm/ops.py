@@ -87,6 +87,7 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, *, chunk, scale=1.0):
     if not q.is_cuda:
         return ref.mlstm_ref(q, k, v, log_i, log_f, state, chunk=chunk,
                              scale=scale)
+    _build.refuse_grad("mlstm", q, k, v, log_i, log_f, *(state or ()))
     B, S, H, dh = q.shape
     L = min(chunk, S)
     if q.dtype not in DTYPES:

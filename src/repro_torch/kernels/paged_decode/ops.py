@@ -61,6 +61,7 @@ def paged_decode_attention(q, k_arena, v_arena, page_table, lengths, *,
         return ref.paged_decode_attention_ref(
             q, k_arena, v_arena, page_table, lengths, window=window,
             softcap=softcap, scale=scale)
+    _build.refuse_grad("paged_decode_attention", q, k_arena, v_arena)
     B, H, D = q.shape
     P, blk, Hkv, _ = k_arena.shape
     n_pg = page_table.shape[1]

@@ -97,7 +97,9 @@ def full_attention(cfg, q, k, v, causal: bool = True,
     memory of Skv positions.  q: (B, Sq, nq, h); k, v: (B, Skv, nkv, h) ->
     (B, Sq, nq, h), through the dense entry of the flash attention kernel,
     which reads these layouts through its strides (heads-before-positions
-    views, no copies)."""
+    views, no copies).  Where grad mode is on and an input requires grad,
+    on the card, the kernel's ``FlashAttention`` gives the gradient (its
+    backward kernel)."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal, window=window,
                         softcap=cfg.attn_softcap or None, scale=_scale(cfg))

@@ -1,7 +1,8 @@
-"""Decoder LM over the paged KV pool and the dense slot pool, and its
-full-sequence forward (port of the serving paths, ``apply`` and ``encode``
-of ``repro/models/lm.py`` for attention, cross-attention, Mamba, mLSTM,
-sLSTM and MoE layers, and the encoder of the encoder-decoder family).
+"""Decoder LM over the paged KV pool and the dense slot pool, its
+full-sequence forward and its training loss (port of the serving paths,
+``apply``, ``encode`` and ``lm_loss`` of ``repro/models/lm.py`` for
+attention, cross-attention, Mamba, mLSTM, sLSTM and MoE layers, and the
+encoder of the encoder-decoder family).
 
 Params are the reference's nested dicts: ``cfg.pattern`` positions are a
 tuple in ``params["blocks"]``, each leaf stacked over ``cfg.n_repeats`` on
@@ -26,6 +27,7 @@ from torch import nn
 
 from repro_torch import require_device
 from repro_torch.configs import LayerSpec
+from repro_torch.distributed import remat as remat_lib
 from repro_torch.models import attention, common, mamba, moe, xlstm
 
 MAX_LEARNED_POS = 65_536  # rows of the learned position table (whisper)
@@ -40,24 +42,29 @@ def ffn_forward(cfg, p, x):
     return act(x @ p["w_in"].to(dt)) @ p["w_out"].to(dt)
 
 
-def _ffn_block(cfg, spec, p, x):
+def _ffn_block(cfg, spec, p, x, aux=None):
+    """The FFN sublayer; ``aux``: a list that receives an MoE layer's
+    load-balance loss (None: not computed)."""
     if spec.ffn == "none":
         return x
     h = common.apply_norm(cfg, p["norm2"], x)
     if spec.ffn == "dense":
         h = ffn_forward(cfg, p["ffn"], h)
-    else:
+    elif aux is None:
         h = moe.moe_ffn(cfg, p["ffn"], h)
+    else:
+        h, a = moe.moe_ffn(cfg, p["ffn"], h, return_aux=True)
+        aux.append(a)
     if cfg.double_norm:
         h = common.apply_norm(cfg, p["norm2b"], h)
     return x + h
 
 
-def _residual(cfg, spec, p, x, h):
+def _residual(cfg, spec, p, x, h, aux=None):
     """Optional post-norm of the mixer output, residual, then the FFN."""
     if cfg.double_norm:
         h = common.apply_norm(cfg, p["norm1b"], h)
-    return _ffn_block(cfg, spec, p, x + h)
+    return _ffn_block(cfg, spec, p, x + h, aux)
 
 
 def _mixer_out(cfg, spec, p, x, o):
@@ -137,10 +144,11 @@ def layer_prefill(cfg, spec, p, x, positions, max_len, memory=None):
     return _residual(cfg, spec, p, x, h), cache
 
 
-def layer_forward_full(cfg, spec, p, x, positions, memory=None):
+def layer_forward_full(cfg, spec, p, x, positions, memory=None, aux=None):
     """A whole sequence through one layer, building no cache (the
     reference's ``layer_forward_full``).  x: (B, S, d); positions: (S,) =
-    0..S-1; memory: (B, T, d), what a cross-attention layer attends."""
+    0..S-1; memory: (B, T, d), what a cross-attention layer attends;
+    ``aux``: a list that receives an MoE layer's load-balance loss."""
     h = common.apply_norm(cfg, p["norm1"], x)
     if spec.mixer == "attn":
         h = _self_attention(cfg, spec, p["mixer"], h, positions)[0]
@@ -148,7 +156,7 @@ def layer_forward_full(cfg, spec, p, x, positions, memory=None):
         h = _cross_prefill(cfg, p["mixer"], h, positions, memory)[0]
     else:
         h = _RECURRENT[spec.mixer].forward(cfg, p["mixer"], h)
-    return _residual(cfg, spec, p, x, h)
+    return _residual(cfg, spec, p, x, h, aux)
 
 
 def _decode_lengths(spec, pos, size, active):
@@ -390,8 +398,9 @@ class LM(nn.Module):
         (vision), in the compute dtype; None for a decoder-only config.  A
         missing key raises ``KeyError``, as in the reference."""
         cfg = self.cfg
-        if cfg.is_encdec:
-            return self.encode(params, aux["frames"])
+        if cfg.is_encdec:     # graded where grad mode is on (training)
+            return encode(cfg, params["encoder"],
+                          aux["frames"].to(cfg.compute_dtype))
         if cfg.n_image_tokens:
             return aux["image_embeds"].to(cfg.compute_dtype)
         return None
@@ -401,8 +410,9 @@ class LM(nn.Module):
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         logits = (x @ head.to(cfg.compute_dtype).t()).float()
         logits = common.softcap(logits, cfg.final_softcap)
-        if cfg.padded_vocab != cfg.vocab:
-            logits[..., cfg.vocab:] = -1e30
+        if cfg.padded_vocab != cfg.vocab:   # out of place: tanh's backward reads its output
+            pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+            logits = logits.masked_fill(pad, -1e30)
         return logits
 
     def _head(self, params, x):
@@ -418,24 +428,42 @@ class LM(nn.Module):
     @torch.no_grad()
     def encode(self, params, frames):
         """The encoder over frames (B, T, d), cast to the compute dtype ->
-        (B, T, d) (``encode``)."""
+        (B, T, d) (``encode``), without autograd, as the serving entry
+        points; ``apply`` runs the graded encoder."""
         return encode(self.cfg, params["encoder"],
                       frames.to(self.cfg.compute_dtype))
 
-    @torch.no_grad()
-    def apply(self, params, tokens, aux=None):
+    def apply(self, params, tokens, aux=None, remat=False, collect_aux=False):
         """Full-sequence forward, tokens (B, S) from position 0 -> (B, S,
         V) float32 logits at every position (the reference's
-        ``LM.apply``, without remat, the MoE aux loss or query blocks).
-        ``aux``: ``{"frames"}`` or ``{"image_embeds"}`` for the configs
-        with cross-attention.  Without autograd, like the other entry
-        points: training will need a graded variant."""
+        ``LM.apply``), graded where grad mode is on: serving callers
+        (the verifier) call it under ``torch.no_grad()``.  ``aux``:
+        ``{"frames"}`` or ``{"image_embeds"}`` for the configs with
+        cross-attention.  ``remat``: each repeat's layers under
+        ``distributed.remat`` (True is ``"full"``, or a policy name).  With
+        ``collect_aux``, returns (logits, the MoE aux losses summed over
+        layers)."""
+        cfg = self.cfg
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self._embed(params, tokens, positions)
         memory = self._memory(params, aux or {})
-        for spec, p, _ in self._layers(params):
-            x = layer_forward_full(self.cfg, spec, p, x, positions, memory)
-        return self._head(params, x)
+
+        def body(x, r):
+            """Repeat ``r`` of the pattern -> (x, its MoE aux losses summed)."""
+            aux = [] if collect_aux else None
+            for i, spec in enumerate(cfg.pattern):
+                x = layer_forward_full(cfg, spec, _layer_slice(params["blocks"][i], r),
+                                       x, positions, memory, aux)
+            return x, sum(aux or [], x.new_zeros((), dtype=torch.float32))
+
+        if remat:
+            body = remat_lib.wrap(body, "full" if remat is True else remat)
+        aux_sum = 0.0
+        for r in range(cfg.n_repeats):
+            x, a = body(x, r)
+            aux_sum = aux_sum + a
+        logits = self._head(params, x)
+        return (logits, aux_sum) if collect_aux else logits
 
     # ---------------- dense slot pool ----------------
     def cache_zeros(self, B, max_len, T_mem=0):
@@ -530,3 +558,25 @@ class LM(nn.Module):
                                    n_tok=n_tok)
         return self._head(params, x), arena
 
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+def lm_loss(cfg, model: LM, params, tokens, labels, aux=None, remat=True):
+    """Mean next-token cross-entropy over the labels >= 0 (the reference's
+    ``lm_loss``).  Returns (total, {"ce", "moe_aux", "tokens"}) with total
+    = ce + 0.01 * moe_aux, the MoE configs' Switch load-balance loss (0
+    without MoE)."""
+    collect = cfg.moe is not None
+    out = model.apply(params, tokens, aux=aux, remat=remat, collect_aux=collect)
+    logits, moe_aux = out if collect else \
+        (out, torch.zeros((), dtype=torch.float32, device=tokens.device))
+    logits = logits.float()
+    mask = (labels >= 0).float()
+    safe = labels.clamp_min(0).long()
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0] \
+        - torch.logsumexp(logits, dim=-1)
+    ce = -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+    return ce + 0.01 * moe_aux, {"ce": ce, "moe_aux": moe_aux,
+                                 "tokens": mask.sum()}

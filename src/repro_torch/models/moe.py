@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN with sort-based dispatch (port of
-``repro/models/moe.py`` ``moe_ffn``, without the aux loss, which arrives
-with the training slice).
+``repro/models/moe.py`` ``moe_ffn``, with its Switch load-balance aux
+loss).
 
 Tokens are cut into G dispatch groups; per group the (token, k) slots are
 stably sorted by expert and written into a dense (E, C, d) buffer, slots
@@ -33,8 +33,13 @@ def _glu(cfg, p, x, eq_in, eq_out):
     return torch.einsum(eq_out, act(g) * u, p["w_down"].to(dt))
 
 
-def moe_ffn(cfg, p, x, capacity_factor: Optional[float] = None):
-    """x: (B, S, d) -> (B, S, d)."""
+def moe_ffn(cfg, p, x, capacity_factor: Optional[float] = None,
+            return_aux: bool = False):
+    """x: (B, S, d) -> (B, S, d) [, aux loss]: with ``return_aux`` also the
+    Switch load-balance loss ``E * sum(frac_tokens * mean_probs)``, each
+    factor averaged over the dispatch groups: ``frac_tokens`` the share of
+    a group's (token, k) slots routed to each expert (before the capacity
+    drop), ``mean_probs`` the group's mean router probability of each."""
     m = cfg.moe
     cf = m.capacity_factor if capacity_factor is None else capacity_factor
     B, S, d = x.shape
@@ -76,4 +81,10 @@ def moe_ffn(cfg, p, x, capacity_factor: Optional[float] = None):
     if m.num_shared:
         out = out + _glu(cfg, p["shared"], x.reshape(T, d).to(dt),
                          "td,df->tf", "tf,fd->td")
-    return out.reshape(B, S, d)
+    out = out.reshape(B, S, d)
+    if not return_aux:
+        return out
+    frac = torch.zeros((G, E), dtype=torch.float32, device=dev)
+    frac.scatter_add_(1, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
+    frac = frac / (Tg * k)
+    return out, E * torch.sum(frac.mean(0) * probs.mean(1).mean(0))

@@ -1,2 +1,5 @@
-"""Training-side modules of the port; so far only the KV wire codec that
-cross-node page migration uses (``compression.py``)."""
+"""Training of the port (port of ``repro/training``): the data pipelines
+(``data.py``), AdamW (``optimizer.py``), the train step
+(``train_step.py``), the gradient and KV wire codecs (``compression.py``),
+checkpoints (``checkpoint.py``) and the fault-tolerant supervisor
+(``fault_tolerance.py``)."""

@@ -1,7 +1,13 @@
-"""Wire codec for KV pages shipped between model nodes (port of
-``compress_kv_blocks`` / ``decompress_kv_blocks`` of
-``repro/training/compression.py``; the gradient codecs come with
-training).
+"""Gradient compression for the data-parallel all-reduce, and the wire
+codec for KV pages shipped between model nodes (port of
+``repro/training/compression.py``).
+
+Gradients: int8 quantization with one max-abs scale a leaf, or magnitude
+top-k sparsification, each with error feedback (the part not sent is
+carried into the next step's gradient).  Applied to the gradient tree
+inside the train step, so its numerics are what a cluster would see.
+``round`` is half to even, as ``jnp.round``; top-k keeps every element at
+least as large as the k-th magnitude (ties included), as the reference.
 
 A record is a msgpack-able dict whose bytes equal the reference's for the
 same values: ``raw`` writes the arena dtype's bytes as they are (bf16
@@ -16,6 +22,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.training.optimizer import tree_leaves, tree_map, tree_pick
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -41,6 +49,52 @@ def _tensor(data: bytes, dtype: torch.dtype, shape, device) -> torch.Tensor:
     if min(shape, default=0) < 1 or len(data) != n:
         raise ValueError(f"{len(data)} bytes for {dtype} of shape {tuple(shape)}")
     return torch.frombuffer(bytearray(data), dtype=dtype).reshape(shape).to(device)
+
+
+def _quantize_int8(g):
+    scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize(q, scale):
+    return q.float() * scale
+
+
+def init_error_state(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def compress_int8_ef(grads, err_state):
+    """int8 + error feedback.  Returns (grads_as_transmitted, new_err)."""
+    def one(g, e):
+        g = g.float() + e
+        deq = _dequantize(*_quantize_int8(g))
+        return deq, g - deq
+    out = tree_map(one, grads, err_state)
+    return tree_pick(out, 0), tree_pick(out, 1)
+
+
+def compress_topk_ef(grads, err_state, frac: float = 0.05):
+    """Magnitude top-k sparsification with error feedback: each leaf sends
+    its ``max(1, int(size * frac))`` largest magnitudes (and any tied with
+    the smallest of them)."""
+    def one(g, e):
+        g = g.float() + e
+        flat = g.reshape(-1)
+        k = max(1, int(flat.numel() * frac))
+        thresh = torch.topk(flat.abs(), k).values[-1]
+        sent = g * (g.abs() >= thresh).float()
+        return sent, g - sent
+    out = tree_map(one, grads, err_state)
+    return tree_pick(out, 0), tree_pick(out, 1)
+
+
+def compression_ratio_int8(params) -> float:
+    """Wire-bytes ratio vs f32 all-reduce (scale overhead included)."""
+    leaves = tree_leaves(params)
+    return sum(4 * p.numel() for p in leaves) / sum(p.numel() + 4 for p in leaves)
 
 
 def compress_kv_blocks(blocks: torch.Tensor, mode: str = "fp16") -> dict:

@@ -1011,3 +1011,145 @@ def test_full_width_layer_on_card_matches_cpu(card, name):
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+# ------------------------------------------------- training: flash backward
+# (B, H, Hkv, Sq, Skv, D, causal, window, softcap): llama's training shape,
+# danube's window and D=80, gemma2's D=256 with its softcap, granite's 48
+# query heads on one KV head, a cross-attention over 1600 keys, whisper's
+# encoder
+BWD_SHAPES = [(2, 32, 8, 2048, 2048, 128, True, None, None),
+              (1, 32, 8, 600, 600, 80, True, 256, None),
+              (1, 16, 8, 512, 512, 256, True, None, 50.0),
+              (1, 48, 1, 300, 300, 128, True, None, None),
+              (2, 32, 8, 256, 1600, 128, False, None, None),
+              (2, 8, 8, 300, 300, 64, False, None, None)]
+# each gradient against the plain version's, relative to its largest entry:
+# float32 sums in another order (2e-5), bfloat16 inputs and outputs (2e-2)
+BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _bwd_case(card, shape, dtype, seed):
+    B, H, Hkv, Sq, Skv, D, causal, window, softcap = shape
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(B, Sq, H, D, generator=g, device=card).to(dtype).transpose(1, 2)
+    k, v = (torch.randn(B, Skv, Hkv, D, generator=g, device=card).to(dtype).transpose(1, 2)
+            for _ in range(2))
+    do = torch.randn(B, Sq, H, D, generator=g, device=card).to(dtype).transpose(1, 2)
+    return q, k, v, do, dict(causal=causal, window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s[:6])))
+def test_flash_bwd_kernel_matches_plain(card, dtype, shape):
+    """``flash_attention_bwd`` (after the forward's lse) against
+    ``attention_bwd_ref`` on the same bf16 or f32 inputs; the forward's
+    lse against ``lse_ref``.  float32 runs at a quarter of the sequence
+    (the plain version's (B, H, Sq, Skv) tensors)."""
+    if dtype == "float32":
+        B, H, Hkv, Sq, Skv, D, *rest = shape
+        shape = (B, H, Hkv, max(Sq // 4, 1), Skv // 4 if Skv == Sq else Skv, D, *rest)
+    q, k, v, do, kw = _bwd_case(card, shape, getattr(torch, dtype), 90)
+    o, lse = flash_ops._dense_forward(q, k, v, kw["causal"], kw["window"], kw["softcap"],
+                                      1 / q.shape[-1] ** 0.5, with_lse=True)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, flash_ref.lse_ref(q, k, **kw), atol=1e-4, rtol=1e-5)
+    want = flash_ref.attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    for a, b, t in zip(got, want, (q, k, v)):
+        assert a.dtype == t.dtype and a.shape == t.shape and a.stride() == t.stride()
+        err = (a.float() - b).abs().max() / b.abs().max()
+        assert err <= BWD_TOL[dtype], err
+
+
+def test_flash_autograd_function_matches_float64(card):
+    """The plain version passes ``torch.autograd.gradcheck`` in float64 at
+    a tiny shape, and the kernel's ``FlashAttention`` (float32 on the card,
+    GQA, a window and a softcap) gives its gradients within 2e-5: one
+    forward and one backward launch per call."""
+    g = torch.Generator().manual_seed(3)
+    x64 = [torch.randn(1, n, 9, 8, generator=g, dtype=torch.float64) for n in (4, 2, 2)]
+    kw = dict(causal=True, window=5, softcap=3.0)
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: flash_ref.attention_ref(q, k, v, **kw),
+        [t.clone().requires_grad_(True) for t in x64])
+    ref_in = [t.clone().requires_grad_(True) for t in x64]
+    flash_ref.attention_ref(*ref_in, **kw).pow(2).sum().backward()
+    cuda_in = [t.float().to(card).requires_grad_(True) for t in x64]
+    f0, b0 = flash_ops.flash_attention.launches, flash_ops.flash_attention_bwd.launches
+    out = flash_ops.flash_attention(*cuda_in, **kw)
+    assert out.grad_fn is not None
+    out.pow(2).sum().backward()
+    assert (flash_ops.flash_attention.launches - f0,
+            flash_ops.flash_attention_bwd.launches - b0) == (1, 1)
+    for a, b in zip(cuda_in, ref_in):
+        torch.testing.assert_close(a.grad.double().cpu(), b.grad, atol=2e-5, rtol=2e-5)
+    with torch.no_grad():                       # serving calls: no lse, no graph
+        assert flash_ops.flash_attention(*cuda_in, **kw).grad_fn is None
+
+
+def test_kernels_without_a_backward_refuse_a_gradient(card):
+    """The scan, the mLSTM, the paged flash entry and both decodes raise on
+    the card where autograd would need their gradient; under no_grad they
+    run."""
+    x = torch.randn(1, 8, 2, 16, device=card, requires_grad=True)
+    la = -torch.rand(1, 8, 2, device=card)
+    bc = torch.randn(1, 8, 8, device=card)
+    q = torch.randn(2, 4, 16, device=card, requires_grad=True)
+    kv = torch.randn(2, 64, 2, 16, device=card)
+    arena = torch.randn(6, BLK, 2, 16, device=card)
+    pt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=card)
+    lengths = torch.tensor([40, 9], dtype=torch.int32, device=card)
+    calls = {
+        "mamba_scan": lambda: scan_ops.mamba_scan(x, la, bc, bc, chunk=8),
+        "mlstm": lambda: mlstm_ops.mlstm_chunkwise(
+            x.repeat(1, 1, 1, 4), x.repeat(1, 1, 1, 4), x.repeat(1, 1, 1, 4), la, la,
+            chunk=8),
+        "paged_flash_attention": lambda: flash_ops.paged_flash_attention(
+            x.reshape(2, 4, 2, 16), arena, arena, pt, torch.zeros(2, dtype=torch.int32,
+                                                                   device=card)),
+        "decode_attention": lambda: dense_ops.decode_attention(q, kv, kv, lengths),
+        "paged_decode_attention": lambda: decode_ops.paged_decode_attention(
+            q, arena, arena, pt, lengths)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} has no backward kernel"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", [NAME, "jamba-v0.1-52b"])
+def test_lm_loss_backward_on_card_matches_cpu(card, name):
+    """One ``lm_loss`` and its gradients for reduced llama, on the card (the
+    flash kernel forward and backward) against the CPU within 2e-4; jamba's
+    Mamba layers refuse a gradient on the card."""
+    from repro_torch.models.lm import lm_loss
+    cfg = configs.get_config(name).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(80)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 40)).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 40)).astype(np.int32))
+    res = {}
+    for dev in ("cuda", "cpu") if name == NAME else ("cuda",):
+        leaves = []
+
+        def graded(t):
+            if isinstance(t, dict):
+                return {k: graded(v) for k, v in t.items()}
+            if isinstance(t, tuple):
+                return tuple(graded(v) for v in t)
+            leaves.append(t.detach().clone().requires_grad_(True))
+            return leaves[-1]
+        p = graded(_to(params, torch.device(dev)))
+        call = lambda: lm_loss(cfg, LM(cfg, dev), p, toks.to(dev), labels.to(dev))  # noqa: E731
+        if name != NAME:
+            with pytest.raises(RuntimeError, match="mamba_scan has no backward kernel"):
+                call()
+            return
+        loss, _ = call()
+        loss.backward()
+        res[dev] = [loss.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)

@@ -188,6 +188,47 @@ def test_flash_refuses_shapes_no_config_has(H, Hkv, D, dtype):
         flash_ops.check_heads(H, Hkv, D, dtype)
 
 
+@pytest.mark.parametrize("name,G,D", LAYOUTS, ids=[f"{n}-G{g}-D{d}" for n, g, d in LAYOUTS])
+def test_flash_bwd_plan_fits_every_config(name, G, D):
+    """The backward kernel (csrc/flash_attention_bwd.cu) at every
+    registered config's (G, D): its checks pass in both dtypes, its two
+    tiled kernels' shared memory stays within the card's 232,448 bytes, and
+    its grids cover every key tile (dK/dV, a block per (row, KV head)) and
+    every query tile (dQ, a block per (row, query head)), at the training
+    shape, whisper's encoder and a cross-attention over 1600 keys."""
+    for dtype in (torch.float32, torch.bfloat16):
+        flash_ops.check_bwd(G * 2, 2, D, dtype)
+    for Sq, Skv in ((2048, 2048), (1500, 1500), (256, 1600), (33, 33), (1, 5)):
+        delta, dkdv, dq = flash_ops.bwd_plan(3, G * 2, 2, Sq, Skv, D)
+        assert delta["grid"] == (-(-3 * G * 2 * Sq // 8),) and delta["smem"] == 0
+        assert dkdv["grid"] == (3 * 2, -(-Skv // flash_ops.BWD_BK))
+        assert dq["grid"] == (3 * G * 2, -(-Sq // flash_ops.BWD_BQ))
+        assert max(dkdv["smem"], dq["smem"]) <= flash_ops.SMEM_LIMIT
+        assert all(k["threads"] == 256 for k in (delta, dkdv, dq))
+
+
+def test_flash_bwd_smem_at_the_training_shapes():
+    """Shared memory of the backward's blocks, as ``launch`` in the .cu
+    sizes it: float32 K, V, Q and dO tiles of 32 rows of D + 4, the dK and
+    dV (or dQ) sums, P and dS (or dS) tiles, lse and Delta; llama's D=128
+    leaves room for two dK/dV blocks an SM, gemma2's D=256 for one."""
+    assert flash_ops.bwd_smem_bytes(128) == {
+        "dkdv": 4 * (4 * 32 * 132 + 2 * 32 * 128 + 2 * 32 * 32 + 64),
+        "dq": 4 * (4 * 32 * 132 + 32 * 128 + 32 * 32 + 64)} == \
+        {"dkdv": 108_800, "dq": 88_320}
+    assert flash_ops.bwd_smem_bytes(256)["dkdv"] == 207_104 <= flash_ops.SMEM_LIMIT
+    assert 2 * flash_ops.bwd_smem_bytes(128)["dkdv"] <= 228 * 1024
+
+
+@pytest.mark.parametrize("H,Hkv,D,dtype", [(32, 8, 12, torch.bfloat16),
+                                           (32, 8, 264, torch.bfloat16),
+                                           (30, 8, 128, torch.float32),
+                                           (32, 8, 128, torch.float16)])
+def test_flash_bwd_refuses_shapes_no_config_has(H, Hkv, D, dtype):
+    with pytest.raises((ValueError, TypeError)):
+        flash_ops.check_bwd(H, Hkv, D, dtype)
+
+
 def _paged_decode_smem(G, D, blk, splits, esize):
     """Dynamic shared memory of one paged-decode block, as
     include/split_decode.cuh ``smem_bytes`` sums it: a ring of kStages (2
