@@ -63,9 +63,11 @@ from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import gc
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -177,6 +179,20 @@ def sass_counts(name):
                 counts.setdefault(fn, {}).setdefault(op, 0)
                 counts[fn][op] += 1
     return counts
+
+
+def _spills(reports):
+    """Each kernel function whose ``-Xptxas=-v`` report shows spill
+    stores or loads, with that line; empty where none spills."""
+    out, fn = {}, None
+    for name, text in reports.items():
+        for ln in text.splitlines():
+            if "Function properties for" in ln:
+                fn = ln.split("Function properties for")[1].strip()
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m and (int(m[1]) or int(m[2])):
+                out[f"{name}: {fn}"] = ln.strip()
+    return out
 
 
 def bound(nbytes, flops, dtype):
@@ -589,12 +605,21 @@ def check_dense_flash(gen, dev):
 # the backward's cases: (B, H, Hkv, Sq, Skv, D, causal, window, softcap): the
 # training shape, danube's D=80 under a 256-key window, gemma2's D=256 with
 # its softcap 50, granite's 48 query heads on one KV head, a non-causal
-# cross-attention over 1600 keys; float32 at a quarter of the sequence
+# cross-attention over 1600 keys; then a softcap of 3, where it bites: at
+# 50 the scores of randn inputs (about N(0, 1) after the scale) keep 1 -
+# tanh^2 above 0.98, so a backward without that factor stays inside the
+# bf16 gate, while at 3 it moves dK and dQ by 10-20x the gate; at D=256
+# and D=128, on grids whose dK/dV walk is split (the first two) and whole.
+# float32 at a quarter of the sequence
 FLASH_BWD_SHAPES = {"train": (2, 32, 8, 2048, 2048, 128, True, None, None),
                     "window": (1, 32, 8, 1024, 1024, 80, True, 256, None),
                     "softcap": (1, 16, 8, 512, 512, 256, True, None, 50.0),
                     "granite": (1, 48, 1, 512, 512, 128, True, None, None),
-                    "cross": (2, 32, 8, 256, 1600, 128, False, None, None)}
+                    "cross": (2, 32, 8, 256, 1600, 128, False, None, None),
+                    "cap3_d256_split": (1, 16, 8, 384, 384, 256, True, None, 3.0),
+                    "cap3_granite_split": (1, 48, 1, 512, 512, 128, True, None, 3.0),
+                    "cap3_d256": (2, 16, 8, 1024, 1024, 256, True, None, 3.0),
+                    "cap3_d128": (2, 32, 8, 1024, 1024, 128, True, None, 3.0)}
 # each gradient's largest error relative to its largest entry
 FLASH_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -608,68 +633,156 @@ def _flash_bwd_cost(B, H, Hkv, Sq, Skv, D, causal, esize):
     return nbytes, 5 * 2 * pairs * D
 
 
+# the bf16 backward's timed shapes beyond the training one: granite's 48
+# query heads on one KV head (the split dK/dV walk) and gemma2's D=256 with
+# its softcap 50 (dV and dK walked in two passes)
+FLASH_BWD_TIMED = {"granite": (2, 48, 1, 2048, 2048, 128, True, None, None),
+                   "gemma2": (2, 16, 8, 2048, 2048, 256, True, None, 50.0)}
+
+
+def _flash_bwd_inputs(gen, dev, B, H, Hkv, Sq, Skv, D, dtype):
+    """q, k, v, dO of one backward case from randn: (B, H, S, D) views of
+    (B, S, H, D) tensors."""
+    q = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    k, v = (torch.randn(B, Skv, Hkv, D, generator=gen, device=dev).to(dtype)
+            .transpose(1, 2) for _ in range(2))
+    do = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    return q, k, v, do
+
+
+def flash_bwd_case(gen, dev, shape, dtype):
+    """One ``FLASH_BWD_SHAPES`` case in ``dtype`` (float32 at a quarter of
+    the sequence): the forward's lse against ``lse_ref``, each gradient of
+    ``flash_attention_bwd`` against ``attention_bwd_ref`` as [largest
+    error, that error over the gradient's largest entry], and whether a
+    second call gave the same bits."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, H, Hkv, Sq, Skv, D, causal, window, softcap = shape
+    if dtype == torch.float32:
+        Sq, Skv = Sq // 4, Skv // 4 if Skv == Sq else Skv
+    q, k, v, do = _flash_bwd_inputs(gen, dev, B, H, Hkv, Sq, Skv, D, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = ops._dense_forward(q, k, v, causal, window, softcap, D ** -0.5, with_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    want = ref.attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    return {"key": f"Sq{Sq}/Skv{Skv}/D{D}/{str(dtype)[6:]}",
+            "same_bits": all(torch.equal(a, b) for a, b in zip(got, again)),
+            "lse_err": (lse - ref.lse_ref(q, k, **kw)).abs().max().item(),
+            "errs": {g: [(a.float() - b).abs().max().item(),
+                         ((a.float() - b).abs().max() / b.abs().max()).item()]
+                     for g, a, b in zip(("dq", "dk", "dv"), got, want)}}
+
+
+def _flash_bwd_plans_agree():
+    """``ops.bwd_plan``'s scratch and splits against the built source's
+    own (``ops.launch_plan``) over the head layouts of ``FLASH_BWD_SHAPES``
+    and ``FLASH_BWD_TIMED`` at rows 1-8 and 1-8192 positions, both
+    dtypes; returns the shapes compared."""
+    from repro_torch.kernels.flash_attention import ops
+    layouts = {(H, Hkv, D) for B, H, Hkv, Sq, Skv, D, *_ in
+               (*FLASH_BWD_SHAPES.values(), *FLASH_BWD_TIMED.values())}
+    n = 0
+    for H, Hkv, D in sorted(layouts):
+        for B in (1, 2, 8):
+            for Sq, Skv in ((1, 1), (63, 63), (300, 300), (256, 1600), (2048, 2048),
+                            (8192, 8192)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    mirror = ops.bwd_plan(B, H, Hkv, Sq, Skv, D, dtype)
+                    got = ops.launch_plan(B, H, Hkv, Sq, Skv, D, dtype)
+                    assert got == (mirror["scratch"], mirror.get("splits", 1)), \
+                        (B, H, Hkv, Sq, Skv, D, dtype, got, mirror)
+                    n += 1
+    return n
+
+
 def check_flash_bwd(gen, dev):
     """Row 2b: the flash kernel's backward (``flash_attention_bwd``, after
     the forward's lse) against ``attention_bwd_ref`` at every
-    ``FLASH_BWD_SHAPES`` case, f32 and bf16, each gradient within
-    ``FLASH_BWD_TOL`` of its largest entry; then timed in bf16 at the
-    training shape beside its bound, the plain version and the backward of
-    SDPA (the backward pass alone)."""
+    ``FLASH_BWD_SHAPES`` case, f32 (the scalar body) and bf16 (the wgmma
+    body), each gradient within ``FLASH_BWD_TOL`` of its largest entry, and
+    a second call giving the same bits; ``bwd_plan`` equal to the source's
+    plan; then timed in bf16 at the training shape, and at
+    ``FLASH_BWD_TIMED``'s, each beside its bound, the plain version and the
+    backward of SDPA (the backward pass alone; without the softcap, which
+    SDPA does not take), with each device function's launches held to the
+    plan's."""
     from repro_torch.kernels.flash_attention import ops, ref
-    errs = {}
-
-    def inputs(B, H, Hkv, Sq, Skv, D, dtype):
-        q = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dtype).transpose(1, 2)
-        k, v = (torch.randn(B, Skv, Hkv, D, generator=gen, device=dev).to(dtype)
-                .transpose(1, 2) for _ in range(2))
-        do = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dtype).transpose(1, 2)
-        return q, k, v, do
-
-    for name, (B, H, Hkv, Sq, Skv, D, causal, window, softcap) in FLASH_BWD_SHAPES.items():
+    errs, same_bits = {}, {}
+    for name, shape in FLASH_BWD_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
-            sq, skv = (Sq, Skv) if dtype == torch.bfloat16 else \
-                (Sq // 4, Skv // 4 if Skv == Sq else Skv)
-            q, k, v, do = inputs(B, H, Hkv, sq, skv, D, dtype)
-            kw = dict(causal=causal, window=window, softcap=softcap)
-            o, lse = ops._dense_forward(q, k, v, causal, window, softcap, D ** -0.5,
-                                        with_lse=True)
-            got = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
-            torch.cuda.synchronize()
-            want = ref.attention_bwd_ref(q, k, v, o, do, lse, **kw)
-            lse_err = (lse - ref.lse_ref(q, k, **kw)).abs().max().item()
-            assert lse_err <= 1e-4, (name, dtype, lse_err)
-            for gname, a, b in zip(("dq", "dk", "dv"), got, want):
-                err = ((a.float() - b).abs().max() / b.abs().max()).item()
+            r = flash_bwd_case(gen, dev, shape, dtype)
+            key = f"{name}/{r['key']}"
+            same_bits[key] = r["same_bits"]
+            assert same_bits[key], (name, dtype, "two calls differ")
+            assert r["lse_err"] <= 1e-4, (name, dtype, r["lse_err"])
+            for gname, (abs_err, err) in r["errs"].items():
                 assert err <= FLASH_BWD_TOL[dtype], (name, dtype, gname, err)
-                key = f"{name}/Sq{sq}/Skv{skv}/D{D}/{str(dtype)[6:]}/{gname}"
-                errs[key] = [(a.float() - b).abs().max().item(), err / FLASH_BWD_TOL[dtype]]
-            del q, k, v, do, o, lse, got, want
+                errs[f"{key}/{gname}"] = [abs_err, err / FLASH_BWD_TOL[dtype]]
+    plans_compared = _flash_bwd_plans_agree()
 
-    B, H, Hkv, S, Skv, D, causal, _, _ = FLASH_BWD_SHAPES["train"]
-    q, k, v, do = inputs(B, H, Hkv, S, Skv, D, torch.bfloat16)
-    o, lse = ops._dense_forward(q, k, v, True, None, None, D ** -0.5, with_lse=True)
-    ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do, lse), iters=5, warmup=2)
-    plain_ms = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, do, lse), iters=2, warmup=1)
-    b_ms, b_by = bound(*_flash_bwd_cost(B, H, Hkv, S, Skv, D, True, 2), torch.bfloat16)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    x = [t.detach().repeat_interleave(H // t.shape[1], dim=1).requires_grad_(True)
-         for t in (q, k, v)]
-    out = sdpa(*x, is_causal=True)
-    library_ms = time_ms(lambda: torch.autograd.grad(out, x, do, retain_graph=True),
+    def inputs(*shape):
+        return _flash_bwd_inputs(gen, dev, *shape)
+
+    def timed(B, H, Hkv, S, Skv, D, causal, window, softcap):
+        """Device ms of the kernel, its plain version and SDPA's backward at
+        one bf16 shape, with the bound and the launch plan."""
+        q, k, v, do = inputs(B, H, Hkv, S, Skv, D, torch.bfloat16)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        o, lse = ops._dense_forward(q, k, v, causal, window, softcap, D ** -0.5,
+                                    with_lse=True)
+        ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do, lse, **kw), iters=5,
+                     warmup=2)
+        plain_ms = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, do, lse, **kw), iters=2,
+                           warmup=1)
+        b_ms, b_by = bound(*_flash_bwd_cost(B, H, Hkv, S, Skv, D, causal, 2), torch.bfloat16)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        x = [t.detach().repeat_interleave(H // t.shape[1], dim=1).requires_grad_(True)
+             for t in (q, k, v)]
+        out = sdpa(*x, is_causal=causal)
+        library_ms = time_ms(lambda: torch.autograd.grad(out, x, do, retain_graph=True),
+                             iters=10, warmup=2)
+        fwd_ms = time_ms(lambda: ops._dense_forward(q, k, v, causal, window, softcap,
+                                                    D ** -0.5, with_lse=True),
                          iters=10, warmup=2)
-    fwd_ms = time_ms(lambda: ops._dense_forward(q, k, v, True, None, None, D ** -0.5,
-                                                with_lse=True), iters=10, warmup=2)
-    del x, out
+
+        def calls(n=5):
+            for _ in range(n):
+                ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+            torch.cuda.synchronize()
+        by_kernel = {f: {"ms": r["ms"] / 5, "launches": r["launches"] / 5}
+                     for f, r in _bwd_kernel_ms(_device_rows(calls)).items() if r["launches"]}
+        plan = ops.bwd_plan(B, H, Hkv, S, Skv, D, torch.bfloat16)
+        planned = collections.Counter(k["name"] for k in plan["launches"])
+        assert {f: r["launches"] for f, r in by_kernel.items()} == planned, \
+            (by_kernel, planned)
+        del x, out, q, k, v, do, o, lse
+        launches = [[k["name"], k.get("pass"), list(k["grid"]), k["threads"], k["smem"]]
+                    for k in plan["launches"]]
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library_ms, "forward_with_lse_ms": fwd_ms,
+                "by_kernel": by_kernel,
+                "plan": {"splits": plan["splits"], "launches": launches}}
+
+    train = timed(*FLASH_BWD_SHAPES["train"])
+    others = {}
+    for name, shape in FLASH_BWD_TIMED.items():
+        B, H, Hkv, S, _, D, _, _, softcap = shape
+        others[name] = {"shape": f"B={B} H={H} Hkv={Hkv} S={S} D={D} causal bf16"
+                                 + (f" softcap {softcap}" if softcap else ""),
+                        **timed(*shape)}
+        _free()
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83 (backward of; "
                         "the reference differentiates its jnp attention)",
-            **_summary(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms,
-            "forward_with_lse_ms": fwd_ms,
+            **_summary(errs), **train,
             "timed_at": "B=2 H=32 Hkv=8 S=2048 D=128 causal bf16, (B,S,H,D) views; "
                         "library: SDPA's backward alone on H-expanded K/V",
-            "errs": errs}
+            "timed_more": others,
+            "same_bits_on_a_second_call": all(same_bits.values()),
+            "plans_equal_the_source": plans_compared, "errs": errs}
 
 
 def _decode_cost(lengths, H, Hkv, D, esize):
@@ -2829,10 +2942,21 @@ def encdec_serve_bf16(seed, dev, out):
 TRAIN_PARITY = (NAME, "h2o-danube-1.8b", "gemma2-9b", "moonshot-v1-16b-a3b", "whisper-base",
                 "llama-3.2-vision-11b")
 TRAIN_REFUSED = (JAMBA, XLSTM)    # the scan and the mLSTM have no backward kernel
-# flash kernel device functions behind the training step: the dense
-# entry's forward bodies and the backward's three kernels
+# flash kernel device functions behind the bf16 training step: the dense
+# entry's forward bodies and the backward's bf16 kernels (Delta; dK/dV, the
+# split sum and dQ on wgmma)
+FLASH_BWD_KERNELS = ("delta_kernel", "dkdv_tc_kernel", "dkdv_sum_kernel", "dq_tc_kernel")
 TRAIN_KERNELS = {"flash_attention": DENSE_KERNELS["flash_attention"],
-                 "flash_attention_bwd": ("delta_kernel", "dkdv_kernel", "dq_kernel")}
+                 "flash_attention_bwd": FLASH_BWD_KERNELS}
+
+
+def _bwd_kernel_ms(rows):
+    """Device ms and launches of each of the backward's device functions
+    among ``_device_rows`` rows of (name, ns, count)."""
+    return _paged_kernel_ms([(k, ns / 1e6, n) for k, ns, n in rows],
+                            {f: (f + "<", f + "I", f + "(") for f in FLASH_BWD_KERNELS})
+
+
 TRAIN_CUT = ["n_layers 32 -> 4: 4 layers are ~1.92 B parameters, ~31 GB of float32 "
              "weights, gradients and AdamW state; 32 layers would need ~128 GB"]
 
@@ -2970,6 +3094,7 @@ def train_bf16(seed, dev, out):
                             "idle_share": 1 - busy / wall if busy else "not measured",
                             "kernels": _paged_kernel_ms(
                                 [(k, ns / 1e6, n) for k, ns, n in rows], TRAIN_KERNELS),
+                            "backward_by_kernel": _bwd_kernel_ms(rows),
                             "launches": {k: traced_launches[k] for k in TRAIN_KERNELS},
                             "top": [[k[:120], ns / 1e6, n] for k, ns, n in rows[:10]]},
             "launches": {k: launches[k] for k in TRAIN_KERNELS}}, launches
@@ -3001,7 +3126,9 @@ def main():
           "ptxas": [ln.strip() for v in reports.values() for ln in v.splitlines()
                     if "Used" in ln or "Compiling entry" in ln],
           "tensor_core_sass": {name: sass_counts(name)
-                               for name in ("flash_attention", "mlstm", "mamba_scan")}})
+                               for name in ("flash_attention", "flash_attention_bwd", "mlstm",
+                                            "mamba_scan")},
+          "spills": _spills(reports)})
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = [check_paged_decode(gen, dev), check_paged_flash(gen, dev),

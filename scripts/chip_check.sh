@@ -16,10 +16,10 @@
 # run, for example an unpacked `git archive` of the tree.  BASE, another
 # checkout (say, the parent commit's), adds a last step: every kernel's
 # check of chip_smoke.py (check_paged_decode, check_paged_flash,
-# check_dense_flash, check_dense_decode, check_mamba_scan, check_mlstm,
-# check_chunk_hash) in turns BASE, TREE, TREE, BASE, each tree building and
-# timing its own kernels on this card, one JSON line a kernel in
-# OUT/turns.log.  A summary of each step is printed at the end.
+# check_dense_flash, check_flash_bwd, check_dense_decode, check_mamba_scan,
+# check_mlstm, check_chunk_hash), then train_bf16's steps, in turns BASE, TREE,
+# TREE, BASE, each tree building and timing its own kernels on this card, one
+# JSON line a kernel (and one for the training step) in OUT/turns.log.  A summary of each step is printed at the end.
 set -u
 out=$(realpath -m "$1")
 mkdir -p "$out"
@@ -67,12 +67,19 @@ _build.build_all()
 dev = torch.device("cuda")
 gen = torch.Generator(device=dev).manual_seed(0)
 for check in (c.check_paged_decode, c.check_paged_flash, c.check_dense_flash,
-              c.check_dense_decode, c.check_mamba_scan, c.check_mlstm,
+              c.check_flash_bwd, c.check_dense_decode, c.check_mamba_scan, c.check_mlstm,
               c.check_chunk_hash):
     r = check(0 if check is c.check_chunk_hash else gen, dev)
     print(json.dumps({"tree": os.getcwd(), **{k: r.get(k) for k in (
-        "name", "ms", "plain_ms", "library_ms", "bound_ms", "serving", "shapes")}}),
+        "name", "ms", "plain_ms", "library_ms", "bound_ms", "serving", "shapes",
+        "timed_more")}}),
         flush=True)
+c._free()
+line, _ = c.train_bf16(0, dev, None)
+print(json.dumps({"tree": os.getcwd(), "name": "train_bf16",
+                  **{k: line[k] for k in ("mean_step_s", "tokens_per_s", "losses")},
+                  **{k: line["traced_step"][k] for k in ("idle_share", "kernels")}}),
+      flush=True)
 EOF
         ) >> "$out/turns.log" 2>&1 || turns_rc=1
     done

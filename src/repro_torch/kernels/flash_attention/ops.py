@@ -25,6 +25,7 @@ _DENSE_ARGS = [_P] * 4 + [_I] * 9 + [_F, _F] \
     + [ctypes.POINTER(ctypes.c_longlong)] * 3 + [_I, _P, _P]
 _BWD_ARGS = [_P] * 10 + [_I] * 8 + [_F, _F] \
     + [ctypes.POINTER(ctypes.c_longlong)] * 4 + [_I, _P]
+_BWD_PLAN_ARGS = [_I] * 7 + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
 _PAGED_ARGS = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -181,43 +182,116 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-# csrc/flash_attention_bwd.cu: query rows and keys of a tile
+# csrc/flash_attention_bwd.cu, float32 (scalar) body: query rows and keys
+# of a tile
 BWD_BQ, BWD_BK = 32, 32
+# bf16 (tensor-core) bodies: keys of a dK/dV block and queries of its walk
+# steps (kTile), stages of its Q/dO ring (DkdvLayout); the split rule's SMs
+# and most splits (kSMs, kMaxSplits)
+BWD_TILE, BWD_DKDV_STAGES = 64, 2
+BWD_SMS, BWD_MAX_SPLITS = 132, 16
 
 
-def bwd_smem_bytes(D: int) -> dict:
-    """Dynamic shared memory of the backward's two tiled kernels at head
-    dim D, as ``launch`` in csrc/flash_attention_bwd.cu sizes them: K, V,
-    Q and dO tiles in float32 (rows of D + 4), the f32 dK and dV sums
-    (dK/dV kernel) or dQ sum (dQ kernel), P and dS tiles, lse and Delta."""
-    ld = D + 4
-    return {"dkdv": 4 * (2 * BWD_BK * ld + 2 * BWD_BQ * ld + 2 * BWD_BK * D
-                         + 2 * BWD_BQ * BWD_BK + 2 * BWD_BQ),
-            "dq": 4 * (2 * BWD_BQ * ld + 2 * BWD_BK * ld + BWD_BQ * D
-                       + BWD_BQ * BWD_BK + 2 * BWD_BQ)}
+def bwd_smem_bytes(D: int, dtype, rows: int = None) -> dict:
+    """Dynamic shared memory of the backward's dK/dV and dQ kernels, as
+    ``launch_f32`` and the layouts in csrc/flash_attention_bwd.cu size
+    them.  float32: K, V, Q and dO tiles of 32 rows of D + 4, the f32 dK
+    and dV (or dQ) sums, P and dS tiles, lse and Delta.  bf16
+    (``DkdvLayout``, ``DqLayout``, D padded to 64/128/256): the dK/dV
+    block's K and V tiles, a two-stage ring of Q and dO tiles and their lse
+    and Delta; the dQ block's Q and dO rows (``rows``, as ``plan`` gives
+    them, in whole 64-row warpgroups; by default the most a block holds at
+    D) and a ring of K and V tiles."""
+    if dtype == torch.float32:
+        ld = D + 4
+        return {"dkdv": 4 * (2 * BWD_BK * ld + 2 * BWD_BQ * ld + 2 * BWD_BK * D
+                             + 2 * BWD_BQ * BWD_BK + 2 * BWD_BQ),
+                "dq": 4 * (2 * BWD_BQ * ld + 2 * BWD_BK * ld + BWD_BQ * D
+                           + BWD_BQ * BWD_BK + 2 * BWD_BQ)}
+    DP = padded_width(D)
+    tile = BWD_TILE * DP * 2
+    rows = 64 * -(-(rows or max_rows(D, dtype)) // 64)
+    dq_stages = 2 if DP > 128 else 3                # DqLayout::kStages
+    return {"dkdv": 1024 + 2 * tile + BWD_DKDV_STAGES * (2 * tile + 2 * BWD_TILE * 4),
+            "dq": 1024 + 2 * rows * DP * 2 + dq_stages * 2 * tile}
 
 
-def bwd_plan(B: int, H: int, Hkv: int, Sq: int, Skv: int, D: int) -> list:
-    """The backward's three launches: grid, threads and shared memory."""
-    smem = bwd_smem_bytes(D)
-    return [{"name": "delta_kernel", "grid": (-(-B * H * Sq // 8),), "threads": 256,
-             "smem": 0},
+def bwd_splits(B: int, Hkv: int, G: int, Skv: int) -> tuple:
+    """(splits, heads a split) of the bf16 dK/dV walk, as ``plan_bf16``
+    decides them: where B * Hkv * key tiles is under one block an SM, the
+    group's query heads are split over blocks, to about four blocks an SM,
+    at most 16 splits; the splits' f32 partials are then added in split
+    order by a launch of their own."""
+    blocks = B * Hkv * -(-Skv // BWD_TILE)
+    hps = G
+    if blocks < BWD_SMS:
+        want = min(G, BWD_MAX_SPLITS, -(-4 * BWD_SMS // blocks))
+        hps = -(-G // want)
+    return -(-G // hps), hps
+
+
+def bwd_plan(B: int, H: int, Hkv: int, Sq: int, Skv: int, D: int, dtype) -> dict:
+    """The backward's plan: its body ("wgmma" in bf16, "scalar" in
+    float32), the float32 scratch it needs (Delta, then the splits'
+    partials from the next 16-byte boundary) and its launches, each with
+    its grid, threads and shared memory, as csrc/flash_attention_bwd.cu
+    issues them (the wrapper sizes its scratch by ``launch_plan``, the
+    source's own answer; ``chip_smoke.py`` holds the two equal).  bf16: Delta; the dK/dV walk (at D > 128 twice, dV then
+    dK: dK + dV in registers would need 256 a thread); the split sum where
+    the walk is split (``bwd_splits``); dQ, with ``plan``'s rows."""
+    G = H // Hkv
+    delta = {"name": "delta_kernel", "grid": (-(-B * H * Sq // 8),), "threads": 256,
+             "smem": 0}
+    p = plan(G, D, Sq, dtype)
+    smem = bwd_smem_bytes(D, dtype, p["rows"])
+    if dtype == torch.float32:
+        return {"body": "scalar", "scratch": B * H * Sq, "launches": [
+            delta,
             {"name": "dkdv_kernel", "grid": (B * Hkv, -(-Skv // BWD_BK)), "threads": 256,
              "smem": smem["dkdv"]},
             {"name": "dq_kernel", "grid": (B * H, -(-Sq // BWD_BQ)), "threads": 256,
-             "smem": smem["dq"]}]
+             "smem": smem["dq"]}]}
+    splits, hps = bwd_splits(B, Hkv, G, Skv)
+    walk = {"name": "dkdv_tc_kernel", "grid": (B * Hkv, -(-Skv // BWD_TILE), splits),
+            "threads": 128, "smem": smem["dkdv"]}
+    passes = [{**walk, "pass": "dv"}, {**walk, "pass": "dk"}] \
+        if padded_width(D) > 128 else [{**walk, "pass": "dk+dv"}]
+    n_grad = B * Hkv * Skv * D
+    total = [{"name": "dkdv_sum_kernel", "grid": (-(-n_grad // 256),), "threads": 256,
+              "smem": 0}] if splits > 1 else []
+    dq = {"name": "dq_tc_kernel", "grid": (B * Hkv, -(-Sq // p["tq"])),
+          "threads": p["threads"], "smem": smem["dq"], "tq": p["tq"]}
+    scratch = (B * H * Sq + 3) // 4 * 4 + (2 * splits * n_grad if splits > 1 else 0)
+    return {"body": "wgmma", "splits": splits, "heads_per_split": hps,
+            "scratch": scratch, "launches": [delta, *passes, *total, dq]}
+
+
+def launch_plan(B: int, H: int, Hkv: int, Sq: int, Skv: int, D: int, dtype) -> tuple:
+    """(scratch floats, splits of the dK/dV walk) as the built
+    csrc/flash_attention_bwd.cu plans them (``flash_attention_bwd_plan``):
+    the one owner of the split rule, which ``bwd_plan`` mirrors.  Builds
+    the library if needed."""
+    scratch, splits = ctypes.c_longlong(), ctypes.c_int()
+    fn = _build.function("flash_attention_bwd", "flash_attention_bwd_plan", _BWD_PLAN_ARGS)
+    _build.check(fn(B, H, Hkv, Sq, Skv, D, DTYPES[dtype], ctypes.byref(scratch),
+                    ctypes.byref(splits)), "flash_attention_bwd_plan")
+    return scratch.value, splits.value
 
 
 def check_bwd(H: int, Hkv: int, D: int, dtype):
-    """Raises on a head layout the backward kernel does not take (it holds
-    no group in a block, so any H / Hkv; D as the forward)."""
+    """Raises on a head layout the backward kernel does not take: D as the
+    forward; in bf16 the dQ kernel holds a group's G query heads in a block
+    as the forward does (``max_rows``); the float32 body takes any G."""
     if dtype not in DTYPES:
         raise TypeError(f"flash attention's backward takes float32 or bfloat16, "
                         f"not {dtype}")
     if H % Hkv or D > MAX_HEAD_DIM or D % 8:
         raise ValueError(f"bad heads/dim: H={H} Hkv={Hkv} D={D} (D a multiple "
                          f"of 8 up to {MAX_HEAD_DIM}, H a multiple of Hkv)")
-    if max(bwd_smem_bytes(D).values()) > SMEM_LIMIT:
+    if dtype == torch.bfloat16 and H // Hkv > max_rows(D, dtype):
+        raise ValueError(f"{H // Hkv} query heads per KV head exceed the "
+                         f"{max_rows(D, dtype)} rows a dQ block holds at D={D}")
+    if max(bwd_smem_bytes(D, dtype).values()) > SMEM_LIMIT:
         raise ValueError(f"the backward's tiles exceed shared memory at D={D}")
 
 
@@ -227,8 +301,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None,
     Hkv, Skv, D) as ``flash_attention`` takes them (strided views with D
     contiguous; k and v sharing strides), lse (B, H, Sq) float32 from its
     forward -> (dq, dk, dv) in q's dtype, with q's and k's layouts.  One
-    call is three launches of csrc/flash_attention_bwd.cu (Delta, dK/dV,
-    dQ), counted once.  CUDA tensors only."""
+    call is the launches of csrc/flash_attention_bwd.cu that ``bwd_plan``
+    lists (Delta, dK/dV, dQ; bf16 on the tensor cores, float32 scalar),
+    counted once.  CUDA tensors only."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -252,10 +327,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None,
         raise ValueError("q, k and v must be dense (B, H, S, D) permutations")
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty_like(lse)
+    scratch = torch.empty(launch_plan(B, H, Hkv, Sq, Skv, D, q.dtype)[0],
+                          dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), B, H, Hkv, Sq, Skv, D, int(causal), window or 0,
              float(softcap or 0.0), float(scale), _bsh(q), _bsh(o), _bsh(do),
              _bsh(k), DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)

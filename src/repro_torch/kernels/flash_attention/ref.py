@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the flash attention kernel (port of
 ``repro/kernels/flash_attention/ref.py``), dense and paged, in float32,
 and of its backward kernel (``csrc/flash_attention_bwd.cu``): the dense
-entry's gradients by the explicit formula."""
+entry's gradients by the explicit formula, and the same walked in the bf16
+kernels' 64 x 64 tiles with their roundings (``attention_bwd_tiled``)."""
 from __future__ import annotations
 
 import math
@@ -118,5 +119,69 @@ def attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=None,
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, _wide(q))
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return (dq, dk.reshape(B, Hkv, group, Skv, D).sum(2),
+            dv.reshape(B, Hkv, group, Skv, D).sum(2))
+
+
+BWD_TILE = 64    # csrc/flash_attention_bwd.cu kTile: keys and queries of a bf16 tile
+
+
+def bwd_query_tiles(k_lo, k_n, Sq, causal, window, tile=BWD_TILE):
+    """The query tiles with a query that sees a key of [k_lo, k_lo + k_n),
+    as ``dkdv_tc_kernel`` bounds its walk: none before tile k_lo // tile
+    (causal), none at or past the last key + window."""
+    first = k_lo // tile if causal else 0
+    end = min(Sq, k_lo + k_n - 1 + window) if window else Sq
+    return range(first, -(-end // tile))
+
+
+def attention_bwd_tiled(q, k, v, o, do, lse, *, causal=True, window=None,
+                        softcap=None, scale=None, rounding=None):
+    """``attention_bwd_ref`` walked as the bf16 kernels walk it: for each
+    64-key tile, the 64-query tiles ``bwd_query_tiles`` gives, each pair
+    adding P^T dO to dV, dS^T Q to dK and dS K to dQ.  With ``rounding=
+    "bf16"``, P (before dV) and scale * dS (before dK and dQ) are rounded
+    to bf16, where the kernels round them for wgmma's register operand;
+    S, dP, Delta and every sum stay in float32, as in the kernels.  Same
+    arguments and result as ``attention_bwd_ref``."""
+    if rounding not in (None, "bf16"):
+        raise ValueError(f"rounding is None or 'bf16', not {rounding!r}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    qf, dof = _wide(q), _wide(do)
+    kr = _wide(k).repeat_interleave(group, dim=1)
+    vr = _wide(v).repeat_interleave(group, dim=1)
+    delta = (dof * _wide(o)).sum(-1)
+    lsef = _wide(lse)
+
+    def rnd(t):
+        return t.to(torch.bfloat16).to(t.dtype) if rounding else t
+
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros(B, H, Skv, D, dtype=qf.dtype, device=q.device)
+    dv = torch.zeros_like(dk)
+    q_pos = torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    for k_lo in range(0, Skv, BWD_TILE):
+        ks = slice(k_lo, min(Skv, k_lo + BWD_TILE))
+        for qt in bwd_query_tiles(k_lo, ks.stop - k_lo, Sq, causal, window):
+            qs = slice(qt * BWD_TILE, min(Sq, qt * BWD_TILE + BWD_TILE))
+            s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, qs], kr[:, :, ks]) * scale
+            th = None
+            if softcap is not None:
+                th = torch.tanh(s / softcap)
+                s = softcap * th
+            mask = _mask(q_pos[qs], k_pos[ks], causal, window)
+            p = torch.where(mask, torch.exp(s - lsef[:, :, qs, None]), 0.0)
+            dp = torch.einsum("bhqd,bhkd->bhqk", dof[:, :, qs], vr[:, :, ks])
+            ds = p * (dp - delta[:, :, qs, None])
+            if th is not None:
+                ds = ds * (1.0 - th * th)
+            p, ds = rnd(p), rnd(ds * scale)
+            dv[:, :, ks] += torch.einsum("bhqk,bhqd->bhkd", p, dof[:, :, qs])
+            dk[:, :, ks] += torch.einsum("bhqk,bhqd->bhkd", ds, qf[:, :, qs])
+            dq[:, :, qs] += torch.einsum("bhqk,bhkd->bhqd", ds, kr[:, :, ks])
     return (dq, dk.reshape(B, Hkv, group, Skv, D).sum(2),
             dv.reshape(B, Hkv, group, Skv, D).sum(2))

@@ -1023,7 +1023,14 @@ BWD_SHAPES = [(2, 32, 8, 2048, 2048, 128, True, None, None),
               (1, 16, 8, 512, 512, 256, True, None, 50.0),
               (1, 48, 1, 300, 300, 128, True, None, None),
               (2, 32, 8, 256, 1600, 128, False, None, None),
-              (2, 8, 8, 300, 300, 64, False, None, None)]
+              (2, 8, 8, 300, 300, 64, False, None, None),
+              # a softcap of 3, where 1 - tanh^2 moves dK and dQ by far more
+              # than the gate (at 50 it stays above 0.98): dK/dV walks split
+              # over the group's heads (the first two) and whole
+              (1, 16, 8, 384, 384, 256, True, None, 3.0),
+              (1, 48, 1, 400, 400, 128, True, None, 3.0),
+              (2, 16, 8, 1024, 1024, 256, True, None, 3.0),
+              (2, 32, 8, 1024, 1024, 128, True, None, 3.0)]
 # each gradient against the plain version's, relative to its largest entry:
 # float32 sums in another order (2e-5), bfloat16 inputs and outputs (2e-2)
 BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1060,6 +1067,17 @@ def test_flash_bwd_kernel_matches_plain(card, dtype, shape):
         assert a.dtype == t.dtype and a.shape == t.shape and a.stride() == t.stride()
         err = (a.float() - b).abs().max() / b.abs().max()
         assert err <= BWD_TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s[:6])))
+def test_flash_bwd_plan_mirrors_the_source(card, dtype, shape):
+    """``bwd_plan``'s scratch and splits (the CPU tests' mirror) equal the
+    built source's own plan, by which the wrapper sizes its scratch."""
+    B, H, Hkv, Sq, Skv, D = shape[:6]
+    mirror = flash_ops.bwd_plan(B, H, Hkv, Sq, Skv, D, getattr(torch, dtype))
+    assert flash_ops.launch_plan(B, H, Hkv, Sq, Skv, D, getattr(torch, dtype)) == \
+        (mirror["scratch"], mirror.get("splits", 1))
 
 
 def test_flash_autograd_function_matches_float64(card):

@@ -191,39 +191,111 @@ def test_flash_refuses_shapes_no_config_has(H, Hkv, D, dtype):
 @pytest.mark.parametrize("name,G,D", LAYOUTS, ids=[f"{n}-G{g}-D{d}" for n, g, d in LAYOUTS])
 def test_flash_bwd_plan_fits_every_config(name, G, D):
     """The backward kernel (csrc/flash_attention_bwd.cu) at every
-    registered config's (G, D): its checks pass in both dtypes, its two
-    tiled kernels' shared memory stays within the card's 232,448 bytes, and
-    its grids cover every key tile (dK/dV, a block per (row, KV head)) and
-    every query tile (dQ, a block per (row, query head)), at the training
-    shape, whisper's encoder and a cross-attention over 1600 keys."""
-    for dtype in (torch.float32, torch.bfloat16):
+    registered config's (G, D): its checks pass in both dtypes, and at the
+    training shape, whisper's encoder, a cross-attention over 1600 keys and
+    ragged lengths its plan (``bwd_plan``, the twin of ``launch_f32`` and
+    ``launch_bf16``) keeps every launch's shared memory within the card's
+    232,448 bytes.  float32: the scalar body, a dK/dV block per (row, KV
+    head, 32 keys), a dQ block per (row, query head, 32 queries).  bf16: the
+    wgmma body, a dK/dV block (one warpgroup) per (row, KV head, 64 keys,
+    split of the group's heads; twice at D > 128, dV then dK), the split
+    sum only where split, a dQ block per (row, KV head, tq query indices)
+    with the forward's rows; the scratch holds Delta and the partials."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dtype in (f32, bf16):
         flash_ops.check_bwd(G * 2, 2, D, dtype)
     for Sq, Skv in ((2048, 2048), (1500, 1500), (256, 1600), (33, 33), (1, 5)):
-        delta, dkdv, dq = flash_ops.bwd_plan(3, G * 2, 2, Sq, Skv, D)
-        assert delta["grid"] == (-(-3 * G * 2 * Sq // 8),) and delta["smem"] == 0
-        assert dkdv["grid"] == (3 * 2, -(-Skv // flash_ops.BWD_BK))
-        assert dq["grid"] == (3 * G * 2, -(-Sq // flash_ops.BWD_BQ))
-        assert max(dkdv["smem"], dq["smem"]) <= flash_ops.SMEM_LIMIT
-        assert all(k["threads"] == 256 for k in (delta, dkdv, dq))
+        for dtype in (f32, bf16):
+            p = flash_ops.bwd_plan(3, G * 2, 2, Sq, Skv, D, dtype)
+            delta, *rest = p["launches"]
+            assert delta["grid"] == (-(-3 * G * 2 * Sq // 8),) and delta["smem"] == 0
+            assert all(k["smem"] <= flash_ops.SMEM_LIMIT for k in p["launches"])
+            if dtype == f32:
+                dkdv, dq = rest
+                assert p["body"] == "scalar" and p["scratch"] == 3 * G * 2 * Sq
+                assert dkdv["grid"] == (3 * 2, -(-Skv // flash_ops.BWD_BK))
+                assert dq["grid"] == (3 * G * 2, -(-Sq // flash_ops.BWD_BQ))
+                assert all(k["threads"] == 256 for k in p["launches"])
+                continue
+            splits, hps = p["splits"], p["heads_per_split"]
+            assert p["body"] == "wgmma" and (splits - 1) * hps < G <= splits * hps
+            walks = [k for k in rest if k["name"] == "dkdv_tc_kernel"]
+            assert [k["pass"] for k in walks] == (["dv", "dk"] if D > 128 else ["dk+dv"])
+            for k in walks:
+                assert k["grid"] == (3 * 2, -(-Skv // flash_ops.BWD_TILE), splits)
+                assert k["threads"] == 128
+            n_grad = 3 * 2 * Skv * D
+            assert [k["name"] for k in rest[len(walks):]] == \
+                ["dkdv_sum_kernel"] * (splits > 1) + ["dq_tc_kernel"]
+            assert p["scratch"] == -(-3 * G * 2 * Sq // 4) * 4 + 2 * splits * n_grad * (splits > 1)
+            dq = rest[-1]
+            fwd = flash_ops.plan(G, D, Sq, bf16)
+            assert dq["tq"] == fwd["tq"] and G * dq["tq"] <= flash_ops.max_rows(D, bf16)
+            assert dq["grid"] == (3 * 2, -(-Sq // dq["tq"])) and dq["threads"] == fwd["threads"]
 
 
 def test_flash_bwd_smem_at_the_training_shapes():
-    """Shared memory of the backward's blocks, as ``launch`` in the .cu
-    sizes it: float32 K, V, Q and dO tiles of 32 rows of D + 4, the dK and
-    dV (or dQ) sums, P and dS (or dS) tiles, lse and Delta; llama's D=128
-    leaves room for two dK/dV blocks an SM, gemma2's D=256 for one."""
-    assert flash_ops.bwd_smem_bytes(128) == {
+    """Shared memory of the backward's blocks, as csrc/flash_attention_bwd.cu
+    sizes it.  float32 (``launch_f32``): K, V, Q and dO tiles of 32 rows of
+    D + 4, the dK and dV (or dQ) sums, P and dS tiles, lse and Delta.  bf16
+    (``DkdvLayout``, ``DqLayout``): the dK/dV block's K and V tiles of 64
+    keys x D padded to 128 or 256, two stages of Q and dO tiles and their
+    lse and Delta, so two blocks an SM at llama's D=128 (one at gemma2's
+    D=256); the dQ block's 128 (D=128) or 64 (D=256) rows of Q and dO and a
+    ring of three (two at D=256) K/V tiles."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert flash_ops.bwd_smem_bytes(128, f32) == {
         "dkdv": 4 * (4 * 32 * 132 + 2 * 32 * 128 + 2 * 32 * 32 + 64),
         "dq": 4 * (4 * 32 * 132 + 32 * 128 + 32 * 32 + 64)} == \
         {"dkdv": 108_800, "dq": 88_320}
-    assert flash_ops.bwd_smem_bytes(256)["dkdv"] == 207_104 <= flash_ops.SMEM_LIMIT
-    assert 2 * flash_ops.bwd_smem_bytes(128)["dkdv"] <= 228 * 1024
+    assert flash_ops.bwd_smem_bytes(256, f32)["dkdv"] == 207_104 <= flash_ops.SMEM_LIMIT
+    assert 2 * flash_ops.bwd_smem_bytes(128, f32)["dkdv"] <= 228 * 1024
+    tile128, tile256 = 64 * 128 * 2, 64 * 256 * 2
+    assert flash_ops.bwd_smem_bytes(128, bf16) == {
+        "dkdv": 1024 + 2 * tile128 + 2 * (2 * tile128 + 512),
+        "dq": 1024 + 2 * 128 * 128 * 2 + 3 * 2 * tile128} == \
+        {"dkdv": 100_352, "dq": 164_864}
+    assert flash_ops.bwd_smem_bytes(80, bf16) == flash_ops.bwd_smem_bytes(128, bf16)
+    assert flash_ops.bwd_smem_bytes(256, bf16) == {
+        "dkdv": 1024 + 2 * tile256 + 2 * (2 * tile256 + 512),
+        "dq": 1024 + 2 * 64 * 256 * 2 + 2 * 2 * tile256} == \
+        {"dkdv": 198_656, "dq": 197_632}
+    assert 2 * (flash_ops.bwd_smem_bytes(128, bf16)["dkdv"] + 1024) <= 228 * 1024
+    # the plan's dQ rows at the training shape: 4 heads x 32 queries
+    train = flash_ops.bwd_plan(2, 32, 8, 2048, 2048, 128, bf16)
+    assert train["launches"][-1]["smem"] == 164_864 and train["splits"] == 1
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,splits,hps", [
+    (2, 32, 8, 2048, 128, 1, 4),      # llama's training shape: 512 blocks, no split
+    (2, 48, 1, 2048, 128, 8, 6),      # granite: 64 blocks -> 512
+    (1, 48, 1, 512, 128, 16, 3),      # granite, short: at most 16 splits
+    (1, 32, 8, 600, 80, 4, 1),        # danube, 80 blocks: one head a split
+    (2, 8, 8, 300, 64, 1, 1),         # whisper's encoder: G = 1 never splits
+    (2, 16, 8, 2048, 256, 1, 2)])     # gemma2 at the training shape
+def test_flash_bwd_splits_fill_the_card(B, H, Hkv, S, D, splits, hps):
+    """``bwd_splits`` (``launch_bf16``'s rule): a dK/dV grid under one
+    block an SM (132) splits the group's query heads to about four blocks
+    an SM, at most 16 splits; the splits' partials follow Delta in the
+    scratch, 16-byte aligned."""
+    p = flash_ops.bwd_plan(B, H, Hkv, S, S, D, torch.bfloat16)
+    assert (p["splits"], p["heads_per_split"]) == (splits, hps) == \
+        flash_ops.bwd_splits(B, Hkv, H // Hkv, S)
+    base = B * Hkv * -(-S // 64)
+    walk = p["launches"][1]
+    assert walk["grid"] == (B * Hkv, -(-S // 64), splits)
+    assert splits == 1 or base < flash_ops.BWD_SMS
+    assert splits == 1 or base * splits >= min(3 * flash_ops.BWD_SMS,
+                                               base * min(H // Hkv, flash_ops.BWD_MAX_SPLITS))
+    assert ("dkdv_sum_kernel" in [k["name"] for k in p["launches"]]) == (splits > 1)
 
 
 @pytest.mark.parametrize("H,Hkv,D,dtype", [(32, 8, 12, torch.bfloat16),
                                            (32, 8, 264, torch.bfloat16),
                                            (30, 8, 128, torch.float32),
-                                           (32, 8, 128, torch.float16)])
+                                           (32, 8, 128, torch.float16),
+                                           (130, 1, 128, torch.bfloat16),
+                                           (80, 1, 256, torch.bfloat16)])
 def test_flash_bwd_refuses_shapes_no_config_has(H, Hkv, D, dtype):
     with pytest.raises((ValueError, TypeError)):
         flash_ops.check_bwd(H, Hkv, D, dtype)
