@@ -107,7 +107,8 @@ def child(name: str, timed: bool) -> dict:
             "splits": ops.launch_plan(B, H, Hkv, S, Skv, D, torch.bfloat16)[1],
             "ms": c.time_ms(call, iters=10, warmup=3),
             "by_kernel": {f: {"ms": r["ms"] / 5, "launches": r["launches"] / 5}
-                          for f, r in c._bwd_kernel_ms(c._device_rows(calls)).items()
+                          for f, r in c._bwd_kernel_ms(
+                              c._device_rows(calls, tries=5)).items()
                           if r["launches"]}}
     return line
 

@@ -16,10 +16,11 @@ GROUP is one of:
   config's head layout), then ``families_f32_parity``,
   ``families_serve_bf16`` and ``encdec_serve_bf16``; the card tests of
   those shapes and families;
-* ``training``: the flash kernel's backward against its plain version
-  (row 2b of the ``kernels`` line), then ``train_f32_parity`` and
-  ``train_bf16``; card tests of the backward, the refused gradients and
-  ``lm_loss`` on the card.
+* ``training``: the three backward kernels against their plain versions
+  (rows 2b, 4b and 5b of the ``kernels`` line: the flash kernel's, the
+  scan's, the mLSTM's), then ``train_f32_parity``, ``train_bf16``,
+  ``train_jamba_bf16`` and ``train_xlstm_bf16``; card tests of the
+  backwards, the refused gradients and ``lm_loss`` on the card.
 
 Builds the kernels the group runs, prints the card's name and power
 limit, then one JSON line a phase as ``chip_smoke.py`` prints it, with
@@ -75,12 +76,16 @@ def _groups(c, seed, dev, out):
             lambda: c.families_serve_bf16(seed, dev, out),
             lambda: c.encdec_serve_bf16(seed, dev, out)],
             "noncausal or static_memory or every_head_layout or full_width_layer"),
-        "training": (["flash_attention", "flash_attention_bwd"], [
-            lambda: {"phase": "kernels", "kernels": [c.check_flash_bwd(
-                torch.Generator(device=dev).manual_seed(seed), dev)]},
+        "training": (["flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd",
+                      "mlstm", "mlstm_bwd"], [
+            lambda: {"phase": "kernels", "kernels": [check(
+                torch.Generator(device=dev).manual_seed(seed), dev) for check in (
+                    c.check_flash_bwd, c.check_mamba_scan_bwd, c.check_mlstm_bwd)]},
             lambda: c.train_f32_parity(seed, dev),
-            lambda: c.train_bf16(seed, dev, out)],
-            "bwd or backward or refuse_a_gradient or float64"),
+            lambda: c.train_bf16(seed, dev, out),
+            lambda: c.train_jamba_bf16(seed, dev, out),
+            lambda: c.train_xlstm_bf16(seed, dev, out)],
+            "bwd or backward or refuse_a_gradient or float64 or return_gradients"),
     }
 
 

@@ -111,7 +111,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) scan_kernel(
     const T* __restrict__ xbar, const float* __restrict__ loga, const T* __restrict__ Bm,
     const T* __restrict__ Cm, const float* __restrict__ h0, T* __restrict__ y,
-    float* __restrict__ h_out, int S, int H, int P, int N, int L, int PB) {
+    float* __restrict__ h_out, float* __restrict__ st, float* __restrict__ dec, int S, int H,
+    int P, int N, int L, int PB) {
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int c0 = blockIdx.y * PB;    // this block's columns [c0, c0 + PB) of P
@@ -199,13 +200,17 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(
       }
     }
     __syncthreads();                 // every y read the old state
-    // h' = exp(l_last) h + B^T (xbar o w): each thread owns its (n, col)
+    // h' = exp(l_last) h + B^T (xbar o w): each thread owns its (n, col);
+    // for the backward (st non-null) the chunk's own state and its decay,
+    // in the tensor-core path's scratch layout
     const float decay = expf(l_last);
     for (int n = row0; n < N; n += rstep) {
       float a = 0.f;
       for (int t = 0; t < Lc; ++t) a = fmaf(bs[t * ldb + n], xs[t * PB + col] * w[t], a);
+      if (st) st[(((size_t)blockIdx.x * n_chunks + c) * N + n) * P + c0 + col] = a;
       hs[n * PB + col] = fmaf(decay, hs[n * PB + col], a);
     }
+    if (st && tid == 0 && blockIdx.y == 0) dec[(size_t)blockIdx.x * n_chunks + c] = decay;
   }
   __syncthreads();
   for (int i = tid; i < N * PB; i += kThreads) {
@@ -595,17 +600,19 @@ cudaError_t prepare(Kernel* kernel, size_t smem, int (&set)[kv_tile::kMaxDevices
 
 template <typename T>
 int launch_scalar(const void* xbar, const void* loga, const void* Bm, const void* Cm,
-                  const void* h0, void* y, void* h_out, int B, int S, int H, int P, int N, int L,
-                  int PB, cudaStream_t stream) {
+                  const void* h0, void* y, void* h_out, float* scratch, int B, int S, int H,
+                  int P, int N, int L, int PB, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)3 * L + (size_t)L * (N + 1) + (size_t)L * N +
                                        (size_t)L * PB + (size_t)L * L + (size_t)N * PB);
   static int set[kv_tile::kMaxDevices] = {};
   const cudaError_t err = prepare(scan_kernel<T>, smem, set);
   if (err != cudaSuccess) return (int)err;
+  const size_t n_st = (size_t)B * H * ((S + L - 1) / L) * N * P;
   scan_kernel<T><<<dim3(B * H, P / PB), kThreads, smem, stream>>>(
       static_cast<const T*>(xbar), static_cast<const float*>(loga), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(h0), static_cast<T*>(y),
-      static_cast<float*>(h_out), S, H, P, N, L, PB);
+      static_cast<float*>(h_out), scratch, scratch ? scratch + n_st + n_st / 2 : nullptr, S, H,
+      P, N, L, PB);
   return (int)cudaGetLastError();
 }
 
@@ -682,7 +689,9 @@ int launch_tc(const bf16* xbar, const float* loga, const bf16* Bm, const bf16* C
 // xbar (B, S, H, P); loga (B, S, H) float32; Bm, Cm (B, S, N); h0 (B, H, N,
 // P) float32 or null (zeros); y (B, S, H, P); h_out (B, H, N, P) float32;
 // scratch: B H n_chunks (3 N P / 2 + 1) floats on the tensor-core path
-// with more than one chunk or a start state (else unused, may be null).
+// with more than one chunk or a start state (else unused, may be null); the
+// float32 path writes its chunk states and decays there, in the same
+// layout, for the backward, where it is given (it may be null).
 // L: chunk length; PB: columns of P per block of the scalar kernel.  dtype
 // 0 = float32 (the scalar kernel), 1 = bfloat16 (the tensor-core kernels;
 // xbar, Bm, Cm and y share it).  The wrapper guarantees contiguous inputs,
@@ -707,5 +716,6 @@ extern "C" int mamba_scan(const void* xbar, const void* loga, const void* Bm, co
     if (L > 64) return launch_tc<2>(x, la, bm, cm, hh, yy, ho, sc, B, S, H, P, N, L, s);
     return launch_tc<1>(x, la, bm, cm, hh, yy, ho, sc, B, S, H, P, N, L, s);
   }
-  return launch_scalar<float>(xbar, loga, Bm, Cm, h0, y, h_out, B, S, H, P, N, L, PB, s);
+  return launch_scalar<float>(xbar, loga, Bm, Cm, h0, y, h_out, static_cast<float*>(scratch), B,
+                              S, H, P, N, L, PB, s);
 }

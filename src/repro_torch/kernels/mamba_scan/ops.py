@@ -76,14 +76,36 @@ def plan(B: int, S: int, H: int, P: int, N: int, L: int, dtype, has_h0: bool) ->
                          "smem": smem_bytes(L, N, PB), "cols": PB}]}
 
 
+def scratch_floats(B: int, S: int, H: int, P: int, N: int, L: int) -> int:
+    """Floats of the chunked path's scratch (``plan``'s "scratch"): the f32
+    chunk states, the bf16 entering states and the f32 decays.  The
+    float32 path writes its chunk states and decays there too, where a
+    backward will read them."""
+    n_chunks = -(-S // L)
+    return 3 * B * H * n_chunks * N * P // 2 + B * H * n_chunks
+
+
 def mamba_scan(xbar, loga, Bm, Cm, h0=None, *, chunk):
     """xbar: (B, S, H, P); loga: (B, S, H) float32; Bm, Cm: (B, S, N), the
     dtype of xbar; h0: (B, H, N, P) float32 or None (zeros); chunk: the
     chunk length L (``min(chunk, S)``, ragged tail masked).  Returns y (B, S,
-    H, P) in xbar's dtype and the final state (B, H, N, P) float32."""
+    H, P) in xbar's dtype and the final state (B, H, N, P) float32.  On the
+    card, where grad mode is on and an input requires grad, the call goes
+    through ``MambaScan`` (the same launches, their scratch kept for the
+    backward kernel)."""
     if not xbar.is_cuda:
         return ref.mamba_scan_ref(xbar, loga, Bm, Cm, h0, chunk=chunk)
-    _build.refuse_grad("mamba_scan", xbar, loga, Bm, Cm, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (xbar, loga, Bm, Cm, h0)):
+        return MambaScan.apply(xbar, loga, Bm, Cm, h0, chunk)
+    return _forward(xbar, loga, Bm, Cm, h0, chunk, save=False)[:2]
+
+
+def _forward(xbar, loga, Bm, Cm, h0, chunk, save):
+    """One call of csrc/mamba_scan.cu -> (y, h_out, scratch): the float32
+    scratch holds the chunk states and decays the backward reads where
+    ``save`` (None on the boot path, which has none: its entering state is
+    zero)."""
     B, S, H, P = xbar.shape
     N = Bm.shape[-1]
     L = min(chunk, S)
@@ -119,10 +141,12 @@ def mamba_scan(xbar, loga, Bm, Cm, h0=None, *, chunk):
         raise ValueError("mamba scan needs contiguous inputs")
     y = torch.empty_like(xbar)
     h_out = torch.empty((B, H, N, P), dtype=torch.float32, device=xbar.device)
+    n_scratch = p["scratch"] or (scratch_floats(B, S, H, P, N, L)
+                                 if save and p["path"] == "scalar" else 0)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=xbar.device) \
+        if n_scratch else None
     if B * H == 0:
-        return y, h_out
-    scratch = torch.empty((p["scratch"],), dtype=torch.float32, device=xbar.device) \
-        if p["scratch"] else None
+        return y, h_out, scratch
     fn = _build.function("mamba_scan", "mamba_scan", _ARGTYPES)
     err = fn(xbar.data_ptr(), loga.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
              None if h0 is None else h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
@@ -132,8 +156,118 @@ def mamba_scan(xbar, loga, Bm, Cm, h0=None, *, chunk):
     _build.check(err, "mamba_scan")
     mamba_scan.launches += 1
     mamba_scan.boot_launches += int(p["path"] == "boot")
-    return y, h_out
+    return y, h_out, scratch
 
 
 mamba_scan.launches = 0
 mamba_scan.boot_launches = 0           # of them, calls on the one-launch boot path
+
+
+class MambaScan(torch.autograd.Function):
+    """The scan with a gradient: the forward launches csrc/mamba_scan.cu and
+    keeps its scratch (the chunk states and decays); the backward launches
+    ``mamba_scan_bwd``.  CUDA tensors only (the CPU differentiates the
+    plain version), no fallback."""
+
+    @staticmethod
+    def forward(ctx, xbar, loga, Bm, Cm, h0, chunk):
+        check_bwd(xbar.shape[-1], Bm.shape[-1], min(chunk, xbar.shape[1]))
+        y, h_out, scratch = _forward(xbar, loga, Bm, Cm, h0, chunk, save=True)
+        ctx.save_for_backward(xbar, loga, Bm, Cm, h0, scratch)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, h_out
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        xbar, loga, Bm, Cm, h0, scratch = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(xbar)
+        dx, dloga, dB, dC, dh0 = mamba_scan_bwd(
+            xbar, loga, Bm, Cm, h0, scratch, dy, dh, chunk=ctx.chunk,
+            want_dh0=ctx.needs_input_grad[4])
+        return dx, dloga, dB, dC, dh0, None
+
+
+# csrc/mamba_scan_bwd.cu: its limits (kMaxL, kMaxN, kMaxNP), threads and
+# column tile (kThreads, kPT)
+BWD_MAX_L, BWD_MAX_N, BWD_MAX_NP = 128, 16, 2048
+BWD_THREADS, BWD_PT = 256, 32
+_BWD_ARGTYPES = [_P] * 15 + [_I] * 7 + [_P]
+
+
+def check_bwd(P: int, N: int, L: int):
+    """Raises for a shape the backward kernels do not take."""
+    if L > BWD_MAX_L or N > BWD_MAX_N or N * P > BWD_MAX_NP:
+        raise ValueError(f"the scan's backward takes L <= {BWD_MAX_L}, N <= {BWD_MAX_N} "
+                         f"and N P <= {BWD_MAX_NP}, not P={P} N={N} L={L}")
+
+
+def bwd_plan(B: int, S: int, H: int, P: int, N: int, L: int) -> dict:
+    """The backward's launches, as csrc/mamba_scan_bwd.cu makes them (each
+    grid, threads and shared memory: static bytes for grad_in, dynamic for
+    chunk_grads), and its float32 scratch: dH_c and the entering states, da,
+    and each head's dB and dC."""
+    n_chunks = -(-S // L)
+    ld = BWD_PT + 1
+    chunk_smem = 4 * (5 * L + 2 * L * (N + 1) + L * L + 2 * L * ld + 2 * N * ld)
+    n_bc = B * S * N
+    return {"scratch": 2 * B * H * n_chunks * N * P + B * H * n_chunks + 2 * B * H * S * N,
+            "kernels": [
+                {"name": "grad_in", "grid": (n_chunks, B * H), "threads": BWD_THREADS,
+                 "smem": 4 * (2 * BWD_MAX_L + BWD_MAX_L * (BWD_MAX_N + 1) + BWD_MAX_L * ld)},
+                {"name": "pass_grads", "grid": (B * H,), "threads": BWD_THREADS,
+                 "smem": 4 * BWD_THREADS // 32},
+                {"name": "chunk_grads", "grid": (n_chunks, B * H), "threads": BWD_THREADS,
+                 "smem": chunk_smem},
+                {"name": "sum_heads", "grid": (-(-n_bc // BWD_THREADS),),
+                 "threads": BWD_THREADS, "smem": 0}]}
+
+
+def mamba_scan_bwd(xbar, loga, Bm, Cm, h0, scratch, dy, dh, *, chunk, want_dh0=True):
+    """The scan's gradients on the card: xbar, loga, Bm, Cm, h0 as the
+    forward took them; scratch: the forward's (``_forward(..., save=True)``;
+    None on the boot path); dy (B, S, H, P) in xbar's dtype; dh (B, H, N, P)
+    float32 or None.  Returns (dx, dloga, dB, dC, dh0): dloga and dh0 float32,
+    dh0 None without h0 or where not wanted."""
+    B, S, H, P = xbar.shape
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    check_bwd(P, N, L)
+    boot = plan(B, S, H, P, N, L, xbar.dtype, h0 is not None)["path"] == "boot"
+    if (scratch is None) != boot:
+        raise ValueError("the scan's backward needs the forward's scratch (none on the "
+                         "boot path)")
+    dy = dy.contiguous()
+    if dy.dtype != xbar.dtype or dy.shape != xbar.shape:
+        raise TypeError("dy must have y's shape and dtype")
+    if dh is not None:
+        dh = dh.contiguous()
+        if dh.dtype != torch.float32 or dh.shape != (B, H, N, P):
+            raise TypeError("dh must be (B, H, N, P) float32")
+    n_chunks = -(-S // L)
+    n_st = B * H * n_chunks * N * P
+    st = dec = None
+    if scratch is not None:
+        st, dec = scratch[:n_st], scratch[3 * n_st // 2:]
+    dx = torch.empty_like(xbar)
+    dloga = torch.empty_like(loga)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    dh0 = torch.empty_like(h0) if h0 is not None and want_dh0 else None
+    if B * H == 0:
+        return dx, dloga, dB.zero_(), dC.zero_(), dh0
+    work = torch.empty((bwd_plan(B, S, H, P, N, L)["scratch"],), dtype=torch.float32,
+                       device=xbar.device)
+    fn = _build.function("mamba_scan_bwd", "mamba_scan_bwd", _BWD_ARGTYPES)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = fn(xbar.data_ptr(), loga.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), ptr(h0),
+             ptr(st), ptr(dec), dy.data_ptr(), ptr(dh), dx.data_ptr(), dloga.data_ptr(),
+             dB.data_ptr(), dC.data_ptr(), ptr(dh0), work.data_ptr(),
+             B, S, H, P, N, L, DTYPES[xbar.dtype],
+             torch.cuda.current_stream(xbar.device).cuda_stream)
+    _build.check(err, "mamba_scan_bwd")
+    mamba_scan_bwd.launches += 1
+    return dx, dloga, dB, dC, dh0
+
+
+mamba_scan_bwd.launches = 0

@@ -83,11 +83,22 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, *, chunk, scale=1.0):
     float32; state: (C (B, H, dh, dh), n (B, H, dh), m (B, H)) float32 or
     None (C = n = 0, m = -1e30); chunk: the chunk length L (``min(chunk,
     S)``, ragged tail masked); scale multiplies q.  Returns h (B, S, H, dh)
-    in q's dtype and the final state (C, n, m), float32."""
+    in q's dtype and the final state (C, n, m), float32.  On the card,
+    where grad mode is on and an input requires grad, the call goes through
+    ``MLSTM`` (the same launches; its backward is ``mlstm_bwd``)."""
     if not q.is_cuda:
         return ref.mlstm_ref(q, k, v, log_i, log_f, state, chunk=chunk,
                              scale=scale)
-    _build.refuse_grad("mlstm", q, k, v, log_i, log_f, *(state or ()))
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (q, k, v, log_i, log_f, *(state or ()))):
+        h, C, n, m = MLSTM.apply(q, k, v, log_i, log_f, *(state or (None,) * 3),
+                                 chunk, scale)
+        return h, (C, n, m)
+    return _forward(q, k, v, log_i, log_f, state, chunk, scale)
+
+
+def _forward(q, k, v, log_i, log_f, state, chunk, scale):
+    """One call of csrc/mlstm.cu -> (h, (C, n, m))."""
     B, S, H, dh = q.shape
     L = min(chunk, S)
     if q.dtype not in DTYPES:
@@ -141,3 +152,118 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, *, chunk, scale=1.0):
 
 mlstm_chunkwise.launches = 0
 mlstm_chunkwise.boot_launches = 0      # of them, calls on the boot path
+
+
+class MLSTM(torch.autograd.Function):
+    """The mLSTM with a gradient: the forward launches csrc/mlstm.cu and
+    saves its inputs and final state; the backward launches ``mlstm_bwd``
+    (which recomputes the entering states itself).  CUDA tensors only (the
+    CPU differentiates the plain version), no fallback."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_i, log_f, C0, n0, m0, chunk, scale):
+        check_bwd(q.shape[-1], min(chunk, q.shape[1]))
+        state = None if C0 is None else (C0, n0, m0)
+        h, (C, n, m) = _forward(q, k, v, log_i, log_f, state, chunk, scale)
+        ctx.save_for_backward(q, k, v, log_i, log_f, C0, n0, m0, C, n)
+        ctx.args = (chunk, scale)
+        ctx.set_materialize_grads(False)
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        q, k, v, log_i, log_f, C0, n0, m0, C, n = ctx.saved_tensors
+        chunk, scale = ctx.args
+        state = None if C0 is None else (C0, n0, m0)
+        if dh is None:
+            dh = torch.zeros_like(q)
+        dq, dk, dv, dli, dlf, dstate = mlstm_bwd(
+            q, k, v, log_i, log_f, state, dh, (dC, dn, dm), (C, n), chunk=chunk,
+            scale=scale, want_dstate=any(ctx.needs_input_grad[5:8]))
+        return (dq, dk, dv, dli, dlf, *(dstate or (None,) * 3), None, None)
+
+
+# csrc/mlstm_bwd.cu: its sweeps' block of 32 rows or columns of C and tile
+# width (kCols), threads (kThreads), the per-chunk record's vectors (kVecs)
+BWD_THREADS, BWD_COLS, BWD_VECS = 256, 32, 9
+_BWD_ARGTYPES = [_P] * 23 + [_I] * 5 + [_F, _I, _P]
+
+
+def check_bwd(dh: int, L: int):
+    """Raises for a shape the backward kernels do not take."""
+    p = bwd_plan(1, L, 1, dh, L)
+    if L > MAX_CHUNK or dh % COLS or dh > MAX_HEAD_DIM \
+            or any(kn["smem"] > MAX_SMEM for kn in p["kernels"]):
+        raise ValueError(f"unsupported mlstm backward shape: dh={dh} L={L}")
+
+
+def bwd_plan(B: int, S: int, H: int, dh: int, L: int) -> dict:
+    """The backward's launches, as csrc/mlstm_bwd.cu makes them (grid,
+    threads and shared memory: static bytes for prep and steps, dynamic for
+    the sweeps), and its float32 scratch in ``carve``'s order: the records,
+    the entering C and n, X's, dw's and d inter_L's shares, and the shares
+    of the final and start states' dot products."""
+    nc, ncb, BH = -(-S // L), dh // BWD_COLS, B * H
+    rec = -(-(BWD_VECS * L + 3 * L * L) // 4) * 4
+    ld = BWD_COLS + 1
+    scratch = (BH * nc * (rec + dh * dh + dh + 2 * ncb * L + ncb) + 2 * BH * ncb)
+    return {"scratch": scratch, "kernels": [
+        {"name": "prep", "grid": (nc, BH), "threads": BWD_THREADS,
+         "smem": 4 * 4 * MAX_CHUNK * ld + _gate_smem(BWD_THREADS)},
+        {"name": "states", "grid": (BH, ncb), "threads": BWD_THREADS,
+         "smem": 4 * (dh * BWD_COLS + dh + 4 * L * BWD_COLS + 2 * L)},
+        {"name": "steps", "grid": (nc, BH), "threads": BWD_THREADS,
+         "smem": 4 * (MAX_CHUNK * (MAX_CHUNK + 1) + 3 * MAX_CHUNK)},
+        {"name": "reverse_rows", "grid": (BH, ncb), "threads": BWD_THREADS,
+         "smem": 4 * (BWD_COLS * (dh + 1) + 2 * BWD_COLS + 2 * L * BWD_COLS + L * L
+                      + 4 * L + 2 * L * ld + BWD_COLS * ld + BWD_THREADS // 32)},
+        {"name": "reverse_cols", "grid": (BH, ncb), "threads": BWD_THREADS,
+         "smem": 4 * (dh * BWD_COLS + L * L + 3 * L * BWD_COLS + 3 * L)},
+        {"name": "gate_grads", "grid": (BH,), "threads": MAX_CHUNK,
+         "smem": 4 * 2 * MAX_CHUNK + 8}]}
+
+
+def mlstm_bwd(q, k, v, log_i, log_f, state, dh, dstate=None, final=None, *, chunk,
+              scale=1.0, want_dstate=True):
+    """The mLSTM's gradients on the card: q, k, v, log_i, log_f, state as
+    the forward took them; dh (B, S, H, dh) in q's dtype; dstate (dC, dn,
+    dm), each float32 or None (zeros), or None; final: the forward's final
+    (C, n), read where dC or dn is given.  Returns (dq, dk, dv, dlog_i,
+    dlog_f, (dC0, dn0, dm0) or None without a state or where not wanted)."""
+    B, S, H, D = q.shape
+    L = min(chunk, S)
+    check_bwd(D, L)
+    dC, dn, dm = dstate if dstate is not None else (None, None, None)
+    if (dC is not None or dn is not None) and final is None:
+        raise ValueError("a final-state gradient needs the forward's final state")
+    dh = dh.contiguous()
+    if dh.dtype != q.dtype or dh.shape != q.shape:
+        raise TypeError("dh must have h's shape and dtype")
+    grads = [None if g is None else g.contiguous() for g in (dC, dn, dm)]
+    for g, shape in zip(grads, ((B, H, D, D), (B, H, D), (B, H))):
+        if g is not None and (g.dtype != torch.float32 or g.shape != shape):
+            raise TypeError(f"the final state's gradient must be {shape} float32")
+    C0, n0, m0 = (None, None, None) if state is None else state
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dli, dlf = torch.empty_like(log_i), torch.empty_like(log_f)
+    d0 = tuple(torch.empty_like(t) for t in state) if state is not None and want_dstate \
+        else None
+    if B * H == 0:
+        return dq, dk, dv, dli, dlf, d0
+    work = torch.empty((bwd_plan(B, S, H, D, L)["scratch"],), dtype=torch.float32,
+                       device=q.device)
+    fn = _build.function("mlstm_bwd", "mlstm_bwd", _BWD_ARGTYPES)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    Cf, nf = final if final is not None else (None, None)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(), log_f.data_ptr(),
+             ptr(C0), ptr(n0), ptr(m0), ptr(Cf), ptr(nf), dh.data_ptr(),
+             *(ptr(g) for g in grads), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             dli.data_ptr(), dlf.data_ptr(), *(ptr(t) for t in (d0 or (None,) * 3)),
+             work.data_ptr(), B, S, H, D, L, scale, DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "mlstm_bwd")
+    mlstm_bwd.launches += 1
+    return dq, dk, dv, dli, dlf, d0
+
+
+mlstm_bwd.launches = 0

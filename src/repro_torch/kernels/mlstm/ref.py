@@ -12,28 +12,36 @@ import torch
 NEG = -1e30
 
 
-def empty_state(B, H, dh, device):
+def wide(dtype):
+    """The type the plain versions sum in: float32, or float64 for float64
+    inputs (the tests' exact comparisons)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def empty_state(B, H, dh, device, dtype=torch.float32):
     """The start state of a new stream: C = 0, n = 0, m = -1e30."""
-    return (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=device),
-            torch.zeros((B, H, dh), dtype=torch.float32, device=device),
-            torch.full((B, H), NEG, dtype=torch.float32, device=device))
+    return (torch.zeros((B, H, dh, dh), dtype=dtype, device=device),
+            torch.zeros((B, H, dh), dtype=dtype, device=device),
+            torch.full((B, H), NEG, dtype=dtype, device=device))
 
 
 def mlstm_ref(q, k, v, log_i, log_f, state=None, *, chunk, scale=1.0):
     """q, k, v: (B, S, H, dh); log_i, log_f: (B, S, H) float32; state: (C
     (B, H, dh, dh), n (B, H, dh), m (B, H)) float32 or None (a new
     stream); chunk: the chunk length L (``min(chunk, S)`` is used).
-    Returns h (B, S, H, dh) in q's dtype and the final (C, n, m)."""
+    Returns h (B, S, H, dh) in q's dtype and the final (C, n, m) (float32,
+    float64 for float64 inputs)."""
+    ft = wide(q.dtype)
     B, S, H, dh = q.shape
     L = min(chunk, S)
-    C, n, m = (empty_state(B, H, dh, q.device) if state is None
-               else (t.float() for t in state))
+    C, n, m = (empty_state(B, H, dh, q.device, ft) if state is None
+               else (t.to(ft) for t in state))
     hs = []
     for t0 in range(0, S, L):
         sl = slice(t0, min(t0 + L, S))
-        qf = q[:, sl].float() * scale
-        kf, vf = k[:, sl].float(), v[:, sl].float()
-        gi, gf = log_i[:, sl].float(), log_f[:, sl].float()      # (B, Lc, H)
+        qf = q[:, sl].to(ft) * scale
+        kf, vf = k[:, sl].to(ft), v[:, sl].to(ft)
+        gi, gf = log_i[:, sl].to(ft), log_f[:, sl].to(ft)        # (B, Lc, H)
         Lc = gi.shape[1]
         b = torch.cumsum(gf, dim=1)             # inclusive cumulative log f
         gmb = torch.cummax(gi - b, dim=1).values
@@ -78,11 +86,12 @@ def chunk_gates(log_i, log_f, m0, L):
     None.  Returns (b, m_new, inter, w), each (B, S, H) (``w``: a step's
     weight in its chunk's state update, ``gate[Lc - 1]``), and the final m."""
     B, S, H = log_i.shape
-    m = torch.full((B, H), NEG, dtype=torch.float32, device=log_i.device) \
-        if m0 is None else m0.float()
+    ft = wide(log_i.dtype)
+    m = torch.full((B, H), NEG, dtype=ft, device=log_i.device) \
+        if m0 is None else m0.to(ft)
     parts = []
     for t0 in range(0, S, L):
-        gi, gf = log_i[:, t0:t0 + L].float(), log_f[:, t0:t0 + L].float()
+        gi, gf = log_i[:, t0:t0 + L].to(ft), log_f[:, t0:t0 + L].to(ft)
         b = torch.cumsum(gf, dim=1)
         run = torch.cummax(gi - b, dim=1).values
         m_new = b + torch.maximum(m[:, None], run)
@@ -168,3 +177,124 @@ def mlstm_tiled(q, k, v, log_i, log_f, state=None, *, chunk, scale=1.0,
         h = num / torch.maximum(den.abs(), torch.exp(-mn))[..., None]
         hs.append(h.to(q.dtype))
     return torch.cat(hs, dim=1), (C, n, m)
+
+
+# ---------------------------------------------------------------------------
+# The backward's split (csrc/mlstm_bwd.cu), in plain PyTorch: what the CPU
+# tests hold against autograd of ``mlstm_ref`` before a card sees it
+# ---------------------------------------------------------------------------
+def _dot(a, b):
+    """<a, b> over every axis past (B, H)."""
+    return (a * b).flatten(2).sum(-1)
+
+
+def mlstm_bwd_tiled(q, k, v, log_i, log_f, state, dh, dstate=None, *, chunk,
+                    scale=1.0):
+    """The gradients of ``mlstm_ref`` computed the way the backward kernels
+    split them, every sum in float32 (float64 for float64 inputs), with the
+    stabiliser m, m_new and inter held constant: with num_u and den_u the
+    unstabilised sums, h = num_u / max(|den_u|, 1) does not depend on m, so
+    autograd's terms through ``cummax`` and ``maximum`` cancel (up to
+    rounding).  Only the final state, stabilised by the final m, does
+    depend on it: C_fin = exp(-m_fin) C_u, so a final-state gradient sends
+    g_m = dm_fin - <dC_fin, C_fin> - <dn_fin, n_fin> into m_fin, which
+    reaches log i and log f through the one step (or m0) whose running max
+    it is; and m0, paired with C0 and n0, gets <dC0, C0> + <dn0, n0>.
+
+    The launches: (1) per chunk the gates, S = Q k^T (Q = scale q), att =
+    gate o S, rowsum and DV = dh v^T; (2) per (b, h) the states sweep: each
+    chunk's entering C and n, qn = Q n and X = dh . (Q C), the part of dh .
+    num that goes through the state; (3) per chunk the step scalars: den,
+    M = max(|den|, exp(-m_new)), dden (sign(den) where |den| wins, nothing
+    where exp(-m_new) does), datt = DV / M + dden, dS = datt o gate, and
+    the gate gradients of att and inter; (4) the reverse sweep dC_{c-1} =
+    inter_L dC_c + sum_s inter_s Q_s^T dnum_s (dnum = dh / M) and dn alike,
+    from the final state's gradient; (5) rows e of dQ and dk, and dw; (6)
+    columns f of dv; (7) the gate gradients summed, log f's as a reverse
+    cumsum within each chunk, and the m terms.  Arguments as
+    ``mlstm_ref``; dh (B, S, H, dh); dstate (dC, dn, dm), each None for
+    zeros, or None.  Returns (dq, dk, dv, dlog_i, dlog_f, (dC0, dn0, dm0)
+    or None without a state)."""
+    ft = wide(q.dtype)
+    B, S, H, dh_ = q.shape
+    L = min(chunk, S)
+    dev = q.device
+    m0 = None if state is None else state[2].to(ft)
+    (b, m_new, inter, w), m_fin = chunk_gates(log_i, log_f, m0, L)
+    gi_all = log_i.to(ft)
+    Q, kf, vf, dhf = (x.to(ft) for x in (q, k, v, dh))
+    Q = Q * scale
+    spans = [(t0, min(t0 + L, S)) for t0 in range(0, S, L)]
+    C, n, _ = (empty_state(B, H, dh_, dev, ft) if state is None
+               else (t.to(ft) for t in state))
+    C0, n0 = C, n
+    chunks = []
+    for t0, t1 in spans:                                         # launches 1-3
+        sl = slice(t0, t1)
+        Lc = t1 - t0
+        Qc, kc, vc, dc = Q[:, sl], kf[:, sl], vf[:, sl], dhf[:, sl]
+        gb, gi, mn, it, ww = b[:, sl], gi_all[:, sl], m_new[:, sl], inter[:, sl], w[:, sl]
+        mask = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool, device=dev))[None, :, :, None]
+        gate = torch.where(mask, torch.exp(torch.where(
+            mask, gb[:, :, None] - gb[:, None, :] + gi[:, None, :] - mn[:, :, None],
+            -torch.inf)), 0.0)                                   # (B, S, T, H)
+        att = gate * torch.einsum("bshe,bthe->bsth", Qc, kc)
+        DV = torch.einsum("bshf,bthf->bsth", dc, vc)
+        qn = torch.einsum("bshe,bhe->bsh", Qc, n)
+        X = torch.einsum("bshf,bshf->bsh", dc, torch.einsum("bshe,bhef->bshf", Qc, C))
+        den = att.sum(2) + it * qn
+        floor = torch.exp(-mn)
+        M = torch.maximum(den.abs(), floor)
+        hn = (att * DV).sum(2) + it * X                          # dh . num
+        dden = torch.where(den.abs() > floor, -hn / M ** 2 * torch.sign(den), 0.0)
+        datt = torch.where(mask, DV / M[:, :, None] + dden[:, :, None], 0.0)
+        R = datt * att
+        dinter = X / M + dden * qn
+        chunks.append(dict(sl=sl, C=C, n=n, gate=gate, att=att, M=M, dden=dden,
+                           dS=datt * gate, db=R.sum(2) - R.sum(1) + dinter * it,
+                           dgi=R.sum(1), w=ww, it=it))
+        # the state after the chunk
+        C = it[:, -1][..., None, None] * C + torch.einsum("bth,bthe,bthf->bhef", ww, kc, vc)
+        n = it[:, -1][..., None] * n + torch.einsum("bth,bthe->bhe", ww, kc)
+    dC_fin, dn_fin, dm_fin = dstate if dstate is not None else (None, None, None)
+    dC = torch.zeros_like(C) if dC_fin is None else dC_fin.to(ft)
+    dn = torch.zeros_like(n) if dn_fin is None else dn_fin.to(ft)
+    g_m = -_dot(dC, C) - _dot(dn, n) + (0.0 if dm_fin is None else dm_fin.to(ft))
+    dQ, dk, dv = torch.zeros_like(Q), torch.zeros_like(kf), torch.zeros_like(vf)
+    db, dgi = torch.zeros_like(b), torch.zeros_like(b)
+    for ch in reversed(chunks):                                  # launches 4-6
+        sl, it, ww = ch["sl"], ch["it"], ch["w"]
+        Qc, kc, vc = Q[:, sl], kf[:, sl], vf[:, sl]
+        dnum = dhf[:, sl] / ch["M"][..., None]
+        U = torch.einsum("bhef,bthf->bthe", dC, vc) + dn[:, None]   # dC v_t + dn
+        dk[:, sl] = ww[..., None] * U + torch.einsum("bsth,bshe->bthe", ch["dS"], Qc)
+        dQ[:, sl] = it[..., None] * (torch.einsum("bhef,bshf->bshe", ch["C"], dnum)
+                                     + ch["dden"][..., None] * ch["n"][:, None]) \
+            + torch.einsum("bsth,bthe->bshe", ch["dS"], kc)
+        dv[:, sl] = ww[..., None] * torch.einsum("bthe,bhef->bthf", kc, dC) \
+            + torch.einsum("bsth,bshf->bthf", ch["att"], dnum)
+        rw = ww * (kc * U).sum(-1)                               # dw o w
+        d_inter_last = _dot(dC, ch["C"]) + _dot(dn, ch["n"])
+        dbc = ch["db"] - rw
+        dbc[:, -1] += rw.sum(1) + d_inter_last * it[:, -1]
+        db[:, sl] = dbc
+        dgi[:, sl] = ch["dgi"] + rw
+        dC = it[:, -1][..., None, None] * dC + torch.einsum("bsh,bshe,bshf->bhef", it, Qc, dnum)
+        dn = it[:, -1][..., None] * dn + torch.einsum("bsh,bshe->bhe", it * ch["dden"], Qc)
+    dlog_f = torch.cat([torch.flip(torch.cumsum(torch.flip(db[:, t0:t1], (1,)), 1), (1,))
+                        for t0, t1 in spans], dim=1)             # launch 7
+    # m_fin's step: the last chunk whose running max passed the carried m
+    m = torch.full((B, H), NEG, dtype=ft, device=dev) if m0 is None else m0
+    winner = torch.full((B, H), -1, dtype=torch.long, device=dev)   # -1: m0
+    for t0, t1 in spans:
+        gcum = torch.cumsum(log_f[:, t0:t1].to(ft), 1)
+        run, arg = (gi_all[:, t0:t1] - gcum).max(1)
+        winner = torch.where(run > m, arg + t0, winner)
+        m = gcum[:, -1] + torch.maximum(m, run)
+    steps = torch.arange(S, device=dev)[None, :, None]
+    dlog_f = dlog_f + g_m[:, None] * (steps > winner[:, None]).to(ft)
+    dlog_i = dgi + g_m[:, None] * (steps == winner[:, None]).to(ft)
+    dstate0 = None
+    if state is not None:
+        dstate0 = (dC, dn, _dot(dC, C0) + _dot(dn, n0) + g_m * (winner < 0).to(ft))
+    return (scale * dQ).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dlog_i, dlog_f, dstate0

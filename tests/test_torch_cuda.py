@@ -12,6 +12,7 @@ imports no JAX, so it runs on a card host that has none:
 import dataclasses
 import os
 import random
+import time
 
 import pytest
 
@@ -360,26 +361,40 @@ def test_dense_decode_leaves_its_tickets_at_zero(card):
     assert not any(t.any() for t in TICKETS.values())
 
 
+def _device_kernel_names(fn):
+    """Names of the device kernels ``fn`` runs on the card, traced.  The
+    tracer now and then leaves out the first records of a session, so the
+    session opens with 50 ms of idle and eight marker kernels
+    (``torch.cuda._sleep``) 2 ms apart, as ``chip_smoke.py``'s ``_traced``
+    does; the markers are not among the names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+            time.sleep(0.002)
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+
+
 @pytest.mark.parametrize("lengths", [[1000, 517, 0, 33], [100]])
 def test_dense_decode_is_one_kernel_a_call(card, lengths):
     """The profiler sees exactly one device kernel per dense-decode call:
     the split decode, its partials combined in the same launch."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(17)
     B = len(lengths)
     q = _randn(rng, B, 32, 128).to(card, torch.bfloat16)
     k, v = (_randn(rng, B, 1024, 8, 128).to(card, torch.bfloat16) for _ in range(2))
     ln = torch.tensor(lengths, dtype=torch.int32, device=card)
     dense_ops.decode_attention(q, k, v, ln)              # tickets allocated, library loaded
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            dense_ops.decode_attention(q, k, v, ln)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert len(kernels) == 3, [e.name for e in kernels]
-    assert all("decode_kernel" in e.name for e in kernels), [e.name for e in kernels]
+    names = _device_kernel_names(lambda: [dense_ops.decode_attention(q, k, v, ln)
+                                          for _ in range(3)])
+    assert len(names) == 3, names
+    assert all("decode_kernel" in n for n in names), names
 
 
 @pytest.mark.parametrize("D", [16, 64, 80, 128, 256])
@@ -534,18 +549,12 @@ def test_mamba_scan_device_kernels_a_call(card, S, with_h0, kernels):
     """The profiler sees one device kernel a bf16 call on the boot path (no
     state, one chunk: jamba's serving prefills) and three otherwise (chunk
     states, state passing, chunk outputs)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     B, H, P, N = 1, 64, 128, 16
     x = _scan_case(card, torch.bfloat16, B, S, H, P, N, 23)
     h0 = (_randn(np.random.default_rng(24), B, H, N, P) * 0.1).to(card) if with_h0 else None
     scan_ops.mamba_scan(*x, h0, chunk=128)              # library loaded, smem limits raised
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            scan_ops.mamba_scan(*x, h0, chunk=128)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = _device_kernel_names(lambda: [scan_ops.mamba_scan(*x, h0, chunk=128)
+                                          for _ in range(3)])
     assert len(names) == 3 * kernels, names
     assert all("chunk_tc" in n or "pass_states" in n for n in names), names
     if kernels == 1:
@@ -1107,22 +1116,17 @@ def test_flash_autograd_function_matches_float64(card):
 
 
 def test_kernels_without_a_backward_refuse_a_gradient(card):
-    """The scan, the mLSTM, the paged flash entry and both decodes raise on
-    the card where autograd would need their gradient; under no_grad they
-    run."""
+    """The paged flash entry and both decodes, which lie on no training
+    path, raise on the card where autograd would need their gradient;
+    under no_grad they run.  (The scan and the mLSTM have backward kernels:
+    ``test_scan_and_mlstm_return_gradients_on_the_card``.)"""
     x = torch.randn(1, 8, 2, 16, device=card, requires_grad=True)
-    la = -torch.rand(1, 8, 2, device=card)
-    bc = torch.randn(1, 8, 8, device=card)
     q = torch.randn(2, 4, 16, device=card, requires_grad=True)
     kv = torch.randn(2, 64, 2, 16, device=card)
     arena = torch.randn(6, BLK, 2, 16, device=card)
     pt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=card)
     lengths = torch.tensor([40, 9], dtype=torch.int32, device=card)
     calls = {
-        "mamba_scan": lambda: scan_ops.mamba_scan(x, la, bc, bc, chunk=8),
-        "mlstm": lambda: mlstm_ops.mlstm_chunkwise(
-            x.repeat(1, 1, 1, 4), x.repeat(1, 1, 1, 4), x.repeat(1, 1, 1, 4), la, la,
-            chunk=8),
         "paged_flash_attention": lambda: flash_ops.paged_flash_attention(
             x.reshape(2, 4, 2, 16), arena, arena, pt, torch.zeros(2, dtype=torch.int32,
                                                                    device=card)),
@@ -1137,11 +1141,140 @@ def test_kernels_without_a_backward_refuse_a_gradient(card):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("name", [NAME, "jamba-v0.1-52b"])
+def test_scan_and_mlstm_return_gradients_on_the_card(card):
+    """Under grad the scan and the mLSTM go through ``MambaScan`` and
+    ``MLSTM``: outputs with a ``grad_fn``, one forward and one backward
+    launch each, finite gradients for every input; under no_grad no graph
+    and no backward."""
+    x = torch.randn(1, 8, 2, 32, device=card, requires_grad=True)
+    la = (-torch.rand(1, 8, 2, device=card)).requires_grad_(True)
+    bc = torch.randn(1, 8, 8, device=card, requires_grad=True)
+    f0, b0 = scan_ops.mamba_scan.launches, scan_ops.mamba_scan_bwd.launches
+    y, h = scan_ops.mamba_scan(x, la, bc, bc, chunk=8)
+    assert y.grad_fn is not None
+    (y.sum() + h.sum()).backward()
+    assert (scan_ops.mamba_scan.launches - f0, scan_ops.mamba_scan_bwd.launches - b0) == (1, 1)
+    assert all(torch.isfinite(t.grad).all() for t in (x, la, bc))
+    m0, n0 = mlstm_ops.mlstm_chunkwise.launches, mlstm_ops.mlstm_bwd.launches
+    x4 = x.detach().repeat(1, 1, 1, 2).requires_grad_(True)
+    gi = torch.randn(1, 8, 2, device=card, requires_grad=True)
+    h, (C, n, m) = mlstm_ops.mlstm_chunkwise(x4, x4, x4, gi, la, chunk=8)
+    assert h.grad_fn is not None
+    (h.sum() + C.sum()).backward()
+    assert (mlstm_ops.mlstm_chunkwise.launches - m0, mlstm_ops.mlstm_bwd.launches - n0) == (1, 1)
+    assert all(torch.isfinite(t.grad).all() for t in (x4, gi))
+    with torch.no_grad():
+        assert scan_ops.mamba_scan(x, la, bc, bc, chunk=8)[0].grad_fn is None
+        assert mlstm_ops.mlstm_chunkwise(x4, x4, x4, gi, la, chunk=8)[0].grad_fn is None
+    torch.cuda.synchronize()
+
+
+# the backward kernels' gate: each gradient's largest error within these
+# shares of its largest entry; the mLSTM's float32 gradients at its
+# forward's h gate (MLSTM_TOL_H): they pass through the same cancelling
+# denominator
+BWD_GRAD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MLSTM_BWD_GRAD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# (B, S, H, P, N, L, h0 and the final state's gradient): jamba's training
+# shape, a ragged tail with a state, short chunks, the bf16 boot path
+SCAN_BWD_SHAPES = [(2, 2048, 64, 128, 16, 128, False), (2, 300, 8, 128, 16, 128, True),
+                   (2, 37, 2, 32, 8, 16, True), (2, 8, 64, 128, 16, 128, False)]
+
+
+def _grads_close(got, want, dtype, names, tol=BWD_GRAD_TOL):
+    for name, a, b in zip(names, got, want):
+        assert torch.isfinite(a).all(), name
+        err = ((a.float() - b).abs().max() / b.abs().max()).item()
+        assert err <= tol[dtype], (name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_mamba_scan_bwd_kernel_matches_plain(card, dtype, shape):
+    """``MambaScan``'s gradients (the forward's scratch, then
+    ``mamba_scan_bwd``) against autograd of the float32 plain version on
+    the same inputs, each within ``BWD_GRAD_TOL`` of its largest entry; the
+    backward alone twice gives the same bits."""
+    B, S, H, P, N, L, with_h0 = shape
+    dt = configs.torch_dtype(dtype)
+    x, loga, Bm, Cm = _scan_case(card, dt, B, S, H, P, N, 31)
+    rng = np.random.default_rng(32)
+    h0 = (_randn(rng, B, H, N, P) * 0.1).to(card) if with_h0 else None
+    dy = _randn(rng, B, S, H, P).to(card, dt)
+    dh = _randn(rng, B, H, N, P).to(card) if with_h0 else None
+    leaves = [t.clone().requires_grad_(True) for t in (x, loga, Bm, Cm)] \
+        + ([h0.clone().requires_grad_(True)] if with_h0 else [])
+    y, h = scan_ops.mamba_scan(*leaves[:4], leaves[4] if with_h0 else None, chunk=L)
+    got = torch.autograd.grad((y, h) if with_h0 else (y,), leaves,
+                              (dy, dh) if with_h0 else (dy,))
+    plain = [t.detach().float().requires_grad_(True) for t in leaves]
+    py, ph = scan_ref.mamba_scan_ref(*plain[:4], plain[4] if with_h0 else None, chunk=L)
+    want = torch.autograd.grad((py, ph) if with_h0 else (py,), plain,
+                               (dy.float(), dh) if with_h0 else (dy.float(),))
+    _grads_close(got, want, dtype, ("dx", "dloga", "dB", "dC", "dh0"))
+    _, _, scratch = scan_ops._forward(x, loga, Bm, Cm, h0, L, save=True)
+    a = scan_ops.mamba_scan_bwd(x, loga, Bm, Cm, h0, scratch, dy, dh, chunk=L)
+    b = scan_ops.mamba_scan_bwd(x, loga, Bm, Cm, h0, scratch, dy, dh, chunk=L)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, w) for u, w in zip(a, b) if u is not None)
+
+
+# (B, S, H, dh, L, a start state and the final state's gradient, q scaled
+# by 1e-3): xlstm's training shape, a ragged tail with a state, the reduced
+# width, exp(-m_new) winning the denominator
+MLSTM_BWD_SHAPES = [(2, 1024, 4, 1024, 64, False, False), (1, 300, 4, 1024, 64, True, False),
+                    (2, 48, 4, 32, 64, False, False), (2, 37, 2, 32, 16, True, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", MLSTM_BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_mlstm_bwd_kernel_matches_plain(card, dtype, shape):
+    """``MLSTM``'s gradients (``mlstm_bwd``) against autograd of the
+    float32 plain version on the same inputs, q, k, v, log i, log f and
+    the start state each within ``MLSTM_BWD_GRAD_TOL`` of its largest
+    entry; the backward alone twice gives the same bits."""
+    B, S, H, dh, L, with_state, small_q = shape
+    dt = configs.torch_dtype(dtype)
+    rng = np.random.default_rng(33)
+    q = (_randn(rng, B, S, H, dh) / dh ** 0.5 * (1e-3 if small_q else 1.0)).to(card, dt)
+    k, v = (_randn(rng, B, S, H, dh).to(card, dt) for _ in range(2))
+    log_i = (_randn(rng, B, S, H) * 2).to(card)
+    log_f = torch.nn.functional.logsigmoid(_randn(rng, B, S, H) + 4).to(card)
+    state = dstate = None
+    if with_state:
+        state = ((_randn(rng, B, H, dh, dh) * 0.1).to(card),
+                 (_randn(rng, B, H, dh) * 0.1).to(card), _randn(rng, B, H).to(card))
+        dstate = tuple(_randn(rng, *t.shape).to(card) for t in state)
+    dhv = _randn(rng, B, S, H, dh).to(card, dt)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, log_i, log_f)]
+    sl = [t.clone().requires_grad_(True) for t in state] if with_state else []
+    h, fin = mlstm_ops.mlstm_chunkwise(*leaves, tuple(sl) if sl else None, chunk=L)
+    got = torch.autograd.grad((h, *fin) if with_state else (h,), leaves + sl,
+                              (dhv, *dstate) if with_state else (dhv,))
+    plain = [t.detach().float().requires_grad_(True) for t in leaves] \
+        + [t.detach().clone().requires_grad_(True) for t in sl]
+    ph, pfin = mlstm_ref.mlstm_ref(*plain[:5], tuple(plain[5:]) if sl else None, chunk=L)
+    want = torch.autograd.grad((ph, *pfin) if with_state else (ph,), plain,
+                               (dhv.float(), *dstate) if with_state else (dhv.float(),))
+    _grads_close(got, want, dtype, ("dq", "dk", "dv", "dlog_i", "dlog_f", "dC0", "dn0", "dm0"),
+                 MLSTM_BWD_GRAD_TOL)
+    a = mlstm_ops.mlstm_bwd(q, k, v, log_i, log_f, state, dhv, dstate, fin[:2], chunk=L)
+    b = mlstm_ops.mlstm_bwd(q, k, v, log_i, log_f, state, dhv, dstate, fin[:2], chunk=L)
+    torch.cuda.synchronize()
+    flat = lambda r: [*r[:5], *(r[5] or ())]  # noqa: E731
+    assert all(torch.equal(u, w) for u, w in zip(flat(a), flat(b)))
+
+
+@pytest.mark.parametrize("name", [NAME, "jamba-v0.1-52b", "xlstm-1.3b"])
 def test_lm_loss_backward_on_card_matches_cpu(card, name):
-    """One ``lm_loss`` and its gradients for reduced llama, on the card (the
-    flash kernel forward and backward) against the CPU within 2e-4; jamba's
-    Mamba layers refuse a gradient on the card."""
+    """One ``lm_loss`` and its gradients for reduced llama, jamba and xlstm
+    on the card (the flash kernel, the scan and the mLSTM, forwards and
+    backwards) against the CPU (the plain versions) within 2e-4; xlstm's
+    leaves within 1e-4 of each leaf's largest entry where that is more (the
+    leaf-max rule of ``test_torch_training.py`` ``_atol_of_max``: float32
+    itself is that far from float64 there).  Under full remat each
+    attention, Mamba and mLSTM layer's forward kernel runs twice and its
+    backward once."""
     from repro_torch.models.lm import lm_loss
     cfg = configs.get_config(name).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -1149,7 +1282,10 @@ def test_lm_loss_backward_on_card_matches_cpu(card, name):
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 40)).astype(np.int32))
     labels = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 40)).astype(np.int32))
     res = {}
-    for dev in ("cuda", "cpu") if name == NAME else ("cuda",):
+    wrappers = {"flash": (flash_ops.flash_attention, flash_ops.flash_attention_bwd, "attn"),
+                "scan": (scan_ops.mamba_scan, scan_ops.mamba_scan_bwd, "mamba"),
+                "mlstm": (mlstm_ops.mlstm_chunkwise, mlstm_ops.mlstm_bwd, "mlstm")}
+    for dev in ("cuda", "cpu"):
         leaves = []
 
         def graded(t):
@@ -1160,14 +1296,19 @@ def test_lm_loss_backward_on_card_matches_cpu(card, name):
             leaves.append(t.detach().clone().requires_grad_(True))
             return leaves[-1]
         p = graded(_to(params, torch.device(dev)))
-        call = lambda: lm_loss(cfg, LM(cfg, dev), p, toks.to(dev), labels.to(dev))  # noqa: E731
-        if name != NAME:
-            with pytest.raises(RuntimeError, match="mamba_scan has no backward kernel"):
-                call()
-            return
-        loss, _ = call()
+        before = {k: (f.launches, bw.launches) for k, (f, bw, _) in wrappers.items()}
+        loss, _ = lm_loss(cfg, LM(cfg, dev), p, toks.to(dev), labels.to(dev))
         loss.backward()
         res[dev] = [loss.detach().cpu()] + [t.grad.cpu() for t in leaves]
+        if dev == "cuda":
+            mix = {}
+            for sp in cfg.pattern:
+                kind = "attn" if sp.mixer == "cross_attn" else sp.mixer
+                mix[kind] = mix.get(kind, 0) + cfg.n_repeats
+            for k, (f, bw, mixer) in wrappers.items():
+                n = mix.get(mixer, 0)
+                assert (f.launches - before[k][0], bw.launches - before[k][1]) == (2 * n, n), k
     for a, b in zip(res["cuda"], res["cpu"]):
         assert torch.isfinite(a).all()
-        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+        atol = 2e-4 if name != "xlstm-1.3b" else max(2e-4, 1e-4 * b.abs().max().item())
+        torch.testing.assert_close(a, b, atol=atol, rtol=2e-4)

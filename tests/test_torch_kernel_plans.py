@@ -10,7 +10,8 @@ in tiles, the no-state boot path, the bf16 pairs) and the SSD scan's
 passing, chunk outputs, the boot path, the bf16 roundings) against the
 JAX kernels and the plain versions, with their launch plans, and the
 chunk hash's lane split (``kernels/chunk_hash/ref.py``
-``chunk_hash_lanes``) against ``core/hrtree.chunk_hash``.  A launch
+``chunk_hash_lanes``) against ``core/hrtree.chunk_hash``; and the launch
+plans of the scan's and the mLSTM's backward kernels.  A launch
 refused for too much shared memory never runs, so these catch it before
 the card."""
 import dataclasses
@@ -705,6 +706,77 @@ def test_scan_plan_at_the_serving_shapes():
     assert walk["kernels"][0]["smem"] == 1024 + 2 * (2 * 128 * 128 + 128 * 128 + 2 * 16 * 128) \
         + 3 * 128 * 4 == 109_056
     assert scan_ops.plan(1, 2048, 64, 128, 16, 128, torch.float32, True)["path"] == "scalar"
+
+
+@pytest.mark.parametrize("P,N,L", _mamba_shapes(), ids=lambda v: str(v))
+def test_scan_bwd_plan_fits_every_config(P, N, L):
+    """The scan's backward (csrc/mamba_scan_bwd.cu) at every Mamba config's
+    head width, state and chunk, for one step, one chunk and several: the
+    wrapper takes the shape, each launch's shared memory fits the card's
+    232,448 bytes, the chunk launches' grid is (chunks, B H), the pass one
+    block a (b, h), the heads' sum covers B S N, and the scratch holds dH_c
+    and the entering states, da, and each head's dB and dC."""
+    for S in (1, 8, L, 3 * L + 1, 2048):
+        Lc = min(L, S)
+        scan_ops.check_bwd(P, N, Lc)
+        p = scan_ops.bwd_plan(2, S, 4, P, N, Lc)
+        n_chunks = -(-S // Lc)
+        assert [k["name"] for k in p["kernels"]] == ["grad_in", "pass_grads", "chunk_grads",
+                                                     "sum_heads"]
+        for kn in p["kernels"]:
+            assert kn["smem"] <= scan_ops.MAX_SMEM and kn["threads"] == 256, (S, kn)
+        grids = [kn["grid"] for kn in p["kernels"]]
+        assert grids[:3] == [(n_chunks, 8), (8,), (n_chunks, 8)]
+        assert grids[3][0] * 256 >= 2 * S * N > (grids[3][0] - 1) * 256
+        assert p["scratch"] == 2 * 8 * n_chunks * N * P + 8 * n_chunks + 2 * 8 * S * N
+
+
+def test_scan_bwd_plan_at_the_training_shape():
+    """jamba's training shape (B=2 S=2048, 64 heads of 128, N=16, chunks of
+    128): 2,048 chunk blocks of 123,520 bytes (one an SM), 128 blocks of the
+    pass, 67 MB of scratch; a shape past the kernels' limits is refused."""
+    p = scan_ops.bwd_plan(2, 2048, 64, 128, 16, 128)
+    assert [(k["name"], k["grid"], k["smem"]) for k in p["kernels"]] == [
+        ("grad_in", (16, 128), 26_624), ("pass_grads", (128,), 32),
+        ("chunk_grads", (16, 128), 123_520), ("sum_heads", (256,), 0)]
+    assert 4 * p["scratch"] == 67_117_056
+    for P, N, L in ((128, 32, 128), (256, 16, 128), (128, 16, 256)):
+        with pytest.raises(ValueError):
+            scan_ops.check_bwd(P, N, L)
+
+
+@pytest.mark.parametrize("dh", _mlstm_head_dims())
+def test_mlstm_bwd_plan_fits_every_config(dh):
+    """The mLSTM's backward (csrc/mlstm_bwd.cu) at every mLSTM head width
+    and chunk length L <= 64, one chunk or several: the wrapper takes the
+    shape, each launch's shared memory fits the card's 232,448 bytes, the
+    per-chunk launches' grid is (chunks, B H), the sweeps' (B H, dh / 32)."""
+    for L in (1, 5, 8, 16, 32, 64):
+        for S in (L, 3 * L + 1):
+            mlstm_ops.check_bwd(dh, L)
+            p = mlstm_ops.bwd_plan(2, S, 4, dh, L)
+            nc = -(-S // L)
+            for kn in p["kernels"]:
+                assert kn["smem"] <= mlstm_ops.MAX_SMEM and kn["threads"] <= 1024, (L, S, kn)
+            assert [(k["name"], k["grid"]) for k in p["kernels"]] == [
+                ("prep", (nc, 8)), ("states", (8, dh // 32)), ("steps", (nc, 8)),
+                ("reverse_rows", (8, dh // 32)), ("reverse_cols", (8, dh // 32)),
+                ("gate_grads", (8,))]
+
+
+def test_mlstm_bwd_plan_at_the_training_shape():
+    """xlstm-1.3b's training shape (B=2 S=1024, 4 heads of 1024, chunks of
+    64): sweeps of 8 x 32 blocks, the row sweep's 186,400 bytes of shared
+    memory the most, and 546 MB of scratch, 512 MB of it the recomputed
+    entering states; head widths the forward refuses are refused."""
+    p = mlstm_ops.bwd_plan(2, 1024, 4, 1024, 64)
+    smem = {k["name"]: k["smem"] for k in p["kernels"]}
+    assert max(smem.values()) == smem["reverse_rows"] == 186_400
+    assert 4 * p["scratch"] == 546_097_152
+    assert 4 * 8 * 16 * 1024 * 1024 == 536_870_912
+    for dh, L in ((48, 64), (2048, 64), (1024, 128)):
+        with pytest.raises(ValueError):
+            mlstm_ops.check_bwd(dh, L)
 
 
 # -------------------------------------------------- chunk hash: the lane split
