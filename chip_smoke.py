@@ -1189,7 +1189,11 @@ def _scan_bwd_cost(B, S, H, P, N, L, esize, h0=True):
 SCAN_BWD_CASES = {"train": (2, 2048, 64, 128, 16, 128, False, False),
                   "ragged_h0": (2, 300, 8, 128, 16, 128, True, False),
                   "deep": (2, 37, 2, 128, 8, 16, True, True),
-                  "boot": (2, 8, 64, 128, 16, 128, False, False)}
+                  "boot": (2, 8, 64, 128, 16, 128, False, False),
+                  "ragged": (2, 2000, 64, 128, 16, 128, False, False)}
+# cases of the bf16 body only: the boot path, and the training shape with a
+# ragged last chunk (80 steps)
+SCAN_BWD_BF16_ONLY = ("boot", "ragged")
 
 
 def check_mamba_scan_bwd(gen, dev):
@@ -1199,16 +1203,20 @@ def check_mamba_scan_bwd(gen, dev):
     loga, B, C and h0 within ``BWD_TOL`` of its largest entry: at jamba's
     training shape (B=2 S=2048 H=64 P=128 N=16 L=128, no h0, dy only), at
     a ragged shape with h0 and the final state's gradient, with a chunk
-    whose summed loga is below -200, and on bf16's boot path (one chunk, no
-    h0); f32 and bf16; a second call gives the same bits.  Timed in bf16 at
-    the training shape beside its bound and the plain version's backward."""
+    whose summed loga is below -200, on bf16's boot path (one chunk, no
+    h0) and at the training shape with a ragged last chunk (bf16); f32 (the
+    scalar bodies) and bf16 (the tensor-core ones); a second call gives the
+    same bits; ``bwd_plan`` equal to the source's plan at every case.
+    Timed in bf16 at the training shape beside its bound and the plain
+    version's backward, with each launch's device time (also printed on a
+    line of its own, ``mamba_scan_bwd_launches``)."""
     from repro_torch.kernels.mamba_scan import ops, ref
     errs, same_bits = {}, {}
     cases = SCAN_BWD_CASES
     for name, (B, S, H, P, N, L, with_h0, deep) in cases.items():
         x, loga, Bm, Cm, h0 = _scan_inputs(gen, dev, B, S, H, P, N, with_h0, deep)
         for dtype in (torch.float32, torch.bfloat16):
-            if name == "boot" and dtype == torch.float32:
+            if name in SCAN_BWD_BF16_ONLY and dtype == torch.float32:
                 continue
             xb, bm, cm = (t.to(dtype) for t in (x, Bm, Cm))
             dy = torch.randn(B, S, H, P, generator=gen, device=dev).to(dtype)
@@ -1245,13 +1253,19 @@ def check_mamba_scan_bwd(gen, dev):
     _, _, scratch = ops._forward(xb, loga, bm, cm, None, L, save=True)
     ms = time_ms(lambda: ops.mamba_scan_bwd(xb, loga, bm, cm, None, scratch, dy, None,
                                             chunk=L), iters=5, warmup=2)
+    by_kernel = _bwd_by_kernel(
+        lambda: ops.mamba_scan_bwd(xb, loga, bm, cm, None, scratch, dy, None, chunk=L),
+        ops.bwd_plan(B, S, H, P, N, L, torch.bfloat16), SCAN_BWD_KERNELS)
     plain_in = [t.detach().float().requires_grad_(True) for t in (xb, loga, bm, cm)]
     py, _ = ref.mamba_scan_ref(*plain_in, chunk=L)
     dyf = dy.float()
     plain_ms = time_ms(lambda: torch.autograd.grad(py, plain_in, dyf, retain_graph=True),
                        iters=2, warmup=1)
     b_ms, b_by = bound(*_scan_bwd_cost(B, S, H, P, N, L, 2, False), torch.bfloat16)
-    plan = ops.bwd_plan(B, S, H, P, N, L)
+    plan = ops.bwd_plan(B, S, H, P, N, L, torch.bfloat16)
+    emit({"phase": "mamba_scan_bwd_launches", "shape": f"B={B} S={S} H={H} P={P} N={N} "
+          f"L={L} bf16", "card": smi_line(), "ms": ms, "by_kernel": by_kernel})
+    plans = _bwd_plans_agree(ops, [c[:6] for c in cases.values()])
     del plain_in, py, scratch
     return {"name": "mamba_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu",
@@ -1263,9 +1277,46 @@ def check_mamba_scan_bwd(gen, dev):
             "timed_at": "B=2 S=2048 H=64 P=128 N=16 L=128 bf16, no h0 (jamba's training "
                         "shape, 16 chunks); plain: autograd of the f32 plain version's "
                         "backward alone",
+            "by_kernel": by_kernel,
             "plan": [[k["name"], list(k["grid"]), k["threads"], k["smem"]]
                      for k in plan["kernels"]],
+            "plans_equal_the_source": plans,
             "same_bits_on_a_second_call": all(same_bits.values()), "errs": errs}
+
+
+def _bwd_by_kernel(call, plan, fns, n=3):
+    """Device ms and launches a call of each device function behind
+    ``call`` (a backward at one shape), over ``n`` traced calls; each of
+    ``plan``'s launches seen once a call."""
+    def calls():
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    got = {f: {"ms": r["ms"] / n, "launches": r["launches"] / n}
+           for f, r in _bwd_kernel_ms(_device_rows(calls, tries=5), fns).items()}
+    planned = [k["name"].split("<")[0] for k in plan["kernels"]]
+    assert sorted(f for f, r in got.items() if r["launches"]) == sorted(planned), (got, planned)
+    assert all(r["launches"] == 1 for f, r in got.items() if f in planned), got
+    return {f: got[f] for f in planned}
+
+
+def _bwd_plans_agree(ops, shapes):
+    """``ops.bwd_plan``'s launches (grid, threads, dynamic shared memory)
+    and scratch against the built source's own (``ops.launch_plan``) at
+    each shape (the arguments of ``bwd_plan`` before the dtype, its chunk
+    cut to the length), both dtypes; returns the number compared."""
+    n = 0
+    for shape in shapes:
+        *head, L = shape
+        L = min(L, head[1])
+        for dtype in (torch.float32, torch.bfloat16):
+            mirror = ops.bwd_plan(*head, L, dtype)
+            want = (mirror["scratch"], tuple((k["grid"], k["threads"], k["dynamic"])
+                                             for k in mirror["kernels"]))
+            got = ops.launch_plan(*head, L, dtype)
+            assert got == want, (shape, dtype, got, want)
+            n += 1
+    return n
 
 
 def _mlstm_bwd_cost(B, S, H, dh, L, esize):
@@ -1307,7 +1358,11 @@ def _mlstm_inputs(gen, dev, B, S, H, dh, state, small_q=False):
 MLSTM_BWD_CASES = {"train": (2, 1024, 4, 1024, 64, False, False),
                    "ragged_state": (1, 300, 4, 1024, 64, True, False),
                    "floor": (2, 37, 2, 32, 16, True, True),
-                   "reduced": (2, 48, 4, 32, 64, False, False)}
+                   "reduced": (2, 48, 4, 32, 64, False, False),
+                   "ragged": (2, 1000, 4, 1024, 64, False, False)}
+# cases of the bf16 body only: the training shape with a ragged last chunk
+# (40 steps)
+MLSTM_BWD_BF16_ONLY = ("ragged",)
 
 
 def check_mlstm_bwd(gen, dev):
@@ -1319,16 +1374,21 @@ def check_mlstm_bwd(gen, dev):
     plain version, ``f64``): at xlstm-1.3b's training shape
     (B=2 S=1024 H=4 dh=1024 L=64, no state, dh only), at a ragged shape with
     a start state and the final state's gradient, with q scaled down so
-    that exp(-m_new) wins the denominator on many steps, and at the reduced
-    width (dh=32); f32 and bf16; a second call gives the same bits.  Timed
-    in bf16 at the training shape beside its bound and the plain version's
-    backward."""
+    that exp(-m_new) wins the denominator on many steps, at the reduced
+    width (dh=32) and at the training shape with a ragged last chunk
+    (bf16); f32 (the scalar bodies) and bf16 (the tensor-core ones); a
+    second call gives the same bits; ``bwd_plan`` equal to the source's
+    plan at every case.  Timed in bf16 at the training shape beside its
+    bound and the plain version's backward, with each launch's device time
+    (also printed on a line of its own, ``mlstm_bwd_launches``)."""
     from repro_torch.kernels.mlstm import ops, ref
     errs, same_bits, f64 = {}, {}, {}
     cases = MLSTM_BWD_CASES
     for name, (B, S, H, dh, L, with_state, small_q) in cases.items():
         q, k, v, log_i, log_f, st = _mlstm_inputs(gen, dev, B, S, H, dh, with_state, small_q)
         for dtype in (torch.float32, torch.bfloat16):
+            if name in MLSTM_BWD_BF16_ONLY and dtype == torch.float32:
+                continue
             x = [t.to(dtype) for t in (q, k, v)]
             dh_ = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dtype)
             dst = tuple(torch.randn_like(t) for t in st) if with_state else None
@@ -1370,15 +1430,20 @@ def check_mlstm_bwd(gen, dev):
     q, k, v, log_i, log_f, _ = _mlstm_inputs(gen, dev, B, S, H, dh, False)
     x = [t.to(torch.bfloat16) for t in (q, k, v)]
     dh_ = torch.randn(B, S, H, dh, generator=gen, device=dev).to(torch.bfloat16)
-    ms = time_ms(lambda: ops.mlstm_bwd(*x, log_i, log_f, None, dh_, chunk=L), iters=3,
-                 warmup=1)
+    ms = time_ms(lambda: ops.mlstm_bwd(*x, log_i, log_f, None, dh_, chunk=L), iters=5,
+                 warmup=2)
+    by_kernel = _bwd_by_kernel(lambda: ops.mlstm_bwd(*x, log_i, log_f, None, dh_, chunk=L),
+                               ops.bwd_plan(B, S, H, dh, L, torch.bfloat16), MLSTM_BWD_KERNELS)
     plain_in = [t.detach().float().requires_grad_(True) for t in (*x, log_i, log_f)]
     ph, _ = ref.mlstm_ref(*plain_in, chunk=L)
     dhf = dh_.float()
     plain_ms = time_ms(lambda: torch.autograd.grad(ph, plain_in, dhf, retain_graph=True),
                        iters=2, warmup=1)
     b_ms, b_by = bound(*_mlstm_bwd_cost(B, S, H, dh, L, 2), torch.bfloat16)
-    plan = ops.bwd_plan(B, S, H, dh, L)
+    plan = ops.bwd_plan(B, S, H, dh, L, torch.bfloat16)
+    emit({"phase": "mlstm_bwd_launches", "shape": f"B={B} S={S} H={H} dh={dh} L={L} bf16",
+          "card": smi_line(), "ms": ms, "by_kernel": by_kernel})
+    plans = _bwd_plans_agree(ops, [c[:5] for c in cases.values()])
     del plain_in, ph
     return {"name": "mlstm_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/mlstm/csrc/mlstm_bwd.cu",
@@ -1390,8 +1455,10 @@ def check_mlstm_bwd(gen, dev):
             "timed_at": "B=2 S=1024 H=4 dh=1024 L=64 bf16, no state (xlstm-1.3b's training "
                         "shape, 16 chunks); plain: autograd of the f32 plain version's "
                         "backward alone",
+            "by_kernel": by_kernel,
             "plan": [[k["name"], list(k["grid"]), k["threads"], k["smem"]]
                      for k in plan["kernels"]],
+            "plans_equal_the_source": plans,
             "scratch_bytes": 4 * plan["scratch"],
             "same_bits_on_a_second_call": all(same_bits.values()),
             "f32_vs_float64": {k: max(v.items(), key=lambda kv: kv[1]["kernel"])
@@ -3287,10 +3354,11 @@ TRAIN_PARITY = (NAME, "h2o-danube-1.8b", "gemma2-9b", "moonshot-v1-16b-a3b", "wh
 XLSTM_PARAM_SHARE = 3e-3
 # device functions behind the bf16 training steps: the flash kernel's dense
 # entry and its backward's bf16 kernels (Delta; dK/dV, the split sum and dQ
-# on wgmma), the scan's and the mLSTM's bf16 forwards and their backwards
+# on wgmma), the scan's and the mLSTM's bf16 forwards and their backwards'
+# bf16 bodies (on wgmma but the pass, the heads' sum, steps and gate_grads)
 FLASH_BWD_KERNELS = ("delta_kernel", "dkdv_tc_kernel", "dkdv_sum_kernel", "dq_tc_kernel")
-SCAN_BWD_KERNELS = ("grad_in", "pass_grads", "chunk_grads", "sum_heads")
-MLSTM_BWD_KERNELS = ("prep", "states", "steps", "reverse_rows", "reverse_cols", "gate_grads")
+SCAN_BWD_KERNELS = ("grad_in_tc", "pass_tc", "chunk_grads_tc", "sum_heads")
+MLSTM_BWD_KERNELS = ("prep_tc", "states_tc", "steps", "rows_tc", "cols_tc", "gate_grads")
 
 
 def _fn_keys(fns):
@@ -3550,7 +3618,7 @@ def main():
                     if "Used" in ln or "Compiling entry" in ln],
           "tensor_core_sass": {name: sass_counts(name)
                                for name in ("flash_attention", "flash_attention_bwd", "mlstm",
-                                            "mamba_scan")},
+                                            "mlstm_bwd", "mamba_scan", "mamba_scan_bwd")},
           "spills": _spills(reports)})
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -17,9 +17,11 @@
 # checkout (say, the parent commit's), adds a last step: every kernel's
 # check of chip_smoke.py (check_paged_decode, check_paged_flash,
 # check_dense_flash, check_flash_bwd, check_dense_decode, check_mamba_scan,
-# check_mlstm, check_chunk_hash), then train_bf16's steps, in turns BASE, TREE,
-# TREE, BASE, each tree building and timing its own kernels on this card, one
-# JSON line a kernel (and one for the training step) in OUT/turns.log.  A summary of each step is printed at the end.
+# check_mamba_scan_bwd, check_mlstm, check_mlstm_bwd, check_chunk_hash), then
+# train_bf16's and train_jamba_bf16's steps, in turns BASE, TREE, TREE, BASE,
+# each tree building and timing its own kernels on this card, one JSON line a
+# kernel (and one a training phase) in OUT/turns.log.  A summary of each step
+# is printed at the end.
 set -u
 out=$(realpath -m "$1")
 mkdir -p "$out"
@@ -67,19 +69,21 @@ _build.build_all()
 dev = torch.device("cuda")
 gen = torch.Generator(device=dev).manual_seed(0)
 for check in (c.check_paged_decode, c.check_paged_flash, c.check_dense_flash,
-              c.check_flash_bwd, c.check_dense_decode, c.check_mamba_scan, c.check_mlstm,
-              c.check_chunk_hash):
+              c.check_flash_bwd, c.check_dense_decode, c.check_mamba_scan,
+              c.check_mamba_scan_bwd, c.check_mlstm, c.check_mlstm_bwd, c.check_chunk_hash):
     r = check(0 if check is c.check_chunk_hash else gen, dev)
     print(json.dumps({"tree": os.getcwd(), **{k: r.get(k) for k in (
         "name", "ms", "plain_ms", "library_ms", "bound_ms", "serving", "shapes",
-        "timed_more")}}),
+        "timed_more", "by_kernel")}}),
         flush=True)
-c._free()
-line, _ = c.train_bf16(0, dev, None)
-print(json.dumps({"tree": os.getcwd(), "name": "train_bf16",
-                  **{k: line[k] for k in ("mean_step_s", "tokens_per_s", "losses")},
-                  **{k: line["traced_step"][k] for k in ("idle_share", "kernels")}}),
-      flush=True)
+    c._free()
+for phase in (c.train_bf16, c.train_jamba_bf16):
+    line, _ = phase(0, dev, None)
+    print(json.dumps({"tree": os.getcwd(), "name": line["phase"],
+                      **{k: line[k] for k in ("mean_step_s", "tokens_per_s", "losses")},
+                      **{k: line["traced_step"][k] for k in ("idle_share", "kernels")}}),
+          flush=True)
+    c._free()
 EOF
         ) >> "$out/turns.log" 2>&1 || turns_rc=1
     done

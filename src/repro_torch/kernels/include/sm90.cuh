@@ -1,8 +1,8 @@
 // Inline-PTX helpers for Hopper (sm_90a) shared by the port's kernels:
 // 16-byte cp.async copies into shared memory, the proxy fence that makes
 // them visible to wgmma, wgmma's shared-memory descriptors for the
-// 128-byte-swizzled layout, and the m64nNk16 bf16 wgmma (N = 32 or 64) in
-// its two forms (A from shared memory, A from registers), with the
+// 128-byte-swizzled layout, and the m64nNk16 bf16 wgmma (N = 16, 32 or 64)
+// in its two forms (A from shared memory, A from registers), with the
 // transpose bits that read an operand stored MN-major.
 //
 // The 128-byte-swizzled layout (what the descriptors below describe): a
@@ -78,6 +78,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+#define SM90_D8(d)                                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
 #define SM90_D16(d)                                                                            \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
       "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
@@ -86,13 +88,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   SM90_D16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),   \
       "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),            \
       "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define SM90_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define SM90_REGS16 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define SM90_REGS32                                                                   \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
-// D(64xN, f32) += A(64x16) B(16xN), bf16, N = 32 or 64 (d holds N / 2
+// D(64xN, f32) += A(64x16) B(16xN), bf16, N = 16, 32 or 64 (d holds N / 2
 // floats a thread), A and B from shared memory.  TA = 0: A K-major (K
 // contiguous), 1: M-major (the transpose bit); TB = 0: B K-major, 1:
 // N-major.  Accumulator layout: thread t of the warpgroup, lane = t % 32,
@@ -100,13 +103,20 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // 8 j + 2 (lane % 4) + e % 2.
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b) {
-  static_assert(N == 32 || N == 64, "m64n32k16 or m64n64k16");
+  static_assert(N == 16 || N == 32 || N == 64, "m64n16k16, m64n32k16 or m64n64k16");
   if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_REGS32
         ", %32, %33, p, 1, 1, %35, %36;\n}\n"
         : SM90_D32(d)
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " SM90_REGS8
+        ", %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : SM90_D8(d)
         : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
   } else {
     asm volatile(
@@ -123,8 +133,15 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 // layout of a 16-column slice, rounded to bf16 pairs).
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
-  static_assert(N == 32 || N == 64, "m64n32k16 or m64n64k16");
-  if constexpr (N == 64) {
+  static_assert(N == 16 || N == 32 || N == 64, "m64n16k16, m64n32k16 or m64n64k16");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " SM90_REGS8
+        ", {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : SM90_D8(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+  } else if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_REGS32
@@ -141,8 +158,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
+#undef SM90_D8
 #undef SM90_D16
 #undef SM90_D32
+#undef SM90_REGS8
 #undef SM90_REGS16
 #undef SM90_REGS32
 

@@ -94,6 +94,7 @@
 
 #include "kv_tile.cuh"
 #include "sm90.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -227,7 +228,6 @@ constexpr int kMaxN = 16;         // widest state: K of C B^T and of C h
 constexpr int kSplitBelow = 264;  // chunk units under which a unit is one
                                   // column group of 64, not all of P
 constexpr int kBlocksPerSm = 2;   // resident chunk blocks an SM (launch bounds)
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kPassBatch = 8;     // chunks whose states the pass loads at once
 enum Mode { kBoot = 0, kStates = 1, kOutputs = 2 };
 
@@ -248,29 +248,13 @@ struct TcLayout {
   static constexpr int kBytes = 1024 + kVec + 3 * kR * 4;  // + alignment slack
 };
 
-// The 1024-byte-aligned start of dynamic shared memory (the swizzle needs it).
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  return raw + ((1024u - (sm90::smem_addr(raw) & 1023u)) & 1023u);
-}
-
-// Element (r, c) of a swizzled tile of bf16 with 64-element rows.
-__device__ __forceinline__ bf16* tile_at(uint8_t* tile, int r, int c) {
-  return reinterpret_cast<bf16*>(tile + sm90::swizzle128(r, c >> 3) + (c & 7) * 2);
-}
-
-// Row and column of accumulator element i (sm90.cuh's layout) within a
-// warpgroup's 64-row tile; the A-fragment register x of k-step kk holds
-// (frag_row(x), frag_col(kk, x)) and the column after it.
-__device__ __forceinline__ int acc_row(int i) {
-  return 16 * ((threadIdx.x & 127) >> 5) + ((threadIdx.x & 31) >> 2) + 8 * ((i >> 1) & 1);
-}
-__device__ __forceinline__ int acc_col(int i) {
-  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
-}
-__device__ __forceinline__ int frag_row(int x) { return acc_row(2 * x); }
-__device__ __forceinline__ int frag_col(int kk, int x) {
-  return 16 * kk + 8 * (x >> 1) + 2 * (threadIdx.x & 3);
-}
+using tc_tile::acc_col;
+using tc_tile::acc_row;
+using tc_tile::aligned_smem;
+using tc_tile::frag_col;
+using tc_tile::frag_row;
+using tc_tile::kLog2e;
+using tc_tile::tile_at;
 
 // A unit of work: chunk c of row bh = b * H + h, columns [p0, p0 + 64 NCB).
 struct Unit {
@@ -387,23 +371,12 @@ __global__ void __launch_bounds__(128 * NWG, kBlocksPerSm) chunk_tc(
 
     // lc = inclusive cumsum of loga over the chunk, in registers: a warp's
     // scan of its 32 steps, then the totals of the warps before it
-    float x = la;
+    const float la_cur = la;
     la = more ? load_loga(nxt) : 0.f;  // in flight during this unit
     uint4 b_cur[2] = {bv[0], bv[1]};
     if (more) load_b(nxt, bv);
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float up = __shfl_up_sync(0xffffffffu, x, o);
-      if ((tid & 31) >= o) x += up;
-    }
-    if ((tid & 31) == 31 && tid < kR) warp_sums[tid >> 5] = x;
-    __syncthreads();
-    float l_last = 0.f;  // the chunk's total: zeros past its steps
-#pragma unroll
-    for (int wp = 0; wp < kR / 32; ++wp) {
-      if (wp < (tid >> 5)) x += warp_sums[wp];
-      l_last += warp_sums[wp];
-    }
+    float l_last;  // the chunk's total: zeros past its steps
+    const float x = tc_tile::chunk_cumsum<kR>(la_cur, warp_sums, l_last);
     if (tid < kR) {
       const float wt = tid < Lc ? expf(l_last - x) : 0.f;
       w[tid] = wt;

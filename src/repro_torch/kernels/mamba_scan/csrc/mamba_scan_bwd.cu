@@ -45,19 +45,55 @@
 //   * The boot path saves no states: no h0 and one chunk, whose entering
 //     state is zero (st and dec null).
 //
+// bfloat16 (the training dtype): the first three launches on the tensor
+// cores (wgmma, sm90.cuh), bf16 operands and float32 accumulators:
+//   * grad_in_tc: G_c = (C o e)^T dy_c (M = n, N = p, K = s), as the
+//     forward's chunk states (csrc/mamba_scan.cu chunk_tc) take (B o w)^T
+//     x: (C o e)^T written K-major by each step's thread, dy the N-major B;
+//   * pass_tc: the pass split over the state (two blocks a (b, h) at
+//     jamba's N P = 2048, as the forward's pass_states), dH_c into bf16 for
+//     the chunk launch, da_c as the blocks' shares summed in order there;
+//     the entering states in bf16 are the forward's own (its scratch);
+//   * chunk_grads_tc: one block of two warpgroups a (chunk, b * H + h),
+//     warpgroup w owning steps 64 w .. 64 w + 63 twice: as rows s (C B^T,
+//     one wgmma a 64 x 64 tile as the forward; datt = dy x^T over t <= s,
+//     both K-major as loaded; R = datt o att's row sums in registers; dcb =
+//     datt o decay as register A fragments of dC's share dcb B (N = 16); Z
+//     = dy h_{c-1}^T (N = 16)) and as rows t (the transposes B C^T and x
+//     dy^T over s >= t, recomputed rather than moved through shared memory:
+//     R's column sums are then row sums too, in registers; dcb^T C for
+//     dB's share; U = x dH_c^T; dx = att^T dy + (B o w) dH_c with att^T
+//     and B o w as register A fragments and dy and dH_c the N-major B).  dx
+//     goes out through x's tile as 16-byte stores; dloga is the reverse
+//     cumsum of the per-step terms (rows minus columns of R, e C . Z, w B .
+//     U and da_c a_c) on one thread, in the scalar body's order;
+//   * sum_heads: as float32.
+// Every float32 operand goes in rounded once to bf16 (C o e, att, B o w and
+// dH_c, h_{c-1}, dcb): att's and the states' rounding is the forward's, and
+// the CPU mirror (ref.py mamba_scan_bwd_tiled, rounding="bf16") holds
+// every gradient within a quarter of the 2e-2 gate at jamba's width
+// (tests/test_torch_scan_bwd.py).  The decays go through the SFU's exp2
+// (ex2.approx) below the diagonal only.  float32: the scalar bodies below,
+// for the float32 parity paths only (their 2e-5 gate rules out bf16
+// operands and TF32).
+//
 // What bounds it on this card: at jamba's training shape (B = 2, S = 2048,
 // H = 64, P = 128, N = 16, L = 128) the function reads x and dy (bf16) and
 // the saved states and writes dx, ~0.21 GB, ~0.06 ms at 3.35 TB/s; its
-// products are ~22 GFLOP.  This first version is scalar float32 FMAs from
-// shared memory (the tensor-core redesign is later work): launch 3
-// dominates, a (chunk, head) unit's datt = dy x^T and att^T dy over P in
-// column tiles of 32, each thread holding an 8 x 8 block of datt in
-// registers.
+// products are ~22 GFLOP (~0.02 ms at the bf16 tensor-core rate).  The
+// tensor-core chunk launch reads x and dy once more than that (G's and the
+// chunk's launches) and holds 2 blocks an SM (~101 KB of shared memory
+// each, 128 registers a thread); each block's chain of loads, wgmma groups
+// and barriers, not the bytes, is what it waits on.  The scalar chunk_grads
+// holds a (chunk, head) unit's datt = dy x^T and att^T dy over P in column
+// tiles of 32, each thread an 8 x 8 block of datt in registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kv_tile.cuh"
+#include "sm90.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -417,6 +453,514 @@ __global__ void __launch_bounds__(kThreads) sum_heads(const float* __restrict__ 
   store(dC + i, sc);
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core bodies
+// ---------------------------------------------------------------------------
+constexpr int kTileN = 16 * 128;  // a [16 n][64 columns] bf16 block: h_{c-1}, dH_c, B^T, C^T
+
+using tc_tile::acc_col;
+using tc_tile::acc_row;
+using tc_tile::aligned_smem;
+using tc_tile::chunk_cumsum;
+using tc_tile::frag_col;
+using tc_tile::frag_row;
+using tc_tile::kLog2e;
+using tc_tile::quad_sum;
+using tc_tile::tile_at;
+
+// Copies rows [0, KR) of a (steps, P) bf16 slice (step t at src + t *
+// stride) into two 64-column swizzled blocks of KR rows at dst, by NT
+// threads; rows past `rows` and columns past P zero-filled (read nothing).
+template <int KR, int NT>
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src, size_t stride, int rows,
+                                          int P) {
+  for (int i = threadIdx.x; i < KR * 16; i += NT) {
+    const int t = i >> 4, c16 = i & 15;
+    const bool ok = t < rows && c16 * 8 < P;
+    sm90::cp_async16(dst + (c16 >> 3) * (KR * 128) + sm90::swizzle128(t, c16 & 7),
+                     ok ? src + t * stride + c16 * 8 : src, ok);
+  }
+}
+
+// The same for a state (N <= 16 rows n of P) into two [16][64] blocks;
+// rows past N, or all of them where src is null, zero-filled (`any`: a
+// valid address the zero-filling copies name).
+template <int NT>
+__device__ __forceinline__ void load_state(uint32_t dst, const bf16* src, int N, int P,
+                                           const bf16* any) {
+  for (int i = threadIdx.x; i < kMaxN * 16; i += NT) {
+    const int n = i >> 4, c16 = i & 15;
+    const bool ok = src && n < N && c16 * 8 < P;
+    sm90::cp_async16(dst + (c16 >> 3) * kTileN + sm90::swizzle128(n, c16 & 7),
+                     ok ? src + (size_t)n * P + c16 * 8 : any, ok);
+  }
+}
+
+// Step t's row of a (B, S, N) bf16 matrix (N <= 16), zeros past the chunk.
+__device__ __forceinline__ void load_row16(const bf16* m, size_t row, int N, bool in, bf16 (&r)[16]) {
+  uint4 v[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+  if (in) {
+    const uint4* src = reinterpret_cast<const uint4*>(m + row * N);
+    v[0] = src[0];
+    if (N > 8) v[1] = src[1];
+  }
+  const bf16* b = reinterpret_cast<const bf16*>(v);
+#pragma unroll
+  for (int n = 0; n < 16; ++n) r[n] = b[n];
+}
+
+// 1. grad_in_tc: G_c = (C o e)^T dy_c per (chunk, b * H + h), one
+// warpgroup: M = n (N rows of 64; the rows past N are never written and
+// feed only outputs past N, which are not stored), N = 64 columns p a
+// block, K = s; (C o e)^T written K-major by the step's thread, dy the
+// N-major B through the transpose bit.
+template <int NWG>
+struct GinLayout {
+  static constexpr int kR = 64 * NWG;
+  static constexpr int kDy = 0;                    // dy [2 blocks][kR s][64 p]
+  static constexpr int kA = kDy + 2 * kR * 128;    // (C o e)^T [NWG blocks][64 n][64 s]
+  static constexpr int kBytes = 1024 + kA + NWG * 64 * 128;
+};
+
+template <int NWG>
+__global__ void __launch_bounds__(128) grad_in_tc(const bf16* __restrict__ dy,
+                                                  const float* __restrict__ loga,
+                                                  const bf16* __restrict__ Cm,
+                                                  float* __restrict__ G, int S, int H, int P,
+                                                  int N, int L) {
+  using Lay = GinLayout<NWG>;
+  constexpr int kR = Lay::kR;
+  __shared__ float warp_sums[4];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  const uint32_t sm_a = sm90::smem_addr(sm);
+  const int c = blockIdx.x, bh = blockIdx.y, h = bh % H, tid = threadIdx.x;
+  const int nc = gridDim.x, t0 = c * L, Lc = min(L, S - t0);
+  const size_t row0 = (size_t)(bh / H) * S + t0;
+  load_rows<kR, 128>(sm_a + Lay::kDy, dy + (row0 * H + h) * P, (size_t)H * P, Lc, P);
+  sm90::cp_async_commit();
+  float l_last;
+  const float x = chunk_cumsum<kR>(tid < Lc ? loga[(row0 + tid) * H + h] : 0.f, warp_sums, l_last);
+  if (tid < kR) {  // column t = tid of (C o e)^T
+    bf16 cr[16];
+    load_row16(Cm, row0 + tid, N, tid < Lc, cr);
+    const float e = expf(x);
+    uint8_t* a = sm + Lay::kA + (tid >> 6) * (64 * 128);
+#pragma unroll
+    for (int n = 0; n < 16; ++n) *tile_at(a, n, tid & 63) = __float2bfloat16(__bfloat162float(cr[n]) * e);
+  }
+  sm90::cp_async_wait<0>();
+  sm90::fence_proxy_async();
+  __syncthreads();
+  float* Gb = G + ((size_t)bh * nc + c) * N * P;
+#pragma unroll
+  for (int cb = 0; cb < 2; ++cb) {
+    if (cb * 64 >= P) break;
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NWG; ++kk)
+      if (16 * kk < Lc)
+        sm90::wgmma_ss<64, 0, 1>(
+            acc, sm90::desc128(sm_a + Lay::kA + (kk >> 2) * (64 * 128) + (kk & 3) * 32, 16, 1024),
+            sm90::desc128(sm_a + Lay::kDy + cb * (kR * 128) + kk * 2048, 1024, 1024));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait0();
+    sm90::fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int n = acc_row(i), p = cb * 64 + acc_col(i);
+      if (n < N && p < P)
+        *reinterpret_cast<float2*>(Gb + (size_t)n * P + p) = make_float2(acc[i], acc[i + 1]);
+    }
+  }
+}
+
+// 2. pass_tc: the pass of pass_grads split over the state, one block per
+// (b * H + h, 1024 floats of its N P state), a float4 a thread: the
+// entering states rebuilt in float32 (h = fmaf(a, h, S), the forward's bits)
+// into E, then dH_c (bf16, chunk_grads_tc's operand) and the block's share
+// of da_c = <dH_c, h_{c-1}> (a block sum in a fixed order).
+constexpr int kPassThreads = 256;
+
+__global__ void __launch_bounds__(kPassThreads) pass_tc(
+    const float* __restrict__ st, const float* __restrict__ dec, const float* __restrict__ h0,
+    const float* __restrict__ dh, const float* __restrict__ G, float* __restrict__ E,
+    bf16* __restrict__ Db, float* __restrict__ dap, float* __restrict__ dh0, int NP,
+    int n_chunks) {
+  __shared__ float part[kPassThreads / 32];
+  const int bh = blockIdx.x, ny = gridDim.y, yb = blockIdx.y, tid = threadIdx.x;
+  const int i = 4 * (yb * kPassThreads + tid);
+  const bool ok = i < NP;
+  const size_t sbase = (size_t)bh * NP + i, cbase = (size_t)bh * n_chunks * NP + i;
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 x = ok && h0 ? *reinterpret_cast<const float4*>(h0 + sbase) : z;
+  for (int c = 0; c < n_chunks; ++c) {
+    const float a = dec ? dec[(size_t)bh * n_chunks + c] : 0.f;
+    if (!ok) continue;
+    const size_t k = cbase + (size_t)c * NP;
+    *reinterpret_cast<float4*>(E + k) = x;
+    if (c + 1 < n_chunks) {
+      const float4 s = *reinterpret_cast<const float4*>(st + k);
+      x = make_float4(fmaf(a, x.x, s.x), fmaf(a, x.y, s.y), fmaf(a, x.z, s.z), fmaf(a, x.w, s.w));
+    }
+  }
+  x = ok && dh ? *reinterpret_cast<const float4*>(dh + sbase) : z;
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const float a = dec ? dec[(size_t)bh * n_chunks + c] : 0.f;
+    float dot = 0.f;
+    if (ok) {
+      const size_t k = cbase + (size_t)c * NP;
+      const float4 g = *reinterpret_cast<const float4*>(G + k);
+      const float4 e = *reinterpret_cast<const float4*>(E + k);
+      *reinterpret_cast<uint2*>(Db + k) =
+          make_uint2(sm90::pack_bf16(x.x, x.y), sm90::pack_bf16(x.z, x.w));
+      dot = fmaf(x.x, e.x, fmaf(x.y, e.y, fmaf(x.z, e.z, x.w * e.w)));
+      x = make_float4(fmaf(a, x.x, g.x), fmaf(a, x.y, g.y), fmaf(a, x.z, g.z), fmaf(a, x.w, g.w));
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    if ((tid & 31) == 0) part[tid >> 5] = dot;
+    __syncthreads();
+    if (tid == 0) {
+      float s = 0.f;
+      for (int w = 0; w < kPassThreads / 32; ++w) s += part[w];
+      dap[((size_t)bh * n_chunks + c) * ny + yb] = s;
+    }
+    __syncthreads();
+  }
+  if (dh0 && ok) *reinterpret_cast<float4*>(dh0 + sbase) = x;
+}
+
+// Shared memory of chunk_grads_tc: byte offsets from a 1024-aligned base
+// (ops.py bwd_plan mirrors kBytes).
+template <int NWG>
+struct CgLayout {
+  static constexpr int kR = 64 * NWG;                // rows (steps) of the tiles
+  static constexpr int kX = 0;                       // x [2 blocks][kR][64 p]; then dx
+  static constexpr int kDy = kX + 2 * kR * 128;      // dy [2 blocks][kR][64 p]
+  static constexpr int kBC = kDy + 2 * kR * 128;     // C | B [kR][C 0..15, B 16..31]
+  static constexpr int kH = kBC + kR * 128;          // h_{c-1} [2 blocks][16 n][64 p]
+  static constexpr int kDH = kH + 2 * kTileN;        // dH_c [2 blocks][16 n][64 p]
+  static constexpr int kBt = kDH + 2 * kTileN;       // B^T [NWG blocks][16 n][64 t]
+  static constexpr int kCt = kBt + NWG * kTileN;     // C^T [NWG blocks][16 n][64 s]
+  static constexpr int kVec = kCt + NWG * kTileN;    // f32 [7][kR]: lc log2(e), e, w, and
+                                                     // the dlcum terms rr, cr, cz, rw
+  static constexpr int kBytes = 1024 + kVec + 7 * kR * 4;
+};
+
+// 3. chunk_grads_tc: chunk_grads per (chunk, b * H + h) on the tensor cores,
+// warpgroup w owning steps 64 w .. 64 w + 63 twice over: as rows s (C B^T
+// and datt = dy x^T for t <= s, K = 16 and p; R = datt o att's row sums; dcb
+// = datt o decay as register A fragments of dC's share dcb B, K = t; Z = dy
+// h_{c-1}^T, N = 16) and as rows t (their transposes B C^T and x dy^T for s
+// >= t; R's column sums; dcb^T C for dB's share; U = x dH_c^T, N = 16; then
+// dx = att^T dy + (B o w) dH_c, att^T and B o w as register A fragments, dy
+// and dH_c the N-major B).  dx goes out through x's tile as 16-byte
+// stores; dloga is the reverse cumsum of dlcum on one thread.
+template <int NWG>
+__global__ void __launch_bounds__(128 * NWG, 2) chunk_grads_tc(
+    const bf16* __restrict__ xbar, const float* __restrict__ loga, const bf16* __restrict__ Bm,
+    const bf16* __restrict__ Cm, const bf16* __restrict__ dy, const bf16* __restrict__ hin,
+    const bf16* __restrict__ Db, const float* __restrict__ dap, bf16* __restrict__ dx, float* __restrict__ dloga, float* __restrict__ dBh,
+    float* __restrict__ dCh, int S, int H, int P, int N, int L, int ny) {
+  using Lay = CgLayout<NWG>;
+  constexpr int kR = Lay::kR, kT = 128 * NWG;
+  __shared__ float warp_sums[kR / 32];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  const uint32_t sm_a = sm90::smem_addr(sm);
+  float* l2 = reinterpret_cast<float*>(sm + Lay::kVec);
+  float* ev = l2 + kR;
+  float* wv = ev + kR;
+  float* rr_s = wv + kR;
+  float* cr_s = rr_s + kR;
+  float* cz_s = cr_s + kR;
+  float* rw_s = cz_s + kR;
+  const int c = blockIdx.x, bh = blockIdx.y, h = bh % H, tid = threadIdx.x, wg = tid >> 7;
+  const int nc = gridDim.x, t0 = c * L, Lc = min(L, S - t0);
+  const size_t row0 = (size_t)(bh / H) * S + t0, HP = (size_t)H * P;
+  const size_t sbase = ((size_t)bh * nc + c) * N * P;
+  const uint32_t xa = sm_a + Lay::kX, dya = sm_a + Lay::kDy, bca = sm_a + Lay::kBC;
+  const uint32_t ha = sm_a + Lay::kH, dha = sm_a + Lay::kDH;
+  const uint32_t bta = sm_a + Lay::kBt, cta = sm_a + Lay::kCt;
+  uint8_t* bc = sm + Lay::kBC;
+
+  load_rows<kR, kT>(xa, xbar + (row0 * H + h) * P, HP, Lc, P);
+  load_rows<kR, kT>(dya, dy + (row0 * H + h) * P, HP, Lc, P);
+  for (int i = tid; i < kR * 4; i += kT) {  // C | B, K = N padded to 16 with zeros
+    const int r = i >> 2, ch = i & 3, half = ch & 1;
+    const bf16* src = ch < 2 ? Cm : Bm;
+    const bool ok = r < Lc && half * 8 < N;
+    sm90::cp_async16(bca + sm90::swizzle128(r, ch), ok ? src + (row0 + r) * N + half * 8 : src, ok);
+  }
+  load_state<kT>(ha, hin ? hin + sbase : nullptr, N, P, Db);
+  load_state<kT>(dha, Db + sbase, N, P, Db);
+  sm90::cp_async_commit();
+  float l_last;
+  const float x = chunk_cumsum<kR>(tid < Lc ? loga[(row0 + tid) * H + h] : 0.f, warp_sums, l_last);
+  if (tid < kR) {
+    const float wt = tid < Lc ? expf(l_last - x) : 0.f;
+    l2[tid] = x * kLog2e;  // the decays by exp2
+    ev[tid] = expf(x);
+    wv[tid] = wt;
+    bf16 br[16], cr[16];
+    load_row16(Bm, row0 + tid, N, tid < Lc, br);
+    load_row16(Cm, row0 + tid, N, tid < Lc, cr);
+    uint8_t* bt = sm + Lay::kBt + (tid >> 6) * kTileN;
+    uint8_t* ct = sm + Lay::kCt + (tid >> 6) * kTileN;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      *tile_at(bt, n, tid & 63) = br[n];
+      *tile_at(ct, n, tid & 63) = cr[n];
+    }
+  }
+  sm90::cp_async_wait<0>();
+  sm90::fence_proxy_async();
+  __syncthreads();
+
+  const int r0 = 64 * wg;
+  auto decay = [&](int s, int t) { return sm90::fast_exp2(l2[s] - l2[t]); };
+  // ---- rows s: Z, R's row sums, dC's share
+  {
+    float Z[8], dcs[8], rr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) Z[i] = dcs[i] = 0.f;
+    sm90::fence_regs(Z);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int cb = 0; cb < 2; ++cb)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_ss<16, 0, 0>(Z, sm90::desc128(dya + cb * (kR * 128) + r0 * 128 + kk * 32, 16, 1024),
+                                 sm90::desc128(ha + cb * kTileN + kk * 32, 16, 1024));
+    sm90::wgmma_commit();
+#pragma unroll
+    for (int nb = 0; nb < NWG; ++nb) {
+      if (nb > wg) continue;  // warpgroup-uniform: columns t <= s only
+      float sc[32], da[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = da[i] = 0.f;
+      sm90::fence_regs(sc);
+      sm90::fence_regs(da);
+      sm90::wgmma_fence();
+      sm90::wgmma_ss<64, 0, 0>(sc, sm90::desc128(bca + r0 * 128, 16, 1024),
+                               sm90::desc128(bca + nb * 64 * 128 + 32, 16, 1024));
+#pragma unroll
+      for (int cb = 0; cb < 2; ++cb)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::wgmma_ss<64, 0, 0>(
+              da, sm90::desc128(dya + cb * (kR * 128) + r0 * 128 + kk * 32, 16, 1024),
+              sm90::desc128(xa + cb * (kR * 128) + nb * 64 * 128 + kk * 32, 16, 1024));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait0();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(da);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int s = r0 + acc_row(i), t = nb * 64 + acc_col(i);
+        const float d = (t <= s && s < Lc) ? decay(s, t) : 0.f;
+        rr[(i >> 1) & 1] = fmaf(da[i] * sc[i], d, rr[(i >> 1) & 1]);
+        da[i] *= d;  // dcb = datt o decay
+      }
+      sm90::fence_regs(dcs);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t fr[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) fr[q] = sm90::pack_bf16(da[8 * j + 2 * q], da[8 * j + 2 * q + 1]);
+        sm90::wgmma_rs<16, 0>(dcs, fr, sm90::desc128(bta + nb * kTileN + j * 32, 16, 1024));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait0();
+      sm90::fence_regs(dcs);
+    }
+    sm90::wgmma_wait0();
+    sm90::fence_regs(Z);
+    float cz[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 8; i += 2) {
+      const int s = r0 + acc_row(i), n = acc_col(i);
+      cz[(i >> 1) & 1] += __bfloat162float(*tile_at(bc, s, n)) * Z[i] +
+                          __bfloat162float(*tile_at(bc, s, n + 1)) * Z[i + 1];
+      if (s < Lc && n < N)
+        *reinterpret_cast<float2*>(dCh + ((size_t)bh * S + t0 + s) * N + n) =
+            make_float2(fmaf(ev[s], Z[i], dcs[i]), fmaf(ev[s], Z[i + 1], dcs[i + 1]));
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float a = quad_sum(rr[e]), b = quad_sum(cz[e]);
+      const int s = r0 + acc_row(2 * e);
+      if ((tid & 3) == 0) {
+        rr_s[s] = a;
+        cz_s[s] = b;
+      }
+    }
+  }
+  // ---- rows t: U, R's column sums, dB's share
+  {
+    float U[8], dbs[8], cr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) U[i] = dbs[i] = 0.f;
+    sm90::fence_regs(U);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int cb = 0; cb < 2; ++cb)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_ss<16, 0, 0>(U, sm90::desc128(xa + cb * (kR * 128) + r0 * 128 + kk * 32, 16, 1024),
+                                 sm90::desc128(dha + cb * kTileN + kk * 32, 16, 1024));
+    sm90::wgmma_commit();
+#pragma unroll
+    for (int nb = 0; nb < NWG; ++nb) {
+      if (nb < wg) continue;  // warpgroup-uniform: columns s >= t only
+      float sc[32], da[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = da[i] = 0.f;
+      sm90::fence_regs(sc);
+      sm90::fence_regs(da);
+      sm90::wgmma_fence();
+      sm90::wgmma_ss<64, 0, 0>(sc, sm90::desc128(bca + r0 * 128 + 32, 16, 1024),
+                               sm90::desc128(bca + nb * 64 * 128, 16, 1024));
+#pragma unroll
+      for (int cb = 0; cb < 2; ++cb)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::wgmma_ss<64, 0, 0>(
+              da, sm90::desc128(xa + cb * (kR * 128) + r0 * 128 + kk * 32, 16, 1024),
+              sm90::desc128(dya + cb * (kR * 128) + nb * 64 * 128 + kk * 32, 16, 1024));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait0();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(da);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int t = r0 + acc_row(i), s = nb * 64 + acc_col(i);
+        const float d = (t <= s && s < Lc) ? decay(s, t) : 0.f;
+        cr[(i >> 1) & 1] = fmaf(da[i] * sc[i], d, cr[(i >> 1) & 1]);
+        da[i] *= d;  // dcb^T
+      }
+      sm90::fence_regs(dbs);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t fr[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) fr[q] = sm90::pack_bf16(da[8 * j + 2 * q], da[8 * j + 2 * q + 1]);
+        sm90::wgmma_rs<16, 0>(dbs, fr, sm90::desc128(cta + nb * kTileN + j * 32, 16, 1024));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait0();
+      sm90::fence_regs(dbs);
+    }
+    sm90::wgmma_wait0();
+    sm90::fence_regs(U);
+    float bu[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 8; i += 2) {
+      const int t = r0 + acc_row(i), n = acc_col(i);
+      bu[(i >> 1) & 1] += __bfloat162float(*tile_at(bc, t, 16 + n)) * U[i] +
+                          __bfloat162float(*tile_at(bc, t, 17 + n)) * U[i + 1];
+      if (t < Lc && n < N)
+        *reinterpret_cast<float2*>(dBh + ((size_t)bh * S + t0 + t) * N + n) =
+            make_float2(fmaf(wv[t], U[i], dbs[i]), fmaf(wv[t], U[i + 1], dbs[i + 1]));
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float a = quad_sum(cr[e]), b = quad_sum(bu[e]);
+      const int t = r0 + acc_row(2 * e);
+      if ((tid & 3) == 0) {
+        cr_s[t] = a;
+        rw_s[t] = wv[t] * b;
+      }
+    }
+  }
+  __syncthreads();  // every warpgroup is done with x's tile: it takes dx
+  // ---- dx = att^T dy + (B o w) dH_c, rows t, one 64-column block at a time
+#pragma unroll
+  for (int cb = 0; cb < 2; ++cb) {
+    if (cb * 64 >= P) break;
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    uint32_t bw[4];  // B o w, rows t, K = n
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int t = r0 + frag_row(q), n = frag_col(0, q);
+      bw[q] = sm90::pack_bf16(__bfloat162float(*tile_at(bc, t, 16 + n)) * wv[t],
+                              __bfloat162float(*tile_at(bc, t, 17 + n)) * wv[t]);
+    }
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+    sm90::wgmma_rs<64, 1>(acc, bw, sm90::desc128(dha + cb * kTileN, 1024, 1024));
+    sm90::wgmma_commit();
+#pragma unroll
+    for (int nb = 0; nb < NWG; ++nb) {
+      if (nb < wg) continue;
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      sm90::fence_regs(sc);
+      sm90::wgmma_fence();
+      sm90::wgmma_ss<64, 0, 0>(sc, sm90::desc128(bca + r0 * 128 + 32, 16, 1024),
+                               sm90::desc128(bca + nb * 64 * 128, 16, 1024));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait0();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(acc);
+      uint32_t pa[4][4];  // att^T, rows t, K = s: rounded to bf16 as the forward's att
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int t = r0 + acc_row(i), s = nb * 64 + acc_col(i);
+        sc[i] = (t <= s && s < Lc) ? sc[i] * decay(s, t) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pa[j][q] = sm90::pack_bf16(sc[8 * j + 2 * q], sc[8 * j + 2 * q + 1]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (16 * (nb * 4 + j) < Lc)
+          sm90::wgmma_rs<64, 1>(acc, pa[j],
+                                sm90::desc128(dya + cb * (kR * 128) + (nb * 4 + j) * 2048, 1024, 1024));
+      sm90::wgmma_commit();
+    }
+    sm90::wgmma_wait0();
+    sm90::fence_regs(acc);
+    uint8_t* xs = sm + Lay::kX + cb * (kR * 128);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2)
+      *reinterpret_cast<uint32_t*>(tile_at(xs, r0 + acc_row(i), acc_col(i))) =
+          sm90::pack_bf16(acc[i], acc[i + 1]);
+  }
+  __syncthreads();
+  for (int i = tid; i < kR * 16; i += kT) {  // dx: 16-byte pieces of whole rows
+    const int t = i >> 4, c16 = i & 15;
+    if (t < Lc && c16 * 8 < P)
+      *reinterpret_cast<uint4*>(dx + (row0 + t) * HP + (size_t)h * P + c16 * 8) =
+          *reinterpret_cast<const uint4*>(sm + Lay::kX + (c16 >> 3) * (kR * 128) +
+                                          sm90::swizzle128(t, c16 & 7));
+  }
+  if (tid == 0) {  // dloga: the reverse cumsum of dlcum, one serial pass
+    float da_c = 0.f;
+    for (int y = 0; y < ny; ++y) da_c += dap[((size_t)bh * nc + c) * ny + y];
+    float last = da_c * expf(l_last);
+    for (int t = 0; t < Lc; ++t) last += rw_s[t];
+    float acc = 0.f;
+    for (int s = Lc - 1; s >= 0; --s) {
+      const float dl = rr_s[s] - cr_s[s] + ev[s] * cz_s[s] - rw_s[s];
+      acc += dl + (s == Lc - 1 ? last : 0.f);
+      dloga[(row0 + s) * H + h] = acc;
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t prepare(Kernel* kernel, size_t smem, int (&set)[kv_tile::kMaxDevices]) {
   const cudaError_t err = kv_tile::raise_smem_limit(kernel, smem, set);
@@ -424,11 +968,59 @@ cudaError_t prepare(Kernel* kernel, size_t smem, int (&set)[kv_tile::kMaxDevices
   return err;
 }
 
-template <typename T>
-int launch(const T* xbar, const float* loga, const T* Bm, const T* Cm, const float* h0,
-           const float* st, const float* dec, const T* dy, const float* dh, T* dx, float* dloga,
-           T* dB, T* dC, float* dh0, float* scratch, int B, int S, int H, int P, int N, int L,
-           cudaStream_t stream) {
+// One launch of a call: its grid, threads and dynamic shared memory.
+struct Launch {
+  dim3 grid;
+  int threads;
+  size_t smem;
+};
+
+// Blocks of pass_tc a (b, h): 1024 floats of the state each.
+__host__ __device__ inline int pass_blocks(int NP) { return (NP + 4 * kPassThreads - 1) / (4 * kPassThreads); }
+
+// The four launches of a call, in order (ops.py bwd_plan mirrors them), and
+// the scratch's floats: float32 takes the scalar bodies (grad_in,
+// pass_grads, chunk_grads, sum_heads); bf16 the tensor-core ones
+// (grad_in_tc, pass_tc, chunk_grads_tc, then sum_heads), two warpgroups a
+// chunk where L > 64.  The scratch: float32 G_c (later dH_c) and the
+// entering states, da (bf16: pass_tc's shares, padded to 4 floats), each
+// head's dB and dC; bf16 adds dH_c in bf16 after the entering states.
+void plan(int B, int S, int H, int P, int N, int L, int dtype, Launch (&ls)[4], size_t& scratch) {
+  const int nc = (S + L - 1) / L, BH = B * H, NP = N * P;
+  const size_t n_st = (size_t)BH * nc * NP, n_bc = (size_t)B * S * N;
+  const dim3 per_chunk(nc, BH);
+  ls[3] = {dim3((unsigned)((n_bc + kThreads - 1) / kThreads)), kThreads, 0};
+  if (dtype == 1) {
+    const int nwg = L > 64 ? 2 : 1;
+    const size_t dap = ((size_t)BH * nc * pass_blocks(NP) + 3) & ~(size_t)3;
+    scratch = 2 * n_st + n_st / 2 + dap + 2 * (size_t)BH * S * N;
+    ls[0] = {per_chunk, 128, (size_t)(nwg == 2 ? GinLayout<2>::kBytes : GinLayout<1>::kBytes)};
+    ls[1] = {dim3(BH, pass_blocks(NP)), kPassThreads, 0};
+    ls[2] = {per_chunk, 128 * nwg,
+             (size_t)(nwg == 2 ? CgLayout<2>::kBytes : CgLayout<1>::kBytes)};
+  } else {
+    scratch = 2 * n_st + (size_t)BH * nc + 2 * (size_t)BH * S * N;
+    ls[0] = {per_chunk, kThreads, 0};
+    ls[1] = {dim3(BH), kThreads, 0};
+    ls[2] = {per_chunk, kThreads, sizeof(float) * chunk_smem_floats(L, N)};
+  }
+}
+
+#define LAUNCH(i, kernel, ...)                                                                 \
+  do {                                                                                         \
+    static int set[kv_tile::kMaxDevices] = {};                                                 \
+    if (ls[i].smem && (err = prepare(kernel, ls[i].smem, set)) != cudaSuccess) return (int)err; \
+    kernel<<<ls[i].grid, ls[i].threads, ls[i].smem, stream>>>(__VA_ARGS__);                    \
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;                            \
+  } while (0)
+
+int launch_f32(const float* xbar, const float* loga, const float* Bm, const float* Cm,
+               const float* h0, const float* st, const float* dec, const float* dy,
+               const float* dh, float* dx, float* dloga, float* dB, float* dC, float* dh0,
+               float* scratch, int B, int S, int H, int P, int N, int L, cudaStream_t stream) {
+  Launch ls[4];
+  size_t n;
+  plan(B, S, H, P, N, L, 0, ls, n);
   const int n_chunks = (S + L - 1) / L, NP = N * P;
   const size_t n_st = (size_t)B * H * n_chunks * NP;
   float* D = scratch;
@@ -436,42 +1028,63 @@ int launch(const T* xbar, const float* loga, const T* Bm, const T* Cm, const flo
   float* da = E + n_st;
   float* dBh = da + (size_t)B * H * n_chunks;
   float* dCh = dBh + (size_t)B * H * S * N;
-  grad_in<T><<<dim3(n_chunks, B * H), kThreads, 0, stream>>>(dy, loga, Cm, D, S, H, P, N, L);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  pass_grads<<<B * H, kThreads, 0, stream>>>(st, dec, h0, dh, D, E, da, dh0, NP, n_chunks);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * chunk_smem_floats(L, N);
-  static int set[kv_tile::kMaxDevices] = {};
-  if ((err = prepare(chunk_grads<T>, smem, set)) != cudaSuccess) return (int)err;
-  chunk_grads<T><<<dim3(n_chunks, B * H), kThreads, smem, stream>>>(
-      xbar, loga, Bm, Cm, dy, D, E, da, dx, dloga, dBh, dCh, S, H, P, N, L);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t n_bc = (size_t)B * S * N;
-  sum_heads<T><<<(unsigned)((n_bc + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      dBh, dCh, dB, dC, B, S, H, N);
-  return (int)cudaGetLastError();
+  cudaError_t err;
+  LAUNCH(0, grad_in<float>, dy, loga, Cm, D, S, H, P, N, L);
+  LAUNCH(1, pass_grads, st, dec, h0, dh, D, E, da, dh0, NP, n_chunks);
+  LAUNCH(2, chunk_grads<float>, xbar, loga, Bm, Cm, dy, D, E, da, dx, dloga, dBh, dCh, S, H, P,
+         N, L);
+  LAUNCH(3, sum_heads<float>, dBh, dCh, dB, dC, B, S, H, N);
+  return 0;
 }
+
+template <int NWG>
+int launch_tc(const bf16* xbar, const float* loga, const bf16* Bm, const bf16* Cm,
+              const float* h0, const float* st, const bf16* hin, const float* dec, const bf16* dy,
+              const float* dh, bf16* dx, float* dloga, bf16* dB, bf16* dC, float* dh0,
+              float* scratch, int B, int S, int H, int P, int N, int L, cudaStream_t stream) {
+  Launch ls[4];
+  size_t n;
+  plan(B, S, H, P, N, L, 1, ls, n);
+  const int n_chunks = (S + L - 1) / L, NP = N * P, ny = pass_blocks(NP);
+  const size_t n_st = (size_t)B * H * n_chunks * NP;
+  float* G = scratch;
+  float* E = G + n_st;
+  bf16* Db = reinterpret_cast<bf16*>(E + n_st);
+  float* dap = E + n_st + n_st / 2;
+  float* dBh = dap + (((size_t)B * H * n_chunks * ny + 3) & ~(size_t)3);
+  float* dCh = dBh + (size_t)B * H * S * N;
+  cudaError_t err;
+  LAUNCH(0, grad_in_tc<NWG>, dy, loga, Cm, G, S, H, P, N, L);
+  LAUNCH(1, pass_tc, st, dec, h0, dh, G, E, Db, dap, dh0, NP, n_chunks);
+  LAUNCH(2, chunk_grads_tc<NWG>, xbar, loga, Bm, Cm, dy, hin, Db, dap, dx, dloga, dBh, dCh, S, H,
+         P, N, L, ny);
+  LAUNCH(3, sum_heads<bf16>, dBh, dCh, dB, dC, B, S, H, N);
+  return 0;
+}
+
+#undef LAUNCH
 
 }  // namespace
 
 // xbar, dy (B, S, H, P); loga (B, S, H) float32; Bm, Cm (B, S, N); h0 (B, H,
 // N, P) float32 or null; st (B H, n_chunks, N, P) and dec (B H, n_chunks),
-// float32, the forward's chunk states and decays (null on the boot path: no
-// h0 and one chunk); dh (B, H, N, P) float32 or null (zeros); outputs dx
-// (B, S, H, P), dloga (B, S, H) float32, dB, dC (B, S, N), dh0 (B, H, N, P)
-// float32 or null (not wanted); scratch: float32, dH_c and the entering
-// states (B H n_chunks N P each), da (B H n_chunks), each head's dB and dC
-// (B H S N each), as launch() carves it (ops.py bwd_plan mirrors it).
-// dtype 0 = float32, 1 = bfloat16 (xbar, Bm, Cm, dy and dx, dB, dC share
-// it).  The wrapper guarantees contiguous tensors, L <= 128, N <= 16, N P
-// <= 2048, and the shared memory within the card's 227 KB.  Returns
-// cudaGetLastError() after the launches (0 = success).
+// float32, the forward's chunk states and decays, and hin, its bf16
+// entering states (the bf16 forward's scratch; null for float32), all null
+// on the boot path (no h0 and one chunk); dh (B, H, N, P) float32 or null
+// (zeros); outputs dx (B, S, H, P), dloga (B, S, H) float32, dB, dC (B, S,
+// N), dh0 (B, H, N, P) float32 or null (not wanted); scratch: float32, as
+// plan() sizes it and the launchers carve it (mamba_scan_bwd_plan's floats).
+// dtype 0 = float32 (the scalar bodies), 1 = bfloat16 (the tensor-core
+// ones; xbar, Bm, Cm, dy and dx, dB, dC share it).  The wrapper guarantees
+// contiguous 16-byte-aligned tensors, L <= 128, N <= 16 (bf16: 8 or 16), N
+// P <= 2048 (bf16: P <= 128 and a multiple of 8), and the shared memory
+// within the card's 227 KB.  Returns cudaGetLastError() after the launches
+// (0 = success).
 extern "C" int mamba_scan_bwd(const void* xbar, const void* loga, const void* Bm, const void* Cm,
-                              const void* h0, const void* st, const void* dec, const void* dy,
-                              const void* dh, void* dx, void* dloga, void* dB, void* dC,
-                              void* dh0, void* scratch, int B, int S, int H, int P, int N,
-                              int L, int dtype, void* stream) {
+                              const void* h0, const void* st, const void* hin, const void* dec,
+                              const void* dy, const void* dh, void* dx, void* dloga, void* dB,
+                              void* dC, void* dh0, void* scratch, int B, int S, int H, int P,
+                              int N, int L, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (L > kMaxL || N > kMaxN || N * P > kMaxNP) return (int)cudaErrorInvalidValue;
   const float* la = static_cast<const float*>(loga);
@@ -482,15 +1095,45 @@ extern "C" int mamba_scan_bwd(const void* xbar, const void* loga, const void* Bm
   float* dla = static_cast<float*>(dloga);
   float* d0 = static_cast<float*>(dh0);
   float* sc = static_cast<float*>(scratch);
-  if (dtype == 1)
-    return launch<bf16>(static_cast<const bf16*>(xbar), la, static_cast<const bf16*>(Bm),
-                        static_cast<const bf16*>(Cm), hh, sst, dd,
-                        static_cast<const bf16*>(dy), g, static_cast<bf16*>(dx), dla,
-                        static_cast<bf16*>(dB), static_cast<bf16*>(dC), d0, sc, B, S, H, P, N,
-                        L, s);
-  return launch<float>(static_cast<const float*>(xbar), la, static_cast<const float*>(Bm),
-                       static_cast<const float*>(Cm), hh, sst, dd,
-                       static_cast<const float*>(dy), g, static_cast<float*>(dx), dla,
-                       static_cast<float*>(dB), static_cast<float*>(dC), d0, sc, B, S, H, P,
-                       N, L, s);
+  if (dtype == 1) {
+    if (P > 128 || P % 8 || (N != 8 && N != 16)) return (int)cudaErrorInvalidValue;
+    const bf16* x = static_cast<const bf16*>(xbar);
+    const bf16* bm = static_cast<const bf16*>(Bm);
+    const bf16* cm = static_cast<const bf16*>(Cm);
+    const bf16* hi = static_cast<const bf16*>(hin);
+    const bf16* d = static_cast<const bf16*>(dy);
+    bf16* ox = static_cast<bf16*>(dx);
+    bf16* ob = static_cast<bf16*>(dB);
+    bf16* oc = static_cast<bf16*>(dC);
+    if (L > 64)
+      return launch_tc<2>(x, la, bm, cm, hh, sst, hi, dd, d, g, ox, dla, ob, oc, d0, sc, B, S, H,
+                          P, N, L, s);
+    return launch_tc<1>(x, la, bm, cm, hh, sst, hi, dd, d, g, ox, dla, ob, oc, d0, sc, B, S, H, P,
+                        N, L, s);
+  }
+  return launch_f32(static_cast<const float*>(xbar), la, static_cast<const float*>(Bm),
+                    static_cast<const float*>(Cm), hh, sst, dd, static_cast<const float*>(dy), g,
+                    static_cast<float*>(dx), dla, static_cast<float*>(dB),
+                    static_cast<float*>(dC), d0, sc, B, S, H, P, N, L, s);
+}
+
+// The plan of a call, as mamba_scan_bwd launches it: out[0] the scratch's
+// floats, then for each of the four launches grid x, y, z, threads and
+// dynamic shared memory (21 values).  ops.py bwd_plan mirrors it.
+extern "C" int mamba_scan_bwd_plan(int B, int S, int H, int P, int N, int L, int dtype,
+                                   long long* out) {
+  if (L > kMaxL || N > kMaxN || N * P > kMaxNP) return (int)cudaErrorInvalidValue;
+  Launch ls[4];
+  size_t n;
+  plan(B, S, H, P, N, L, dtype, ls, n);
+  out[0] = (long long)n;
+  for (int i = 0; i < 4; ++i) {
+    long long* o = out + 1 + 5 * i;
+    o[0] = ls[i].grid.x;
+    o[1] = ls[i].grid.y;
+    o[2] = ls[i].grid.z;
+    o[3] = ls[i].threads;
+    o[4] = (long long)ls[i].smem;
+  }
+  return 0;
 }

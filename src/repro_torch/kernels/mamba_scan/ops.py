@@ -171,7 +171,7 @@ class MambaScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xbar, loga, Bm, Cm, h0, chunk):
-        check_bwd(xbar.shape[-1], Bm.shape[-1], min(chunk, xbar.shape[1]))
+        check_bwd(xbar.shape[-1], Bm.shape[-1], min(chunk, xbar.shape[1]), xbar.dtype)
         y, h_out, scratch = _forward(xbar, loga, Bm, Cm, h0, chunk, save=True)
         ctx.save_for_backward(xbar, loga, Bm, Cm, h0, scratch)
         ctx.chunk = chunk
@@ -189,39 +189,91 @@ class MambaScan(torch.autograd.Function):
         return dx, dloga, dB, dC, dh0, None
 
 
-# csrc/mamba_scan_bwd.cu: its limits (kMaxL, kMaxN, kMaxNP), threads and
-# column tile (kThreads, kPT)
+# csrc/mamba_scan_bwd.cu: its limits (kMaxL, kMaxN, kMaxNP), the scalar
+# bodies' threads and column tile (kThreads, kPT), the state pass's threads
+# (kPassThreads), a [16][64] bf16 state block (kTileN)
 BWD_MAX_L, BWD_MAX_N, BWD_MAX_NP = 128, 16, 2048
-BWD_THREADS, BWD_PT = 256, 32
-_BWD_ARGTYPES = [_P] * 15 + [_I] * 7 + [_P]
+BWD_THREADS, BWD_PT, BWD_PASS_THREADS = 256, 32, 256
+TILE_N = 16 * 128
+_BWD_ARGTYPES = [_P] * 16 + [_I] * 7 + [_P]
+_BWD_PLAN_ARGS = [_I] * 7 + [_P]
 
 
-def check_bwd(P: int, N: int, L: int):
-    """Raises for a shape the backward kernels do not take."""
+def check_bwd(P: int, N: int, L: int, dtype=torch.bfloat16):
+    """Raises for a shape the backward kernels do not take: the scalar
+    bodies' limits, and for bf16 the tensor-core kernels' (the forward's:
+    N 8 or 16, P <= 128 and a multiple of 8); the wrappers refuse other
+    dtypes themselves."""
     if L > BWD_MAX_L or N > BWD_MAX_N or N * P > BWD_MAX_NP:
         raise ValueError(f"the scan's backward takes L <= {BWD_MAX_L}, N <= {BWD_MAX_N} "
                          f"and N P <= {BWD_MAX_NP}, not P={P} N={N} L={L}")
+    if dtype == torch.bfloat16 and (N not in (8, 16) or P > TC_MAX_P or P % 8):
+        raise ValueError(f"the scan's bf16 backward takes N 8 or 16 and P <= {TC_MAX_P}, a "
+                         f"multiple of 8, not P={P} N={N}")
 
 
-def bwd_plan(B: int, S: int, H: int, P: int, N: int, L: int) -> dict:
-    """The backward's launches, as csrc/mamba_scan_bwd.cu makes them (each
-    grid, threads and shared memory: static bytes for grad_in, dynamic for
-    chunk_grads), and its float32 scratch: dH_c and the entering states, da,
-    and each head's dB and dC."""
+def pass_blocks(NP: int) -> int:
+    """Blocks of the bf16 state pass a (b, h): 1024 floats each."""
+    return -(-NP // (4 * BWD_PASS_THREADS))
+
+
+def bwd_plan(B: int, S: int, H: int, P: int, N: int, L: int, dtype=torch.bfloat16) -> dict:
+    """The backward's four launches, as csrc/mamba_scan_bwd.cu makes them
+    (its ``plan``): the body ("tc": bf16 on the tensor cores, grad_in_tc,
+    pass_tc, chunk_grads_tc with two warpgroups where L > 64; "scalar":
+    float32), each launch's grid, threads, dynamic shared memory
+    ("dynamic", what ``mamba_scan_bwd_plan`` reports; the swizzled tiles'
+    1024-byte alignment slack included) and all of it ("smem": static
+    bytes for the scalar grad_in and pass), and its float32 scratch: G_c
+    and the entering states, da, each head's dB and dC (bf16: da as the
+    pass's shares, padded to 4 floats, and dH_c in bf16 after the states)."""
     n_chunks = -(-S // L)
+    n_st, BH, n_bc = B * H * n_chunks * N * P, B * H, B * S * N
+    per_chunk = (n_chunks, BH, 1)
+    heads = {"name": "sum_heads", "grid": (-(-n_bc // BWD_THREADS), 1, 1),
+             "threads": BWD_THREADS, "smem": 0, "dynamic": 0}
+    if dtype == torch.bfloat16:
+        nwg = 2 if L > 64 else 1
+        rows = 64 * nwg
+        ny = pass_blocks(N * P)
+        dap = -(-BH * n_chunks * ny // 4) * 4
+        # GinLayout: dy's two column blocks, (C o e)^T's blocks of 64 rows;
+        # CgLayout: x and dy, C | B, h_{c-1} and dH_c, B^T and C^T, the vectors
+        gin = 1024 + 2 * rows * 128 + nwg * 64 * 128
+        cg = 1024 + 2 * 2 * rows * 128 + rows * 128 + 4 * TILE_N + 2 * nwg * TILE_N + 7 * rows * 4
+        return {"body": "tc", "scratch": 2 * n_st + n_st // 2 + dap + 2 * BH * S * N,
+                "kernels": [
+                    {"name": f"grad_in_tc<{nwg}>", "grid": per_chunk, "threads": 128,
+                     "smem": gin, "dynamic": gin},
+                    {"name": "pass_tc", "grid": (BH, ny, 1), "threads": BWD_PASS_THREADS,
+                     "smem": 4 * BWD_PASS_THREADS // 32, "dynamic": 0},
+                    {"name": f"chunk_grads_tc<{nwg}>", "grid": per_chunk,
+                     "threads": 128 * nwg, "smem": cg, "dynamic": cg},
+                    heads]}
     ld = BWD_PT + 1
     chunk_smem = 4 * (5 * L + 2 * L * (N + 1) + L * L + 2 * L * ld + 2 * N * ld)
-    n_bc = B * S * N
-    return {"scratch": 2 * B * H * n_chunks * N * P + B * H * n_chunks + 2 * B * H * S * N,
+    return {"body": "scalar", "scratch": 2 * n_st + BH * n_chunks + 2 * BH * S * N,
             "kernels": [
-                {"name": "grad_in", "grid": (n_chunks, B * H), "threads": BWD_THREADS,
+                {"name": "grad_in", "grid": per_chunk, "threads": BWD_THREADS, "dynamic": 0,
                  "smem": 4 * (2 * BWD_MAX_L + BWD_MAX_L * (BWD_MAX_N + 1) + BWD_MAX_L * ld)},
-                {"name": "pass_grads", "grid": (B * H,), "threads": BWD_THREADS,
-                 "smem": 4 * BWD_THREADS // 32},
-                {"name": "chunk_grads", "grid": (n_chunks, B * H), "threads": BWD_THREADS,
-                 "smem": chunk_smem},
-                {"name": "sum_heads", "grid": (-(-n_bc // BWD_THREADS),),
-                 "threads": BWD_THREADS, "smem": 0}]}
+                {"name": "pass_grads", "grid": (BH, 1, 1), "threads": BWD_THREADS,
+                 "smem": 4 * BWD_THREADS // 32, "dynamic": 0},
+                {"name": "chunk_grads", "grid": per_chunk, "threads": BWD_THREADS,
+                 "smem": chunk_smem, "dynamic": chunk_smem},
+                heads]}
+
+
+def launch_plan(B: int, S: int, H: int, P: int, N: int, L: int, dtype) -> tuple:
+    """(scratch floats, ((grid, threads, dynamic shared memory) of each
+    launch)) as the built csrc/mamba_scan_bwd.cu plans a call
+    (``mamba_scan_bwd_plan``), which ``bwd_plan`` mirrors.  Builds the
+    library if needed."""
+    out = (ctypes.c_longlong * 21)()
+    fn = _build.function("mamba_scan_bwd", "mamba_scan_bwd_plan", _BWD_PLAN_ARGS)
+    _build.check(fn(B, S, H, P, N, L, DTYPES[dtype], out), "mamba_scan_bwd_plan")
+    v = list(out)
+    return v[0], tuple((tuple(v[1 + 5 * i:4 + 5 * i]), v[4 + 5 * i], v[5 + 5 * i])
+                       for i in range(4))
 
 
 def mamba_scan_bwd(xbar, loga, Bm, Cm, h0, scratch, dy, dh, *, chunk, want_dh0=True):
@@ -233,7 +285,7 @@ def mamba_scan_bwd(xbar, loga, Bm, Cm, h0, scratch, dy, dh, *, chunk, want_dh0=T
     B, S, H, P = xbar.shape
     N = Bm.shape[-1]
     L = min(chunk, S)
-    check_bwd(P, N, L)
+    check_bwd(P, N, L, xbar.dtype)
     boot = plan(B, S, H, P, N, L, xbar.dtype, h0 is not None)["path"] == "boot"
     if (scratch is None) != boot:
         raise ValueError("the scan's backward needs the forward's scratch (none on the "
@@ -245,23 +297,30 @@ def mamba_scan_bwd(xbar, loga, Bm, Cm, h0, scratch, dy, dh, *, chunk, want_dh0=T
         dh = dh.contiguous()
         if dh.dtype != torch.float32 or dh.shape != (B, H, N, P):
             raise TypeError("dh must be (B, H, N, P) float32")
+    if any(t.data_ptr() % 16 for t in (xbar, Bm, Cm, dy)):
+        raise ValueError("mamba_scan_bwd reads xbar, Bm, Cm and dy in 16-byte loads: "
+                         "align them")
     n_chunks = -(-S // L)
     n_st = B * H * n_chunks * N * P
-    st = dec = None
+    st = dec = hin = None
     if scratch is not None:
+        # the forward's chunk states, bf16 entering states (the bf16 body's
+        # operand) and decays
         st, dec = scratch[:n_st], scratch[3 * n_st // 2:]
+        if xbar.dtype == torch.bfloat16:
+            hin = scratch[n_st:3 * n_st // 2]
     dx = torch.empty_like(xbar)
     dloga = torch.empty_like(loga)
     dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
     dh0 = torch.empty_like(h0) if h0 is not None and want_dh0 else None
     if B * H == 0:
         return dx, dloga, dB.zero_(), dC.zero_(), dh0
-    work = torch.empty((bwd_plan(B, S, H, P, N, L)["scratch"],), dtype=torch.float32,
+    work = torch.empty((bwd_plan(B, S, H, P, N, L, xbar.dtype)["scratch"],), dtype=torch.float32,
                        device=xbar.device)
     fn = _build.function("mamba_scan_bwd", "mamba_scan_bwd", _BWD_ARGTYPES)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = fn(xbar.data_ptr(), loga.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), ptr(h0),
-             ptr(st), ptr(dec), dy.data_ptr(), ptr(dh), dx.data_ptr(), dloga.data_ptr(),
+             ptr(st), ptr(hin), ptr(dec), dy.data_ptr(), ptr(dh), dx.data_ptr(), dloga.data_ptr(),
              dB.data_ptr(), dC.data_ptr(), ptr(dh0), work.data_ptr(),
              B, S, H, P, N, L, DTYPES[xbar.dtype],
              torch.cuda.current_stream(xbar.device).cuda_stream)

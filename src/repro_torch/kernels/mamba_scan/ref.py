@@ -144,7 +144,7 @@ def mamba_scan_tiled(xbar, loga, Bm, Cm, h0=None, *, chunk, rounding=None):
 # The backward's split (csrc/mamba_scan_bwd.cu), in plain PyTorch: what the
 # CPU tests hold against autograd of ``mamba_scan_ref`` before a card sees it
 # ---------------------------------------------------------------------------
-def mamba_scan_bwd_tiled(xbar, loga, Bm, Cm, h0, dy, dh, *, chunk):
+def mamba_scan_bwd_tiled(xbar, loga, Bm, Cm, h0, dy, dh, *, chunk, rounding=None):
     """The gradients of ``mamba_scan_ref`` computed the way the backward
     kernels split them, all sums in float32 (float64 for float64 inputs):
 
@@ -163,11 +163,18 @@ def mamba_scan_bwd_tiled(xbar, loga, Bm, Cm, h0, dy, dh, *, chunk):
     4. dB and dC summed over the heads in head order.
 
     att = tril(C B^T o exp(lcum_s - lcum_t)), the mask taken before the
-    exponential (above the diagonal it may overflow).  Arguments as
-    ``mamba_scan_ref``; dy (B, S, H, P); dh (B, H, N, P) or None.  Returns
-    (dx, dloga, dB, dC, dh0): dx, dB, dC in the inputs' dtypes, dloga and
-    dh0 (None without h0) in the sum type."""
+    exponential (above the diagonal it may overflow).  ``rounding`` (None
+    or "bf16", as the bf16 kernels) rounds once to bf16 what the tensor
+    cores see of each float32 operand: C o e for G, att for att^T dy, B o
+    w and dH_c for (B o w) dH_c and x dH_c^T, h_{c-1} for dy h_{c-1}^T, and
+    datt o decay for the heads' dB and dC shares; datt = dy x^T is exact
+    (bf16 inputs), and da_c, the row and column sums of datt o att and the
+    state pass stay float32.  Arguments as ``mamba_scan_ref``; dy (B, S, H,
+    P); dh (B, H, N, P) or None.  Returns (dx, dloga, dB, dC, dh0): dx, dB,
+    dC in the inputs' dtypes, dloga and dh0 (None without h0) in the sum
+    type."""
     ft = wide(xbar.dtype)
+    rd = lambda t: _round(t, rounding)  # noqa: E731
     Bsz, S, H, P = xbar.shape
     N = Bm.shape[-1]
     L = min(chunk, S)
@@ -181,7 +188,8 @@ def mamba_scan_bwd_tiled(xbar, loga, Bm, Cm, h0, dy, dh, *, chunk):
     # the forward's chunk states, as its scratch holds them
     states = [torch.einsum("btn,bth,bthp->bhnp", bf[:, t0:t1], w[:, t0:t1], x[:, t0:t1])
               for t0, t1 in spans]
-    grads_in = [torch.einsum("bsn,bsh,bshp->bhnp", cf[:, t0:t1], e[:, t0:t1], dyf[:, t0:t1])
+    grads_in = [torch.einsum("bshn,bshp->bhnp",
+                             rd(cf[:, t0:t1, None, :] * e[:, t0:t1, :, None]), dyf[:, t0:t1])
                 for t0, t1 in spans]                             # launch 1
     h = zeros if h0 is None else h0.to(ft)                       # launch 2
     entering = []
@@ -205,12 +213,14 @@ def mamba_scan_bwd_tiled(xbar, loga, Bm, Cm, h0, dy, dh, *, chunk):
         dec = torch.where(mask, torch.exp(torch.where(
             mask, lc[:, :, None, :] - lc[:, None, :, :], -torch.inf)), 0.0)  # (B, S, T, H)
         att = torch.einsum("bsn,btn->bst", cc, bc)[..., None] * dec
-        dxs.append(torch.einsum("bsth,bshp->bthp", att, dyc)
-                   + wc[..., None] * torch.einsum("btn,bhnp->bthp", bc, d_after[c]))
+        dH_r = rd(d_after[c])
+        bw = rd(bc[:, :, None, :] * wc[..., None])               # (B, T, H, N)
+        dxs.append(torch.einsum("bsth,bshp->bthp", rd(att), dyc)
+                   + torch.einsum("bthn,bhnp->bthp", bw, dH_r))
         datt = torch.where(mask, torch.einsum("bshp,bthp->bsth", dyc, xc), 0.0)
-        dcb = datt * dec
-        Z = torch.einsum("bshp,bhnp->bshn", dyc, entering[c])   # dy h_{c-1}^T
-        U = torch.einsum("bthp,bhnp->bthn", xc, d_after[c])     # x dH_c^T
+        dcb = rd(datt * dec)
+        Z = torch.einsum("bshp,bhnp->bshn", dyc, rd(entering[c]))   # dy h_{c-1}^T
+        U = torch.einsum("bthp,bhnp->bthn", xc, dH_r)               # x dH_c^T
         dCh.append(torch.einsum("bsth,btn->bshn", dcb, bc) + ec[..., None] * Z)
         dBh.append(torch.einsum("bsth,bsn->bthn", dcb, cc) + wc[..., None] * U)
         R = datt * att

@@ -99,6 +99,7 @@
 #include "kv_tile.cuh"
 #include "mlstm_gates.cuh"
 #include "sm90.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -391,49 +392,19 @@ __global__ void __launch_bounds__(kThreads) recurrent_kernel(
 // ---------------------------------------------------------------------------
 // bfloat16: the tensor-core bodies
 // ---------------------------------------------------------------------------
-// A tile of q or k: 64 steps x 64 e-columns of bf16 in the 128-byte-swizzled
-// layout (sm90.cuh), step t's row at t * 128; rows past the chunk and
-// columns past dh zero-filled.
-constexpr int kTile = 64 * 64 * 2;
+// A tile of q or k (tc_tile::kTile): 64 steps x 64 e-columns of bf16 in the
+// 128-byte-swizzled layout (sm90.cuh), step t's row at t * 128; rows past
+// the chunk and columns past dh zero-filled.
+using tc_tile::acc_col;
+using tc_tile::acc_row;
+using tc_tile::aligned_smem;
+using tc_tile::kTile;
+using tc_tile::load_tile;
+using tc_tile::scores_tc_loop;
+using tc_tile::split_bf16;
+using tc_tile::tile_at;
+using tc_tile::wg_bar;
 constexpr int kTcThreads = 128;  // scores and boot kernels: one warpgroup
-
-__device__ __forceinline__ void wg_bar(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
-}
-
-// The 1024-byte-aligned start of dynamic shared memory (the swizzle needs it).
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  return raw + ((1024u - (sm90::smem_addr(raw) & 1023u)) & 1023u);
-}
-
-// Copies rows [0, 64) of the (steps, 64 e-columns) tile of x (B, S, H, dh)
-// that starts at element `base` (step t at base + t * row_stride) into a
-// swizzled tile at `dst`, by the kTcThreads threads numbered `tid`: rows
-// past `rows` and columns past dh - e0 are zero-filled (read nothing).
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* __restrict__ x, size_t base,
-                                          size_t row_stride, int rows, int cols, int tid) {
-#pragma unroll
-  for (int p = 0; p < 64 * 8 / kTcThreads; ++p) {
-    const int i = tid + p * kTcThreads, t = i >> 3, ch = i & 7;
-    const bool ok = t < rows && ch * 8 < cols;
-    sm90::cp_async16(dst + sm90::swizzle128(t, ch), ok ? x + base + t * row_stride + ch * 8 : x,
-                     ok);
-  }
-}
-
-// Element (r, c) of a swizzled tile of bf16 with 64-element rows.
-__device__ __forceinline__ bf16* tile_at(uint8_t* tile, int r, int c) {
-  return reinterpret_cast<bf16*>(tile + sm90::swizzle128(r, c >> 3) + (c & 7) * 2);
-}
-
-// (x, y) as a pair of bf16x2 registers: hi = (x, y) rounded, lo = the
-// rest rounded; a product over hi and one over lo carry ~16 significant
-// bits of x and y.
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  hi = sm90::pack_bf16(x, y);
-  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
-  lo = sm90::pack_bf16(x - __low2float(h), y - __high2float(h));
-}
 
 // Scales the rows of a swizzled tile: row t < rows times w[t] (k -> k o
 // w; rows past are zeros), as a bf16 pair, hi in place and lo at the same
@@ -473,13 +444,6 @@ __device__ __forceinline__ void load_vt(uint8_t* vt, const bf16* __restrict__ v,
   }
 }
 
-// Row and column of accumulator element i (sm90.cuh's layout) within a
-// warpgroup's 64-row tile.
-__device__ __forceinline__ int acc_row(int i) {
-  return 16 * ((threadIdx.x & 127) >> 5) + ((threadIdx.x & 31) >> 2) + 8 * ((i >> 1) & 1);
-}
-__device__ __forceinline__ int acc_col(int i) { return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1); }
-
 // The gated, masked scores of a 64 x 64 accumulator s (rows s, columns t)
 // in place, with rowsum of each of the thread's two rows (e = 0, 1) summed
 // over the quad that holds the row.
@@ -511,49 +475,6 @@ __device__ __forceinline__ void a_frags(int kk, uint32_t (&hi)[4], uint32_t (&lo
     const int r = r0 + 8 * (x & 1), c = 16 * kk + 8 * (x >> 1) + 2 * (lane & 3);
     split_bf16(value(r, c), value(r, c + 1), hi[x], lo[x]);
   }
-}
-
-// The scores of a 64-step chunk over dh: q k^T (both K-major) into s, the
-// q and k tiles streamed through a ring of STAGES slots at `ring` (2 kTile a
-// slot).  Ends with the block synchronised.
-template <int STAGES>
-__device__ __forceinline__ void scores_tc_loop(float (&s)[32], uint32_t ring,
-                                               const bf16* __restrict__ q,
-                                               const bf16* __restrict__ k, size_t base,
-                                               size_t row_stride, int Lc, int dh) {
-  const int n_et = (dh + 63) / 64;
-  auto load = [&](int et, int slot) {
-    const uint32_t qs = ring + slot * 2 * kTile;
-    load_tile(qs, q, base + et * 64, row_stride, Lc, dh - et * 64, threadIdx.x);
-    load_tile(qs + kTile, k, base + et * 64, row_stride, Lc, dh - et * 64, threadIdx.x);
-  };
-#pragma unroll
-  for (int p = 0; p < STAGES - 1; ++p) {
-    if (p < n_et) load(p, p);
-    sm90::cp_async_commit();
-  }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = 0.f;
-  for (int et = 0; et < n_et; ++et) {
-    sm90::cp_async_wait<STAGES - 2>();
-    sm90::fence_proxy_async();
-    __syncthreads();  // tile et visible to all; the slot of tile et - 1 is free
-    if (et + STAGES - 1 < n_et)
-      load(et + STAGES - 1, (et + STAGES - 1) % STAGES);
-    sm90::cp_async_commit();
-    const uint32_t qs = ring + (et % STAGES) * 2 * kTile, ks = qs + kTile;
-    sm90::fence_regs(s);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      sm90::wgmma_ss<64, 0, 0>(s, sm90::desc128(qs + kk * 32, 16, 1024),
-                               sm90::desc128(ks + kk * 32, 16, 1024));
-    sm90::wgmma_commit();
-    sm90::wgmma_wait0();
-    sm90::fence_regs(s);
-  }
-  sm90::cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring
 }
 
 constexpr int kScoreStages = 4;  // scores_tc: one block an SM, the ring as deep as fits

@@ -162,7 +162,7 @@ class MLSTM(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, log_i, log_f, C0, n0, m0, chunk, scale):
-        check_bwd(q.shape[-1], min(chunk, q.shape[1]))
+        check_bwd(q.shape[-1], min(chunk, q.shape[1]), q.dtype)
         state = None if C0 is None else (C0, n0, m0)
         h, (C, n, m) = _forward(q, k, v, log_i, log_f, state, chunk, scale)
         ctx.save_for_backward(q, k, v, log_i, log_f, C0, n0, m0, C, n)
@@ -184,43 +184,111 @@ class MLSTM(torch.autograd.Function):
 
 
 # csrc/mlstm_bwd.cu: its sweeps' block of 32 rows or columns of C and tile
-# width (kCols), threads (kThreads), the per-chunk record's vectors (kVecs)
+# width (kCols), the scalar bodies' threads (kThreads), the per-chunk
+# record's vectors (kVecs); the tensor-core sweeps' warpgroups and 64-row
+# tiles each (kWg, kMt), prep_tc's ring (kPrepStages)
 BWD_THREADS, BWD_COLS, BWD_VECS = 256, 32, 9
+BWD_WG, BWD_MT, BWD_PREP_STAGES = 4, 4, 4
 _BWD_ARGTYPES = [_P] * 23 + [_I] * 5 + [_F, _I, _P]
+_BWD_PLAN_ARGS = [_I] * 6 + [_P]
+HALF = 32 * 128                # a [32][64] bf16 tile: kHalf
 
 
-def check_bwd(dh: int, L: int):
-    """Raises for a shape the backward kernels do not take."""
-    p = bwd_plan(1, L, 1, dh, L)
-    if L > MAX_CHUNK or dh % COLS or dh > MAX_HEAD_DIM \
-            or any(kn["smem"] > MAX_SMEM for kn in p["kernels"]):
+def check_bwd(dh: int, L: int, dtype=torch.bfloat16):
+    """Raises for a shape the backward kernels (``dtype``'s body: the
+    tensor-core one for bf16, else the scalar one) do not take; the
+    wrappers refuse other dtypes themselves."""
+    if L > MAX_CHUNK or dh % COLS or dh > MAX_HEAD_DIM:
+        raise ValueError(f"unsupported mlstm backward shape: dh={dh} L={L}")
+    p = bwd_plan(1, L, 1, dh, L, dtype)
+    if any(kn["smem"] > MAX_SMEM for kn in p["kernels"]):
         raise ValueError(f"unsupported mlstm backward shape: dh={dh} L={L}")
 
 
-def bwd_plan(B: int, S: int, H: int, dh: int, L: int) -> dict:
-    """The backward's launches, as csrc/mlstm_bwd.cu makes them (grid,
-    threads and shared memory: static bytes for prep and steps, dynamic for
-    the sweeps), and its float32 scratch in ``carve``'s order: the records,
-    the entering C and n, X's, dw's and d inter_L's shares, and the shares
-    of the final and start states' dot products."""
+def cst_floats(dh: int, dtype) -> int:
+    """Floats of a chunk's entering C in the scratch: float32 (dh, dh) for
+    the scalar bodies; for the tensor-core ones bf16 tiles of 32 rows x 64
+    columns, [dh / 32][ceil(dh / 64)] of them (``cst_tc_floats``)."""
+    if dtype != torch.bfloat16:
+        return dh * dh
+    return (dh // BWD_COLS) * -(-dh // 64) * 32 * 64 // 2
+
+
+def bwd_plan(B: int, S: int, H: int, dh: int, L: int, dtype=torch.bfloat16) -> dict:
+    """The backward's six launches, as csrc/mlstm_bwd.cu makes them (its
+    ``plan``): the body ("tc": bf16 on the tensor cores, prep_tc, states_tc,
+    rows_tc and cols_tc; "scalar": float32), each launch's grid, threads,
+    dynamic shared memory ("dynamic", what ``mlstm_bwd_plan`` reports) and
+    all of it ("smem": static bytes for prep, prep_tc and steps, the
+    swizzled tiles' 1024-byte alignment slack included); and its float32
+    scratch in ``carve``'s order: the records, the entering C and n, X's,
+    dw's and d inter_L's shares, and the shares of the final and start
+    states' dot products."""
     nc, ncb, BH = -(-S // L), dh // BWD_COLS, B * H
     rec = -(-(BWD_VECS * L + 3 * L * L) // 4) * 4
+    scratch = BH * nc * (rec + cst_floats(dh, dtype) + dh + 2 * ncb * L + ncb) + 2 * BH * ncb
+    per_chunk, sweep = (nc, BH, 1), (BH, ncb, 1)
+    steps = {"name": "steps", "grid": per_chunk, "threads": BWD_THREADS, "dynamic": 0,
+             "smem": 4 * (MAX_CHUNK * (MAX_CHUNK + 1) + 3 * MAX_CHUNK)}
+    gates = {"name": "gate_grads", "grid": per_chunk, "threads": MAX_CHUNK, "dynamic": 0,
+             "smem": 4 * 5 * MAX_CHUNK + 8}
+    if dtype == torch.bfloat16:
+        wg, mt, tc = BWD_WG, BWD_MT, 128 * BWD_WG
+        n_max = wg * mt * 64
+        # StatesLayout: the q/k rings, v^T, two chunks' v and dh, the C^T
+        # pairs, the q C partials, the q n partials, two chunks' gates, n
+        states = (wg * 2 * 2 * TILE + HALF + 2 * 2 * 64 * COLS * 2 + wg * 2 * HALF
+                  + 4 * ((wg - 1) * 64 * COLS + wg * 64 + 2 * 4 * MAX_CHUNK + n_max))
+        # RowsLayout: the rings of v, dh and C_{c-1} tiles, dC's tiles, the
+        # transposed (inter / M o Q), q and k, the partials, dS, the vectors
+        rows = (wg * 2 * (2 * TILE + HALF) + wg * HALF + 3 * HALF
+                + 4 * (wg - 1) * 64 * COLS + 2 * MAX_CHUNK * MAX_CHUNK
+                + 4 * (4 * MAX_CHUNK + 2 * COLS + tc // 32))
+        # ColsLayout: the rings of k and q tiles, dC^T's pairs, dh^T and
+        # (inter / M o dh)^T, the partials, att / M, the vectors
+        cols = (wg * 2 * 2 * TILE + wg * 2 * HALF + 2 * HALF + 4 * (wg - 1) * 64 * COLS
+                + 2 * MAX_CHUNK * MAX_CHUNK + 4 * 3 * MAX_CHUNK)
+        prep = 1024 + BWD_PREP_STAGES * 2 * TILE
+        return {"body": "tc", "scratch": scratch, "kernels": [
+            {"name": "prep_tc", "grid": per_chunk, "threads": 128, "dynamic": prep,
+             "smem": prep + _gate_smem(128)},
+            {"name": "states_tc", "grid": sweep, "threads": tc, "dynamic": 1024 + states,
+             "smem": 1024 + states},
+            steps,
+            {"name": "rows_tc", "grid": sweep, "threads": tc, "dynamic": 1024 + rows,
+             "smem": 1024 + rows},
+            {"name": "cols_tc", "grid": sweep, "threads": tc, "dynamic": 1024 + cols,
+             "smem": 1024 + cols},
+            gates]}
     ld = BWD_COLS + 1
-    scratch = (BH * nc * (rec + dh * dh + dh + 2 * ncb * L + ncb) + 2 * BH * ncb)
-    return {"scratch": scratch, "kernels": [
-        {"name": "prep", "grid": (nc, BH), "threads": BWD_THREADS,
+    return {"body": "scalar", "scratch": scratch, "kernels": [
+        {"name": "prep", "grid": per_chunk, "threads": BWD_THREADS, "dynamic": 0,
          "smem": 4 * 4 * MAX_CHUNK * ld + _gate_smem(BWD_THREADS)},
-        {"name": "states", "grid": (BH, ncb), "threads": BWD_THREADS,
-         "smem": 4 * (dh * BWD_COLS + dh + 4 * L * BWD_COLS + 2 * L)},
-        {"name": "steps", "grid": (nc, BH), "threads": BWD_THREADS,
-         "smem": 4 * (MAX_CHUNK * (MAX_CHUNK + 1) + 3 * MAX_CHUNK)},
-        {"name": "reverse_rows", "grid": (BH, ncb), "threads": BWD_THREADS,
-         "smem": 4 * (BWD_COLS * (dh + 1) + 2 * BWD_COLS + 2 * L * BWD_COLS + L * L
-                      + 4 * L + 2 * L * ld + BWD_COLS * ld + BWD_THREADS // 32)},
-        {"name": "reverse_cols", "grid": (BH, ncb), "threads": BWD_THREADS,
-         "smem": 4 * (dh * BWD_COLS + L * L + 3 * L * BWD_COLS + 3 * L)},
-        {"name": "gate_grads", "grid": (BH,), "threads": MAX_CHUNK,
-         "smem": 4 * 2 * MAX_CHUNK + 8}]}
+        {"name": "states", "grid": sweep, "threads": BWD_THREADS,
+         **dict.fromkeys(("dynamic", "smem"),
+                         4 * (dh * BWD_COLS + dh + 4 * L * BWD_COLS + 2 * L))},
+        steps,
+        {"name": "reverse_rows", "grid": sweep, "threads": BWD_THREADS,
+         **dict.fromkeys(("dynamic", "smem"),
+                         4 * (BWD_COLS * (dh + 1) + 2 * BWD_COLS + 2 * L * BWD_COLS + L * L
+                              + 4 * L + 2 * L * ld + BWD_COLS * ld + BWD_THREADS // 32))},
+        {"name": "reverse_cols", "grid": sweep, "threads": BWD_THREADS,
+         **dict.fromkeys(("dynamic", "smem"),
+                         4 * (dh * BWD_COLS + L * L + 3 * L * BWD_COLS + 3 * L))},
+        gates]}
+
+
+def launch_plan(B: int, S: int, H: int, dh: int, L: int, dtype) -> tuple:
+    """(scratch floats, ((grid, threads, dynamic shared memory) of each
+    launch)) as the built csrc/mlstm_bwd.cu plans a call
+    (``mlstm_bwd_plan``), which ``bwd_plan`` mirrors.  Builds the library
+    if needed."""
+    out = (ctypes.c_longlong * 31)()
+    fn = _build.function("mlstm_bwd", "mlstm_bwd_plan", _BWD_PLAN_ARGS)
+    _build.check(fn(B, S, H, dh, L, DTYPES[dtype], out), "mlstm_bwd_plan")
+    v = list(out)
+    return v[0], tuple((tuple(v[1 + 5 * i:4 + 5 * i]), v[4 + 5 * i], v[5 + 5 * i])
+                       for i in range(6))
 
 
 def mlstm_bwd(q, k, v, log_i, log_f, state, dh, dstate=None, final=None, *, chunk,
@@ -232,13 +300,15 @@ def mlstm_bwd(q, k, v, log_i, log_f, state, dh, dstate=None, final=None, *, chun
     dlog_f, (dC0, dn0, dm0) or None without a state or where not wanted)."""
     B, S, H, D = q.shape
     L = min(chunk, S)
-    check_bwd(D, L)
+    check_bwd(D, L, q.dtype)
     dC, dn, dm = dstate if dstate is not None else (None, None, None)
     if (dC is not None or dn is not None) and final is None:
         raise ValueError("a final-state gradient needs the forward's final state")
     dh = dh.contiguous()
     if dh.dtype != q.dtype or dh.shape != q.shape:
         raise TypeError("dh must have h's shape and dtype")
+    if any(t.data_ptr() % 16 for t in (q, k, v, dh)):
+        raise ValueError("mlstm_bwd reads q, k, v and dh in 16-byte loads: align them")
     grads = [None if g is None else g.contiguous() for g in (dC, dn, dm)]
     for g, shape in zip(grads, ((B, H, D, D), (B, H, D), (B, H))):
         if g is not None and (g.dtype != torch.float32 or g.shape != shape):
@@ -250,7 +320,7 @@ def mlstm_bwd(q, k, v, log_i, log_f, state, dh, dstate=None, final=None, *, chun
         else None
     if B * H == 0:
         return dq, dk, dv, dli, dlf, d0
-    work = torch.empty((bwd_plan(B, S, H, D, L)["scratch"],), dtype=torch.float32,
+    work = torch.empty((bwd_plan(B, S, H, D, L, q.dtype)["scratch"],), dtype=torch.float32,
                        device=q.device)
     fn = _build.function("mlstm_bwd", "mlstm_bwd", _BWD_ARGTYPES)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731

@@ -188,8 +188,36 @@ def _dot(a, b):
     return (a * b).flatten(2).sum(-1)
 
 
+# The float32 operands of the bf16 backward's tensor-core products
+# (csrc/mlstm_bwd.cu), by name: C for dh . (Q C) and k o w for the state
+# update in the states sweep; C_prev, the entering state the scratch keeps
+# for dq's C_{c-1} dnum; dC_rows, the carried gradient read by dC v (the row
+# sweep), and dC_cols, by k dC (the column sweep); upd, the scaled operand
+# of dC's update (inter o dnum o Q); dS for dS^T Q and dS k; att for att^T
+# dnum.  q, k, v and dh are bf16 already.
+BWD_OPERANDS = ("C", "kw", "C_prev", "dC_rows", "dC_cols", "upd", "dS", "att")
+# what the bf16 backward gives each: a hi + lo pair to C (X = dh . (Q C)
+# feeds dden = -(dh . num) / M^2, through the cancelling denominator, as C
+# feeds the forward's h) and to dC_cols (dv = w (k dC) + ...: k dC sums
+# dh's rows of 1024 columns of a carried gradient that grows over the
+# chunks), one rounding to bf16 to the rest; at xlstm's training length
+# (dh = 1024, 16 chunks of 64) one rounding of either moves a gradient past
+# the 2e-2 gate on some seeds, while the rest rounded once leave every
+# gradient within a third of it (tests/test_torch_mlstm_bwd.py)
+BWD_ROUNDING = {**dict.fromkeys(BWD_OPERANDS, "bf16"), "C": "pair", "dC_cols": "pair"}
+
+
+def _bwd_rounding(rounding):
+    """operand -> rounding (None, "bf16" or "pair") from ``rounding``: None,
+    one mode for every operand, or a dict (operands it leaves out: None)."""
+    if isinstance(rounding, dict):
+        assert set(rounding) <= set(BWD_OPERANDS), rounding
+        return {k: rounding.get(k) for k in BWD_OPERANDS}
+    return dict.fromkeys(BWD_OPERANDS, rounding)
+
+
 def mlstm_bwd_tiled(q, k, v, log_i, log_f, state, dh, dstate=None, *, chunk,
-                    scale=1.0):
+                    scale=1.0, rounding=None):
     """The gradients of ``mlstm_ref`` computed the way the backward kernels
     split them, every sum in float32 (float64 for float64 inputs), with the
     stabiliser m, m_new and inter held constant: with num_u and den_u the
@@ -211,10 +239,19 @@ def mlstm_bwd_tiled(q, k, v, log_i, log_f, state, dh, dstate=None, *, chunk,
     inter_L dC_c + sum_s inter_s Q_s^T dnum_s (dnum = dh / M) and dn alike,
     from the final state's gradient; (5) rows e of dQ and dk, and dw; (6)
     columns f of dv; (7) the gate gradients summed, log f's as a reverse
-    cumsum within each chunk, and the m terms.  Arguments as
+    cumsum within each chunk, and the m terms.
+
+    ``rounding`` (None, "bf16", "pair", or a dict of ``BWD_OPERANDS``)
+    applies to the float32 operands of the bf16 kernels' products what the
+    tensor cores see of them (``_operand``); ``BWD_ROUNDING`` is the bf16
+    kernels' choice.  The row and the column sweeps carry dC each with its
+    own update (the scale on dh's side in one, on Q's in the other), so
+    with a rounding the mirror carries both: the row sweep's for dk, dw,
+    d inter_L and dC0, the column sweep's for dv.  Arguments as
     ``mlstm_ref``; dh (B, S, H, dh); dstate (dC, dn, dm), each None for
     zeros, or None.  Returns (dq, dk, dv, dlog_i, dlog_f, (dC0, dn0, dm0)
     or None without a state)."""
+    r = _bwd_rounding(rounding)
     ft = wide(q.dtype)
     B, S, H, dh_ = q.shape
     L = min(chunk, S)
@@ -241,7 +278,8 @@ def mlstm_bwd_tiled(q, k, v, log_i, log_f, state, dh, dstate=None, *, chunk,
         att = gate * torch.einsum("bshe,bthe->bsth", Qc, kc)
         DV = torch.einsum("bshf,bthf->bsth", dc, vc)
         qn = torch.einsum("bshe,bhe->bsh", Qc, n)
-        X = torch.einsum("bshf,bshf->bsh", dc, torch.einsum("bshe,bhef->bshf", Qc, C))
+        X = torch.einsum("bshf,bshf->bsh", dc,
+                         torch.einsum("bshe,bhef->bshf", Qc, _operand(C, r["C"])))
         den = att.sum(2) + it * qn
         floor = torch.exp(-mn)
         M = torch.maximum(den.abs(), floor)
@@ -250,36 +288,45 @@ def mlstm_bwd_tiled(q, k, v, log_i, log_f, state, dh, dstate=None, *, chunk,
         datt = torch.where(mask, DV / M[:, :, None] + dden[:, :, None], 0.0)
         R = datt * att
         dinter = X / M + dden * qn
-        chunks.append(dict(sl=sl, C=C, n=n, gate=gate, att=att, M=M, dden=dden,
-                           dS=datt * gate, db=R.sum(2) - R.sum(1) + dinter * it,
+        chunks.append(dict(sl=sl, C=_operand(C, r["C_prev"]), n=n, gate=gate, att=att, M=M,
+                           dden=dden, dS=datt * gate, db=R.sum(2) - R.sum(1) + dinter * it,
                            dgi=R.sum(1), w=ww, it=it))
         # the state after the chunk
-        C = it[:, -1][..., None, None] * C + torch.einsum("bth,bthe,bthf->bhef", ww, kc, vc)
+        kw = _operand(ww[..., None] * kc, r["kw"])
+        C = it[:, -1][..., None, None] * C + torch.einsum("bthe,bthf->bhef", kw, vc)
         n = it[:, -1][..., None] * n + torch.einsum("bth,bthe->bhe", ww, kc)
     dC_fin, dn_fin, dm_fin = dstate if dstate is not None else (None, None, None)
     dC = torch.zeros_like(C) if dC_fin is None else dC_fin.to(ft)
+    dC_col = dC                                                  # the column sweep's
     dn = torch.zeros_like(n) if dn_fin is None else dn_fin.to(ft)
     g_m = -_dot(dC, C) - _dot(dn, n) + (0.0 if dm_fin is None else dm_fin.to(ft))
     dQ, dk, dv = torch.zeros_like(Q), torch.zeros_like(kf), torch.zeros_like(vf)
     db, dgi = torch.zeros_like(b), torch.zeros_like(b)
     for ch in reversed(chunks):                                  # launches 4-6
         sl, it, ww = ch["sl"], ch["it"], ch["w"]
-        Qc, kc, vc = Q[:, sl], kf[:, sl], vf[:, sl]
-        dnum = dhf[:, sl] / ch["M"][..., None]
-        U = torch.einsum("bhef,bthf->bthe", dC, vc) + dn[:, None]   # dC v_t + dn
-        dk[:, sl] = ww[..., None] * U + torch.einsum("bsth,bshe->bthe", ch["dS"], Qc)
-        dQ[:, sl] = it[..., None] * (torch.einsum("bhef,bshf->bshe", ch["C"], dnum)
-                                     + ch["dden"][..., None] * ch["n"][:, None]) \
-            + torch.einsum("bsth,bthe->bshe", ch["dS"], kc)
-        dv[:, sl] = ww[..., None] * torch.einsum("bthe,bhef->bthf", kc, dC) \
-            + torch.einsum("bsth,bshf->bthf", ch["att"], dnum)
+        Qc, kc, vc, dc = Q[:, sl], kf[:, sl], vf[:, sl], dhf[:, sl]
+        inv_m = 1.0 / ch["M"]
+        dS = _operand(ch["dS"], r["dS"])
+        U = torch.einsum("bhef,bthf->bthe", _operand(dC, r["dC_rows"]), vc) + dn[:, None]
+        dk[:, sl] = ww[..., None] * U + torch.einsum("bsth,bshe->bthe", dS, Qc)
+        Y = inv_m[..., None] * torch.einsum("bhef,bshf->bshe", ch["C"], dc)  # C_{c-1} dnum
+        dQ[:, sl] = it[..., None] * (Y + ch["dden"][..., None] * ch["n"][:, None]) \
+            + torch.einsum("bsth,bthe->bshe", dS, kc)
+        att_m = _operand(ch["att"] * inv_m[:, :, None], r["att"])   # att o (1 / M), rows s
+        dv[:, sl] = ww[..., None] * torch.einsum("bthe,bhef->bthf", kc,
+                                                 _operand(dC_col, r["dC_cols"])) \
+            + torch.einsum("bsth,bshf->bthf", att_m, dc)
         rw = ww * (kc * U).sum(-1)                               # dw o w
         d_inter_last = _dot(dC, ch["C"]) + _dot(dn, ch["n"])
         dbc = ch["db"] - rw
         dbc[:, -1] += rw.sum(1) + d_inter_last * it[:, -1]
         db[:, sl] = dbc
         dgi[:, sl] = ch["dgi"] + rw
-        dC = it[:, -1][..., None, None] * dC + torch.einsum("bsh,bshe,bshf->bhef", it, Qc, dnum)
+        g = (it * inv_m)[..., None]                              # inter o (1 / M)
+        decay = it[:, -1][..., None, None]
+        dC = decay * dC + torch.einsum("bshe,bshf->bhef", _operand(g * Qc, r["upd"]), dc)
+        dC_col = decay * dC_col + torch.einsum("bshe,bshf->bhef", Qc,
+                                               _operand(g * dc, r["upd"]))
         dn = it[:, -1][..., None] * dn + torch.einsum("bsh,bshe->bhe", it * ch["dden"], Qc)
     dlog_f = torch.cat([torch.flip(torch.cumsum(torch.flip(db[:, t0:t1], (1,)), 1), (1,))
                         for t0, t1 in spans], dim=1)             # launch 7

@@ -1176,9 +1176,11 @@ def test_scan_and_mlstm_return_gradients_on_the_card(card):
 BWD_GRAD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MLSTM_BWD_GRAD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # (B, S, H, P, N, L, h0 and the final state's gradient): jamba's training
-# shape, a ragged tail with a state, short chunks, the bf16 boot path
+# shape, a ragged tail with a state, short chunks, the bf16 boot path, and
+# the training shape with a ragged last chunk (80 steps)
 SCAN_BWD_SHAPES = [(2, 2048, 64, 128, 16, 128, False), (2, 300, 8, 128, 16, 128, True),
-                   (2, 37, 2, 32, 8, 16, True), (2, 8, 64, 128, 16, 128, False)]
+                   (2, 37, 2, 32, 8, 16, True), (2, 8, 64, 128, 16, 128, False),
+                   (2, 2000, 64, 128, 16, 128, False)]
 
 
 def _grads_close(got, want, dtype, names, tol=BWD_GRAD_TOL):
@@ -1221,9 +1223,11 @@ def test_mamba_scan_bwd_kernel_matches_plain(card, dtype, shape):
 
 # (B, S, H, dh, L, a start state and the final state's gradient, q scaled
 # by 1e-3): xlstm's training shape, a ragged tail with a state, the reduced
-# width, exp(-m_new) winning the denominator
+# width, exp(-m_new) winning the denominator, and the training shape with a
+# ragged last chunk (40 steps)
 MLSTM_BWD_SHAPES = [(2, 1024, 4, 1024, 64, False, False), (1, 300, 4, 1024, 64, True, False),
-                    (2, 48, 4, 32, 64, False, False), (2, 37, 2, 32, 16, True, True)]
+                    (2, 48, 4, 32, 64, False, False), (2, 37, 2, 32, 16, True, True),
+                    (2, 1000, 4, 1024, 64, False, False)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1263,6 +1267,34 @@ def test_mlstm_bwd_kernel_matches_plain(card, dtype, shape):
     torch.cuda.synchronize()
     flat = lambda r: [*r[:5], *(r[5] or ())]  # noqa: E731
     assert all(torch.equal(u, w) for u, w in zip(flat(a), flat(b)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_scan_bwd_plan_mirrors_the_source(card, dtype, shape):
+    """``bwd_plan``'s launches (grid, threads, dynamic shared memory) and
+    scratch, the CPU tests' mirror, equal the built source's own plan
+    (``mamba_scan_bwd_plan``), by which the kernels launch."""
+    B, S, H, P, N, L = shape[:6]
+    dt, L = configs.torch_dtype(dtype), min(L, S)
+    mirror = scan_ops.bwd_plan(B, S, H, P, N, L, dt)
+    assert scan_ops.launch_plan(B, S, H, P, N, L, dt) == (
+        mirror["scratch"], tuple((k["grid"], k["threads"], k["dynamic"])
+                                 for k in mirror["kernels"]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", MLSTM_BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_mlstm_bwd_plan_mirrors_the_source(card, dtype, shape):
+    """``bwd_plan``'s launches (grid, threads, dynamic shared memory) and
+    scratch, the CPU tests' mirror, equal the built source's own plan
+    (``mlstm_bwd_plan``), by which the kernels launch."""
+    B, S, H, dh, L = shape[:5]
+    dt, L = configs.torch_dtype(dtype), min(L, S)
+    mirror = mlstm_ops.bwd_plan(B, S, H, dh, L, dt)
+    assert mlstm_ops.launch_plan(B, S, H, dh, L, dt) == (
+        mirror["scratch"], tuple((k["grid"], k["threads"], k["dynamic"])
+                                 for k in mirror["kernels"]))
 
 
 @pytest.mark.parametrize("name", [NAME, "jamba-v0.1-52b", "xlstm-1.3b"])

@@ -708,75 +708,120 @@ def test_scan_plan_at_the_serving_shapes():
     assert scan_ops.plan(1, 2048, 64, 128, 16, 128, torch.float32, True)["path"] == "scalar"
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("P,N,L", _mamba_shapes(), ids=lambda v: str(v))
-def test_scan_bwd_plan_fits_every_config(P, N, L):
+def test_scan_bwd_plan_fits_every_config(P, N, L, dtype):
     """The scan's backward (csrc/mamba_scan_bwd.cu) at every Mamba config's
-    head width, state and chunk, for one step, one chunk and several: the
-    wrapper takes the shape, each launch's shared memory fits the card's
-    232,448 bytes, the chunk launches' grid is (chunks, B H), the pass one
-    block a (b, h), the heads' sum covers B S N, and the scratch holds dH_c
-    and the entering states, da, and each head's dB and dC."""
+    head width, state and chunk, for one step, one chunk and several, in
+    both bodies: the wrapper takes the shape, each launch's shared memory
+    fits the card's 232,448 bytes (the bf16 chunk launch twice over, its
+    two blocks an SM), the chunk launches' grid is (chunks, B H), the pass
+    one block a (b, h) (bf16: one a 1024 floats of its state), the heads'
+    sum covers B S N, and the scratch holds G_c and the entering states,
+    da, and each head's dB and dC (bf16: dH_c in bf16 too)."""
     for S in (1, 8, L, 3 * L + 1, 2048):
         Lc = min(L, S)
-        scan_ops.check_bwd(P, N, Lc)
-        p = scan_ops.bwd_plan(2, S, 4, P, N, Lc)
-        n_chunks = -(-S // Lc)
-        assert [k["name"] for k in p["kernels"]] == ["grad_in", "pass_grads", "chunk_grads",
-                                                     "sum_heads"]
+        scan_ops.check_bwd(P, N, Lc, dtype)
+        p = scan_ops.bwd_plan(2, S, 4, P, N, Lc, dtype)
+        n_chunks, n_st = -(-S // Lc), 8 * -(-S // Lc) * N * P
+        nwg = 2 if Lc > 64 else 1
+        names = ["grad_in", "pass_grads", "chunk_grads", "sum_heads"] \
+            if dtype == torch.float32 else \
+            [f"grad_in_tc<{nwg}>", "pass_tc", f"chunk_grads_tc<{nwg}>", "sum_heads"]
+        assert [k["name"] for k in p["kernels"]] == names
         for kn in p["kernels"]:
-            assert kn["smem"] <= scan_ops.MAX_SMEM and kn["threads"] == 256, (S, kn)
+            assert kn["smem"] <= scan_ops.MAX_SMEM and kn["threads"] <= 256, (S, kn)
         grids = [kn["grid"] for kn in p["kernels"]]
-        assert grids[:3] == [(n_chunks, 8), (8,), (n_chunks, 8)]
         assert grids[3][0] * 256 >= 2 * S * N > (grids[3][0] - 1) * 256
-        assert p["scratch"] == 2 * 8 * n_chunks * N * P + 8 * n_chunks + 2 * 8 * S * N
+        if dtype == torch.float32:
+            assert grids[:3] == [(n_chunks, 8, 1), (8, 1, 1), (n_chunks, 8, 1)]
+            assert p["scratch"] == 2 * n_st + 8 * n_chunks + 2 * 8 * S * N
+        else:
+            ny = -(-N * P // 1024)
+            assert grids[:3] == [(n_chunks, 8, 1), (8, ny, 1), (n_chunks, 8, 1)]
+            assert 2 * (p["kernels"][2]["smem"] + 1024) <= scan_ops.SM_SMEM
+            assert p["scratch"] == 2 * n_st + n_st // 2 + -(-8 * n_chunks * ny // 4) * 4 \
+                + 2 * 8 * S * N
 
 
 def test_scan_bwd_plan_at_the_training_shape():
     """jamba's training shape (B=2 S=2048, 64 heads of 128, N=16, chunks of
-    128): 2,048 chunk blocks of 123,520 bytes (one an SM), 128 blocks of the
-    pass, 67 MB of scratch; a shape past the kernels' limits is refused."""
-    p = scan_ops.bwd_plan(2, 2048, 64, 128, 16, 128)
+    128): the scalar body's 2,048 chunk blocks of 123,520 bytes (one an SM)
+    and 128 blocks of the pass, 67 MB of scratch; the bf16 body's 2,048
+    chunk blocks of two warpgroups and 102,912 bytes (two an SM), G's
+    blocks of 50,176 bytes, the pass on 128 x 2 blocks, 75.5 MB of scratch;
+    a shape past the kernels' limits is refused, in bf16 also N = 4 or P =
+    136, which the forward's tensor cores refuse too."""
+    p = scan_ops.bwd_plan(2, 2048, 64, 128, 16, 128, torch.float32)
     assert [(k["name"], k["grid"], k["smem"]) for k in p["kernels"]] == [
-        ("grad_in", (16, 128), 26_624), ("pass_grads", (128,), 32),
-        ("chunk_grads", (16, 128), 123_520), ("sum_heads", (256,), 0)]
+        ("grad_in", (16, 128, 1), 26_624), ("pass_grads", (128, 1, 1), 32),
+        ("chunk_grads", (16, 128, 1), 123_520), ("sum_heads", (256, 1, 1), 0)]
     assert 4 * p["scratch"] == 67_117_056
-    for P, N, L in ((128, 32, 128), (256, 16, 128), (128, 16, 256)):
+    p = scan_ops.bwd_plan(2, 2048, 64, 128, 16, 128, torch.bfloat16)
+    assert [(k["name"], k["grid"], k["threads"], k["smem"]) for k in p["kernels"]] == [
+        ("grad_in_tc<2>", (16, 128, 1), 128, 50_176), ("pass_tc", (128, 2, 1), 256, 32),
+        ("chunk_grads_tc<2>", (16, 128, 1), 256, 102_912), ("sum_heads", (256, 1, 1), 256, 0)]
+    assert 4 * p["scratch"] == 75_513_856
+    for dtype in (torch.float32, torch.bfloat16):
+        for P, N, L in ((128, 32, 128), (256, 16, 128), (128, 16, 256)):
+            with pytest.raises(ValueError):
+                scan_ops.check_bwd(P, N, L, dtype)
+    for P, N in ((128, 4), (136, 8)):
+        scan_ops.check_bwd(P, N, 128, torch.float32)
         with pytest.raises(ValueError):
-            scan_ops.check_bwd(P, N, L)
+            scan_ops.check_bwd(P, N, 128, torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("dh", _mlstm_head_dims())
-def test_mlstm_bwd_plan_fits_every_config(dh):
+def test_mlstm_bwd_plan_fits_every_config(dh, dtype):
     """The mLSTM's backward (csrc/mlstm_bwd.cu) at every mLSTM head width
-    and chunk length L <= 64, one chunk or several: the wrapper takes the
-    shape, each launch's shared memory fits the card's 232,448 bytes, the
-    per-chunk launches' grid is (chunks, B H), the sweeps' (B H, dh / 32)."""
+    and chunk length L <= 64, one chunk or several, in both bodies: the
+    wrapper takes the shape, each launch's shared memory fits the card's
+    232,448 bytes, the per-chunk launches' grid is (chunks, B H), the
+    sweeps' (B H, dh / 32), and the scratch holds the records, the entering
+    C (float32, or bf16 tiles of 32 x 64) and n, and the shares."""
     for L in (1, 5, 8, 16, 32, 64):
         for S in (L, 3 * L + 1):
-            mlstm_ops.check_bwd(dh, L)
-            p = mlstm_ops.bwd_plan(2, S, 4, dh, L)
-            nc = -(-S // L)
+            mlstm_ops.check_bwd(dh, L, dtype)
+            p = mlstm_ops.bwd_plan(2, S, 4, dh, L, dtype)
+            nc, ncb = -(-S // L), dh // 32
             for kn in p["kernels"]:
                 assert kn["smem"] <= mlstm_ops.MAX_SMEM and kn["threads"] <= 1024, (L, S, kn)
-            assert [(k["name"], k["grid"]) for k in p["kernels"]] == [
-                ("prep", (nc, 8)), ("states", (8, dh // 32)), ("steps", (nc, 8)),
-                ("reverse_rows", (8, dh // 32)), ("reverse_cols", (8, dh // 32)),
-                ("gate_grads", (8,))]
+                assert kn["smem"] >= kn["dynamic"]
+            names = ("prep", "states", "steps", "reverse_rows", "reverse_cols", "gate_grads") \
+                if dtype == torch.float32 else \
+                ("prep_tc", "states_tc", "steps", "rows_tc", "cols_tc", "gate_grads")
+            assert [(k["name"], k["grid"]) for k in p["kernels"]] == list(zip(names, [
+                (nc, 8, 1), (8, ncb, 1), (nc, 8, 1), (8, ncb, 1), (8, ncb, 1), (nc, 8, 1)]))
+            cst = dh * dh if dtype == torch.float32 else ncb * -(-dh // 64) * 32 * 64 // 2
+            rec = -(-(9 * L + 3 * L * L) // 4) * 4
+            assert p["scratch"] == 8 * nc * (rec + cst + dh + 2 * ncb * L + ncb) + 2 * 8 * ncb
 
 
 def test_mlstm_bwd_plan_at_the_training_shape():
     """xlstm-1.3b's training shape (B=2 S=1024, 4 heads of 1024, chunks of
-    64): sweeps of 8 x 32 blocks, the row sweep's 186,400 bytes of shared
-    memory the most, and 546 MB of scratch, 512 MB of it the recomputed
-    entering states; head widths the forward refuses are refused."""
-    p = mlstm_ops.bwd_plan(2, 1024, 4, 1024, 64)
+    64): sweeps of 8 x 32 blocks; the scalar body's row sweep has the most
+    shared memory, 186,400 bytes, and 546 MB of scratch, 512 MB of it the
+    recomputed entering states; the bf16 body's sweeps have four
+    warpgroups, the row sweep 227,648 bytes (its v, dh and C_{c-1} rings),
+    and 278 MB of scratch, the entering states 256 MB of bf16 tiles; head
+    widths the forward refuses are refused."""
+    p = mlstm_ops.bwd_plan(2, 1024, 4, 1024, 64, torch.float32)
     smem = {k["name"]: k["smem"] for k in p["kernels"]}
     assert max(smem.values()) == smem["reverse_rows"] == 186_400
     assert 4 * p["scratch"] == 546_097_152
     assert 4 * 8 * 16 * 1024 * 1024 == 536_870_912
-    for dh, L in ((48, 64), (2048, 64), (1024, 128)):
-        with pytest.raises(ValueError):
-            mlstm_ops.check_bwd(dh, L)
+    p = mlstm_ops.bwd_plan(2, 1024, 4, 1024, 64, torch.bfloat16)
+    assert [(k["name"], k["threads"], k["smem"]) for k in p["kernels"]] == [
+        ("prep_tc", 128, 68_868), ("states_tc", 512, 217_088), ("steps", 256, 17_408),
+        ("rows_tc", 512, 227_648), ("cols_tc", 512, 206_592), ("gate_grads", 64, 1_288)]
+    assert 4 * p["scratch"] == 277_661_696
+    assert 4 * 8 * 16 * mlstm_ops.cst_floats(1024, torch.bfloat16) == 268_435_456
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh, L in ((48, 64), (2048, 64), (1024, 128)):
+            with pytest.raises(ValueError):
+                mlstm_ops.check_bwd(dh, L, dtype)
 
 
 # -------------------------------------------------- chunk hash: the lane split

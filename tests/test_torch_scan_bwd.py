@@ -6,8 +6,9 @@ version (``kernels/mamba_scan/ref.py`` ``mamba_scan_ref``) against
 chunk states, the chunk gradients, the heads' sum) against autograd of the
 plain version in float64 and float32, through a ragged tail, with and
 without h0 and the final state's gradient, and across a chunk whose summed
-log decay is below -200; and ``ops.MambaScan``'s plumbing with its launches
-swapped for the plain versions."""
+log decay is below -200; the bf16 kernels' roundings in the split at
+jamba's width against the gate; and ``ops.MambaScan``'s plumbing with its
+launches swapped for the plain versions."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -140,6 +141,25 @@ def test_tiled_backward_in_bf16_holds_the_kernel_gate():
     assert got[0].dtype == got[2].dtype == torch.bfloat16 and got[1].dtype == torch.float32
     for name, a, b in zip(NAMES, got, want):
         assert _rel(a.float(), b) < 2e-2, name
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["no_h0", "h0"])
+def test_bf16_roundings_hold_the_gate_at_full_width(with_h0):
+    """jamba's head at full size (P = 128, N = 16, L = 128), three chunks
+    and a ragged tail (S = 424), B = H = 1, bf16 inputs: the split with the
+    bf16 kernels' roundings (``rounding="bf16"``: C o e, att, B o w, dH_c,
+    h_{c-1} and datt o decay rounded once) holds every gradient within 2e-2
+    of its largest entry of autograd of the float32 plain version (within a
+    third of it), and the roundings move the gradients."""
+    x, loga, Bm, Cm, h0, dy, dh = _inputs(4, 1, 3 * 128 + 40, 1, 128, 16, dtype=np.float32)
+    xb, bb, cb, dyb = (t.to(torch.bfloat16) for t in (x, Bm, Cm, dy))
+    h0, dh = (h0, dh) if with_h0 else (None, None)
+    want = _autograd(xb.float(), loga, bb.float(), cb.float(), h0, dyb.float(), dh, 128)
+    got = ref.mamba_scan_bwd_tiled(xb, loga, bb, cb, h0, dyb, dh, chunk=128, rounding="bf16")
+    exact = ref.mamba_scan_bwd_tiled(xb, loga, bb, cb, h0, dyb, dh, chunk=128)
+    for name, a, b, e in zip(NAMES, got, want, exact):
+        assert _rel(a.float(), b) < 2e-2 / 3, name
+        assert not torch.equal(a, e), name
 
 
 # ------------------------------------------- (iii) MambaScan's plumbing
