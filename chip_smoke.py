@@ -54,7 +54,12 @@ it, and drives the port's serving and training paths, each at full width:
   ``gentorrent-llama3-8b`` at full width cut to 4 layers (B=2 x 2048
   tokens), ``jamba-v0.1-52b`` at full width cut to its first (Mamba)
   layer (B=2 x 2048) and ``xlstm-1.3b`` at full width and depth (B=2 x
-  512).
+  512);
+* distribution: the sharded train step (DTensor params and AdamW state,
+  each layer's weights gathered before use) on a one-rank NCCL group over a
+  (data=1, model=1) mesh, one float32 step against the unsharded step bit
+  for bit, then the llama training run above through it; and the dry-run
+  of one 16 x 16 cell (a fake process group of 256 ranks) on this host.
 
 It prints one JSON line per phase.  Every phase must pass: any failure
 ends the run with a nonzero exit.  With no CUDA card it exits nonzero
@@ -69,6 +74,7 @@ import collections
 import dataclasses
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -3468,13 +3474,25 @@ def train_f32_parity(seed, dev):
             "tol": "atol=rtol=2e-4, card vs CPU"}
 
 
-def _train_run(cfg, seed, dev, out, B, S, n_timed, fname, kernels):
+def _sharded_setup(cfg, model, adamw, mesh, params, batches):
+    """``make_sharded_train_step`` over ``mesh`` with ``params`` and each
+    batch distributed in the sharding rules' placements: (step, params,
+    AdamW state, batches)."""
+    from repro_torch.distributed import sharded_step, sharding
+    params = sharding.distribute(params, sharding.param_shardings(cfg, params, mesh, True))
+    batches = [sharding.distribute(b, sharding.input_shardings(cfg, b, mesh)) for b in batches]
+    return (sharded_step.make_sharded_train_step(cfg, model, adamw, mesh), params,
+            sharded_step.init_state(params), batches)
+
+
+def _train_run(cfg, seed, dev, out, B, S, n_timed, fname, kernels, mesh=None):
     """``make_train_step`` on ``cfg`` (float32 weights and AdamW state, its
     compute dtype, remat on) over batches of ``MarkovCorpus(vocab,
     seed=0)``: one warm-up step, ``n_timed`` timed steps (synchronised host
     clock), then one step traced on the card alone (``fname`` under
     ``out``) for its idle share and the device time and launches of
-    ``kernels`` (wrapper -> name fragments).  Every loss must be finite.
+    ``kernels`` (wrapper -> name fragments).  With ``mesh``, the sharded
+    step (``_sharded_setup``) in its place.  Every loss must be finite.
     Returns (the measurements, the wrappers' launches over the timed
     steps)."""
     from repro_torch.models.lm import LM
@@ -3484,10 +3502,14 @@ def _train_run(cfg, seed, dev, out, B, S, n_timed, fname, kernels):
     assert cfg.compute_dtype == torch.bfloat16 and cfg.params_dtype == torch.float32
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     n_params = sum(t.numel() for t in _leaves(params))
-    state = opt.init_state(params)
-    step = make_train_step(cfg, LM(cfg, dev), opt.AdamWConfig(lr=3e-4, warmup_steps=2,
-                                                              total_steps=10))
+    adamw = opt.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=10)
     batches = [_train_batch(cfg, 100 + i, B, S, dev) for i in range(n_timed + 2)]
+    if mesh is None:
+        state = opt.init_state(params)
+        step = make_train_step(cfg, LM(cfg, dev), adamw)
+    else:
+        step, params, state, batches = _sharded_setup(cfg, LM(cfg, dev), adamw, mesh,
+                                                      params, batches)
     torch.cuda.reset_peak_memory_stats(dev)
     losses, secs = [], []
     params, state, m = step(params, state, batches[0])             # warm-up
@@ -3589,6 +3611,117 @@ def train_xlstm_bf16(seed, dev, out):
     run["traced_step"]["backward_by_kernel"] = _bwd_kernel_ms(rows, MLSTM_BWD_KERNELS)
     return {"phase": "train_xlstm_bf16", "config": XLSTM, "reduced": XLSTM_TRAIN_CUT,
             **run}, launches
+
+
+SHARDED_F32 = dict(n_layers=2, B=2, S=256)
+
+
+def _nccl_group(tmp):
+    """A one-rank NCCL process group on this card, met through a file store
+    in ``tmp`` (no network)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+
+
+def _sharded_f32_check(seed, dev, mesh):
+    """One ``make_sharded_train_step`` step on a (data=1, model=1) mesh
+    against one ``make_train_step`` step, both on the card, float32 with
+    TF32 off, llama at full width cut to 2 layers, from the same weights
+    and batch: the loss and every leaf of params, mu and nu within 2e-5 of
+    the leaf's largest entry; whether every bit is equal."""
+    from repro_torch.models.lm import LM
+    from repro_torch.params import init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import make_train_step
+    n, B, S = SHARDED_F32["n_layers"], SHARDED_F32["B"], SHARDED_F32["S"]
+    cfg = _family(NAME, n_layers=n, dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    batch = _train_batch(cfg, 7, B, S, dev)
+    adamw = opt.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    p1, s1, m1 = make_train_step(cfg, LM(cfg, dev), adamw)(params, opt.init_state(params),
+                                                           batch)
+    want = [m1["loss"]] + _leaves(p1) + _leaves(s1["mu"]) + _leaves(s1["nu"])
+    del p1, s1
+    step, p, st, (b,) = _sharded_setup(cfg, LM(cfg, dev), adamw, mesh, params, [batch])
+    p2, s2, m2 = step(p, st, b)
+    got = [m2["loss"]] + [t.to_local() for t in _leaves(p2) + _leaves(s2["mu"])
+                          + _leaves(s2["nu"])]
+    torch.cuda.synchronize()
+    worst, same = 0.0, True
+    for a, w in zip(got, want):
+        err = (a - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        assert err <= 2e-5, (err, tuple(w.shape))
+        worst = max(worst, err)
+        same &= bool(torch.equal(a, w))
+    return {"config": NAME, "layers": n, "batch": B, "seq": S, "leaves": len(want) - 1,
+            "loss": m2["loss"].item(), "loss_unsharded": m1["loss"].item(),
+            "max_err_of_leaf_max": worst, "bit_identical": same,
+            "tol": "2e-5 of each leaf's largest entry (loss, params, mu, nu)"}
+
+
+def _dryrun_on_this_host():
+    """``python -m repro_torch.launch.dryrun`` of the 16 x 16 decode_32k
+    cell of llama in a subprocess (a fake process group of 256 ranks, meta
+    tensors; this host has no JAX): its status and per-device counts."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", NAME,
+                            "--shape", "decode_32k", "--out", tmp, "--force"],
+                           capture_output=True, text=True, timeout=300, cwd=ROOT,
+                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        secs = time.monotonic() - t0
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    rec = json.loads(r.stdout.strip().splitlines()[0])
+    assert rec["status"] == "ok" and rec["n_devices"] == 256, rec
+    return {"cell": f"{NAME} decode_32k pod16x16", "status": rec["status"],
+            "n_devices": rec["n_devices"], "seconds": secs,
+            "flops_per_dev": rec["flops_per_dev"], "bytes_per_dev": rec["bytes_per_dev"],
+            "coll_eff_bytes_per_dev": rec["coll_eff_bytes_per_dev"],
+            "roofline": rec["roofline"]}
+
+
+def train_sharded_bf16(seed, dev, out):
+    """The sharded train step (``distributed/sharded_step.py``: params and
+    AdamW state as DTensors, each layer's weights gathered before use, the
+    batch split over the DP ranks) on a one-rank NCCL group over a (data=1,
+    model=1) mesh: ``_sharded_f32_check``, then ``train_bf16``'s run (llama
+    cut to 4 layers, B=2 S=2048, f32 weights and AdamW state, remat) with
+    3 timed steps and one traced, its flash launches a step asserted equal
+    to ``train_bf16``'s (8 forward with remat, 4 backward); then the
+    dry-run of one 16 x 16 cell on this host.  A failed NCCL start, gather
+    or launch fails the phase; the unsharded step never stands in.
+    Returns (line, the wrappers' launches over the timed steps)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        _nccl_group(tmp)
+        backend = dist.get_backend()
+        try:
+            assert dist.get_world_size() == 1
+            mesh = make_host_mesh(1)
+            f32 = _sharded_f32_check(seed, dev, mesh)
+            _free()
+            kernels = {k: TRAIN_KERNELS[k] for k in ("flash_attention", "flash_attention_bwd")}
+            n_timed = 3
+            run, launches, rows = _train_run(_family(NAME, n_layers=4), seed, dev, out, 2,
+                                             2048, n_timed, "profile_train_sharded_bf16.txt",
+                                             kernels, mesh=mesh)
+        finally:
+            dist.destroy_process_group()
+    want = {"flash_attention": 2 * 4 * n_timed, "flash_attention_bwd": 4 * n_timed}
+    assert run["launches"] == want, (run["launches"], want)
+    run["traced_step"]["backward_by_kernel"] = _bwd_kernel_ms(rows)
+    dry = _dryrun_on_this_host()
+    return {"phase": "train_sharded_bf16", "config": NAME, "reduced": TRAIN_CUT,
+            "mesh": mesh.shape, "backend": backend, "f32_check": f32, **run,
+            "launches_per_step": {k: v // n_timed for k, v in run["launches"].items()},
+            "dryrun": dry, "nvidia_smi": smi_line(), "seconds": time.monotonic() - t0}, launches
 
 
 def main():
@@ -3708,14 +3841,20 @@ def main():
         train_launches.update(launches)
         del line
         _free()
+    # the sharded train step (DTensor state, gathers, NCCL) over one rank,
+    # and the dry-run of a 16 x 16 cell on this host
+    line, sharded_launches = train_sharded_bf16(args.seed, dev, args.out)
+    emit(line)
+    _free()
 
     # each kernel's launches on every path that runs it
     paths = {"paged_decode_attention": {"llama": paged_launches, "families": family_launches},
              "paged_flash_attention": {"llama": paged_launches, "families": family_launches},
              "flash_attention": {"jamba": dense_launches,
                                  "verification": verification_launches,
-                                 "encdec": encdec_launches, "training": train_launches},
-             "flash_attention_bwd": {"training": train_launches},
+                                 "encdec": encdec_launches, "training": train_launches,
+                                 "sharded": sharded_launches},
+             "flash_attention_bwd": {"training": train_launches, "sharded": sharded_launches},
              "decode_attention": {"jamba": dense_launches, "encdec": encdec_launches},
              "mamba_scan": {"jamba": dense_launches, "training": train_launches},
              "mamba_scan_bwd": {"training": train_launches},

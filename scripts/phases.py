@@ -20,7 +20,11 @@ GROUP is one of:
   (rows 2b, 4b and 5b of the ``kernels`` line: the flash kernel's, the
   scan's, the mLSTM's), then ``train_f32_parity``, ``train_bf16``,
   ``train_jamba_bf16`` and ``train_xlstm_bf16``; card tests of the
-  backwards, the refused gradients and ``lm_loss`` on the card.
+  backwards, the refused gradients and ``lm_loss`` on the card;
+* ``distributed``: ``train_sharded_bf16`` (the sharded train step on a
+  one-rank NCCL group: its f32 check against the unsharded step, its bf16
+  run, the dry-run of one 16 x 16 cell on this host); card tests
+  ``-k sharded``.
 
 Builds the kernels the group runs, prints the card's name and power
 limit, then one JSON line a phase as ``chip_smoke.py`` prints it, with
@@ -86,12 +90,15 @@ def _groups(c, seed, dev, out):
             lambda: c.train_jamba_bf16(seed, dev, out),
             lambda: c.train_xlstm_bf16(seed, dev, out)],
             "bwd or backward or refuse_a_gradient or float64 or return_gradients"),
+        "distributed": (["flash_attention", "flash_attention_bwd"], [
+            lambda: c.train_sharded_bf16(seed, dev, out)], "sharded"),
     }
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("group", choices=("privacy", "verification", "families", "training"))
+    ap.add_argument("group", choices=("privacy", "verification", "families", "training",
+                                      "distributed"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None,
                     help="directory that also receives the phases' lines")

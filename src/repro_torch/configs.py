@@ -1,11 +1,13 @@
 """Architecture configs for the port: the fields of
 ``repro/configs/base.py`` (``LayerSpec``, ``MoESpec``, ``MambaSpec``,
 ``XLSTMSpec``, ``ArchConfig``, ``reduced``) and its eleven registered
-configs, kept as an own copy so the port never imports JAX.  The port has
-no ``use_kernels``: it launches its kernels for every CUDA tensor and runs
-the plain versions for every CPU tensor.  Neither has it the reference's
-dry-run helpers (``input_specs``, ``param_counts``, the long-context
-policy).
+configs, kept as an own copy so the port never imports JAX, with the
+reference's dry-run helpers: the long-context policy
+(``long_context_ok``, ``supports_long_context``), ``param_counts``,
+``ShapeSpec`` and ``SHAPES``, ``cell_is_runnable``, ``input_specs`` (meta
+tensors in place of ``jax.ShapeDtypeStruct``), ``cfg_enc_frames`` and
+``ASSIGNED``.  The port has no ``use_kernels``: it launches its kernels for
+every CUDA tensor and runs the plain versions for every other tensor.
 
 ``tests/test_torch_common.py`` holds every field here equal to the
 reference config, full and reduced, for all eleven.
@@ -101,6 +103,10 @@ class ArchConfig:
     n_enc_layers: int = 0
     n_image_tokens: int = 0       # vision: cross-attention memory length
 
+    # long-context policy: None = derive (every mixer sub-quadratic); the
+    # hybrid opts in (its few full-attention layers shard KV over 'data')
+    long_context_ok: Optional[bool] = None
+
     dtype: str = "bfloat16"       # activation/compute dtype
     param_dtype: str = "float32"  # storage dtype (serving casts to dtype)
 
@@ -131,6 +137,19 @@ class ArchConfig:
         return self.mamba.expand * self.d_model if self.mamba else 0
 
     @property
+    def supports_long_context(self) -> bool:
+        """True iff the decode state is sub-quadratic (no full-attention
+        layer), or the config opts in (``long_context_ok``)."""
+        if self.long_context_ok is not None:
+            return self.long_context_ok
+        return not any(s.mixer == "attn" and s.window is None
+                       for s in self.pattern)
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # every registered config is (or contains) a decoder
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
 
@@ -159,6 +178,110 @@ class ArchConfig:
                           if self.is_encdec else 0),
             n_image_tokens=16 if self.n_image_tokens else 0,
             pattern=pattern, dtype="float32", param_dtype="float32", **kw)
+
+    def param_counts(self) -> dict:
+        """{"total", "active"} parameters (dense, embeddings, experts; an
+        MoE layer's active ones are its top-k and shared experts), for
+        MODEL_FLOPS."""
+        d, dh = self.d_model, self.d_head
+        nq, nkv = self.n_heads, self.n_kv_heads
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        total = active = 0
+        for spec in self.pattern:
+            p = 0
+            if spec.mixer in ("attn", "cross_attn"):
+                p += d * nq * dh + 2 * d * nkv * dh + nq * dh * d
+            elif spec.mixer == "mamba":
+                di, ds = self.d_inner_mamba, self.mamba.d_state
+                p += d * 2 * di + di * self.mamba.d_conv + di * 2 * ds
+                p += di * ds + di + di * d  # dt/B/C proj + A + out
+            elif spec.mixer == "mlstm":
+                di = int(self.xlstm.proj_factor_mlstm * d)
+                p += d * 2 * di + 2 * di * di + 2 * di + di * d
+            elif spec.mixer == "slstm":
+                hdim = d // self.n_heads
+                p += 4 * d * d + 4 * self.n_heads * hdim * hdim
+                p += 3 * d * int(self.xlstm.proj_factor_slstm * d)
+            a = p
+            if spec.ffn == "dense" and self.d_ff:
+                ff = (3 if self.glu else 2) * d * self.d_ff
+                p += ff
+                a += ff
+            elif spec.ffn == "moe":
+                m = self.moe
+                per_e = 3 * d * m.d_ff_expert
+                p += (m.num_experts + m.num_shared) * per_e + d * m.num_experts
+                a += (m.top_k + m.num_shared) * per_e + d * m.num_experts
+            total += p
+            active += a
+        total = emb + self.n_repeats * total
+        active = emb + self.n_repeats * active
+        if self.is_encdec:
+            enc = self.n_enc_layers * (d * nq * dh * 2 + 2 * d * nkv * dh
+                                       + (3 if self.glu else 2) * d * self.d_ff)
+            total += enc
+            active += enc
+        return {"total": total, "active": active}
+
+
+# --------------------------------------------------------------------------
+# Shapes: the dry-run's input-shape set
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_is_runnable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell applies; the reason when it does not."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("full quadratic attention: 500k-token decode state is "
+                       "O(seq) KV with O(seq) attention per token — skipped "
+                       "per the brief (not sub-quadratic)")
+    return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Meta tensors standing in for every model input of this cell.
+
+    train:   tokens/labels (B, S) int32   [+ frames / image embeddings]
+    prefill: tokens (B, S) int32          [+ aux]
+    decode:  tokens (B, 1) int32, pos (B,) int32; the cache is part of the
+             step and comes from ``LM.cache_specs``.
+    """
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+    if shape.kind == "train":
+        specs = {"tokens": spec((B, S)), "labels": spec((B, S))}
+    elif shape.kind == "prefill":
+        specs = {"tokens": spec((B, S))}
+    else:
+        specs = {"tokens": spec((B, 1)), "pos": spec((B,))}
+    if shape.kind != "decode":   # decode reads the memory from its cache
+        if cfg.is_encdec:        # the stub frontend's frame embeddings
+            specs["frames"] = spec((B, S // 2, cfg.d_model), cfg.compute_dtype)
+        if cfg.n_image_tokens:
+            specs["image_embeds"] = spec((B, cfg.n_image_tokens, cfg.d_model),
+                                         cfg.compute_dtype)
+    return specs
+
+
+def cfg_enc_frames(cfg: ArchConfig, seq_len: int) -> int:
+    return seq_len // 2
 
 
 _REGISTRY: dict = {}
@@ -216,6 +339,7 @@ register(ArchConfig(
     moe=MoESpec(num_experts=16, top_k=2, d_ff_expert=14336, num_shared=0),
     mamba=MambaSpec(d_state=16, d_conv=4, expand=2, chunk=128),
     rope_theta=10_000.0,
+    long_context_ok=True,   # hybrid: 4 attention layers' KV shards over 'data'
     source="arXiv:2403.19887; hf",
 ))
 
@@ -394,3 +518,10 @@ register(ArchConfig(
     tie_embeddings=True,
     source="arXiv:2212.04356; unverified",
 ))
+
+
+ASSIGNED = [
+    "xlstm-1.3b", "gemma2-9b", "yi-34b", "h2o-danube-1.8b", "granite-20b",
+    "llama-3.2-vision-11b", "moonshot-v1-16b-a3b", "dbrx-132b",
+    "jamba-v0.1-52b", "whisper-base",
+]

@@ -1,2 +1,5 @@
-"""Distributed training pieces of the port; so far only the remat
-policies (``remat.py``) that the train step wraps each repeat in."""
+"""Distribution for the port: the sharding rules as DTensor placements
+(``sharding.py``), activation constraints and the weights' gathers
+(``constraints.py``), the sharded train step (``sharded_step.py``), the
+remat policies (``remat.py``), and the dry-run's accounting
+(``collectives.py``, ``trace_analysis.py``)."""

@@ -1,0 +1,128 @@
+"""The train step over a mesh: the counterpart of the reference's
+``jax.jit(train_step, in_shardings=..., out_shardings=...)``
+(``repro/launch/dryrun.py`` ``build_step``, ``tests/test_distributed_exec.py``).
+
+State: params and AdamW ``mu`` / ``nu`` are DTensors in
+``param_shardings(train=True)``'s placements (weights FSDP-sharded over
+'data', TP dims over 'model'); ``step`` is a plain tensor, the same on
+every rank.  The batch is a dict of DTensors split over the DP axes
+(``input_shardings``).
+
+Compute is not split over 'model' (tensor-parallel compute is later work):
+each rank runs the unsharded model code on plain local tensors, its slice
+of the batch over the DP ranks, and the ranks that share a data index
+compute the same slice.  Each stacked weight is all-gathered just before
+its layer uses it (``constraints.gather`` in ``lm._layer_slice``; remat
+gathers it again in the backward), the others once at the start of the
+step; the gradients come back summed over the data ranks and
+reduce-scattered onto the weights' placements.  The loss divides by the
+whole batch's label count and the MoE aux loss takes this rank's share, so
+the shares sum to the unsharded loss; AdamW clips by the norm over every
+rank's shards and updates each rank's shards in place of the whole.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.distributed import _functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.distributed import constraints, sharding
+from repro_torch.models.lm import lm_loss
+from repro_torch.training import optimizer as opt
+from repro_torch.training.optimizer import tree_leaves, tree_map
+
+
+def _waited(x):
+    """A functional collective's result, waited for."""
+    return x.wait() if isinstance(x, funcol.AsyncCollectiveTensor) else x
+
+
+def _stacked(path) -> bool:
+    return "blocks" in path or "layers" in path
+
+
+def compute_view(params):
+    """The params as the model code reads them on a rank: stacked leaves
+    (``blocks``, the encoder's ``layers``) stay DTensors, gathered layer by
+    layer where they are used; every other leaf is gathered now."""
+    return sharding.tree_map_with_path(
+        lambda path, t: t if _stacked(path) else constraints.gather(t), params)
+
+
+def _like(local, ref: DTensor) -> DTensor:
+    """``local`` as the shard of a DTensor placed as ``ref``."""
+    return DTensor.from_local(local, ref.device_mesh, ref.placements, run_check=False,
+                              shape=ref.shape, stride=ref.stride())
+
+
+def _replicas(t: DTensor) -> int:
+    """Ranks that hold each shard of ``t`` (its Replicate mesh dims)."""
+    return math.prod(n for n, p in zip(t.device_mesh.shape, t.placements)
+                     if isinstance(p, Replicate))
+
+
+def sharded_global_norm(grads, refs, group) -> torch.Tensor:
+    """The gradients' global norm from each rank's shards (``refs``: the
+    DTensors whose placements they have): every shard's sum of squares,
+    divided by the ranks that hold it, summed over ``group`` (every rank)."""
+    local = torch.stack([torch.sum(torch.square(g.float())) / _replicas(r)
+                         for g, r in zip(tree_leaves(grads), tree_leaves(refs))]).sum()
+    return torch.sqrt(_waited(funcol.all_reduce(local, "sum", group)))
+
+
+def init_state(params) -> dict:
+    """AdamW state for DTensor params: zero ``mu`` / ``nu`` placed as the
+    params, a plain ``step``."""
+    zeros = tree_map(lambda p: _like(torch.zeros(p.to_local().shape, dtype=torch.float32,
+                                                 device=p.to_local().device), p), params)
+    return {"mu": zeros, "nu": tree_map(lambda z: _like(z.to_local().clone(), z), zeros),
+            "step": torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)}
+
+
+def make_sharded_train_step(cfg, model, adamw: opt.AdamWConfig, mesh):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm", "lr"}), the unsharded ``make_train_step``'s
+    result on sharded state (module docstring).  ``mesh``: a
+    ``launch.mesh.Mesh``.  The batch must split over every DP axis."""
+    dp_axes = tuple(a for a in constraints.DP_AXES if a in mesh.axis_names)
+    dp_group = mesh.group(dp_axes)
+    world = mesh.group(mesh.axis_names)
+
+    def dp_sum(x):
+        return _waited(funcol.all_reduce(x, "sum", dp_group)) if dp_group is not None else x
+
+    def train_step(params, opt_state, batch):
+        B = batch["tokens"].shape[0]
+        if sharding.batch_axes(mesh, B) != dp_axes:
+            raise ValueError(f"batch {B} does not split over the DP axes {dp_axes} "
+                             f"of {mesh}")
+        local = {k: v.to_local() if isinstance(v, DTensor) else v for k, v in batch.items()}
+        refs = tree_leaves(params)
+        live = [p.to_local().detach().requires_grad_(True) for p in refs]
+        it = iter(_like(x, p) for x, p in zip(live, refs))
+        view = compute_view(tree_map(lambda _: next(it), params))
+        aux = {k: v for k, v in local.items() if k not in ("tokens", "labels")}
+        with constraints.activation_mesh(mesh), constraints.batch_slices(dp_group):
+            n_labels = dp_sum((local["labels"] >= 0).sum().float())
+            loss, _ = lm_loss(cfg, model, view, local["tokens"], local["labels"],
+                              aux=aux or None, remat=True, n_labels=n_labels)
+            gs = torch.autograd.grad(loss, live, allow_unused=True)
+        it = iter(torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+                  if g is None else g.float() for x, g in zip(live, gs))
+        grads = tree_map(lambda _: next(it), params)
+        local_params = tree_map(lambda p: p.to_local(), params)
+        state = {"mu": tree_map(lambda t: t.to_local(), opt_state["mu"]),
+                 "nu": tree_map(lambda t: t.to_local(), opt_state["nu"]),
+                 "step": opt_state["step"]}
+        gnorm = sharded_global_norm(grads, params, world)
+        new, state, om = opt.apply_updates(adamw, local_params, grads, state,
+                                           grad_norm=gnorm)
+        wrap = lambda t, ref: _like(t, ref)  # noqa: E731
+        return (tree_map(wrap, new, params),
+                {"mu": tree_map(wrap, state["mu"], params),
+                 "nu": tree_map(wrap, state["nu"], params), "step": state["step"]},
+                {"loss": dp_sum(loss.detach()), **om})
+
+    return train_step

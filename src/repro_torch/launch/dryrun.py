@@ -1,0 +1,209 @@
+"""Dry-run of one (arch x shape x mesh) cell on a fake process group: the
+port's counterpart of the reference's HLO dry-run
+(``repro/launch/dryrun.py``), which it replaces.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch ARCH \\
+        --shape {train_4k,prefill_32k,decode_32k,long_500k} [--multi-pod] \\
+        [--out results/dryrun_torch] [--force]
+
+The reference compiles the step for 256 (or 512) placeholder devices and
+reads XLA's partitioned HLO.  Here the process joins a fake process group
+of 256 (or 512) ranks as rank 0 (``dist.init_process_group("fake")``:
+collectives return at once and move nothing), builds the production mesh
+over it, and runs the cell's step once, on DTensors whose local shards are
+meta tensors in the sharding rules' placements, under
+``distributed.trace_analysis``: per-device flops, bytes (eager, unfused:
+an upper bound) and collective bytes, with the H100 data-sheet roofline
+(``distributed.collectives``).  Meta tensors are not CUDA tensors, so the
+model runs its kernels' plain versions, as the reference lowers its jnp
+path.  Train cells run ``make_sharded_train_step``; prefill and decode
+cells the serving entry points with bf16 weights sharded on 'model' only,
+compute not split over 'model' (each rank gathers the weights and its
+batch slice of the cache).
+
+Per-device argument bytes are the local shards' bytes, exactly; temporary
+bytes are the peak of live tensors the step made (``temp_peak_bytes``).
+The fake group is process-global, so run one cell a process (the sweep,
+``scripts/dryrun_sweep_torch.py``, does).  Records go to
+``<out>/<mesh>/<arch>_<shape>.json`` with the reference's fields.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+import traceback
+from pathlib import Path
+
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch import configs
+from repro_torch.distributed import (constraints, sharded_step, sharding,
+                                     trace_analysis)
+from repro_torch.distributed.collectives import CARD, roofline_terms
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.lm import LM
+from repro_torch.training.optimizer import AdamWConfig, tree_leaves
+
+
+def _local_bytes(tree) -> int:
+    return sum(t.to_local().numel() * t.element_size() if isinstance(t, DTensor)
+               else t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _cache_spec(cfg, model, shape):
+    T_mem = 0
+    if cfg.is_encdec:
+        T_mem = shape.seq_len // 2
+    elif cfg.n_image_tokens:
+        T_mem = cfg.n_image_tokens
+    return model.cache_specs(shape.global_batch, shape.seq_len, T_mem)
+
+
+def _batch_only(spec, batch_dim: int) -> sharding.P:
+    """``spec`` with every dim but ``batch_dim`` replicated."""
+    return sharding.P(*(e if i == batch_dim else None for i, e in enumerate(spec)))
+
+
+def build_step(cfg, shape, mesh):
+    """(fn, args) of the cell's step on this rank: ``fn(*args)`` runs it.
+    Train: ``make_sharded_train_step`` over params, AdamW state and batch
+    in the rules' placements.  Prefill / decode: bf16 weights on 'model'
+    only, the cache in ``cache_shardings``' placements; each rank gathers
+    what its batch slice needs and computes it whole."""
+    specs = configs.input_specs(cfg, shape)
+    batch = sharding.meta_shards(specs, sharding.input_shardings(cfg, specs, mesh))
+
+    if shape.kind == "train":
+        model = LM(cfg, device="meta")
+        p_spec = model.param_specs()
+        params = sharding.meta_shards(
+            p_spec, sharding.param_shardings(cfg, p_spec, mesh, train=True))
+        step = sharded_step.make_sharded_train_step(cfg, model, AdamWConfig(), mesh)
+        return step, (params, sharded_step.init_state(params), batch)
+
+    scfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    smodel = LM(scfg, device="meta")
+    p_spec = smodel.param_specs()
+    params = sharding.meta_shards(
+        p_spec, sharding.param_shardings(scfg, p_spec, mesh, train=False))
+    c_spec = _cache_spec(scfg, smodel, shape)
+    c_sh = sharding.cache_shardings(scfg, c_spec, mesh, long_ctx=shape.name == "long_500k")
+    dp_group = mesh.group(sharding.batch_axes(mesh, shape.global_batch))
+
+    def whole_slice(s):
+        """Placements of a cache leaf as a rank computes on it: its batch
+        slice (dim 1), every other dim whole."""
+        return sharding.placements(_batch_only(s.spec, 1), mesh)
+
+    def place(cache):
+        """A rank's whole-slice cache -> DTensors in ``c_sh`` (no traffic)."""
+        return sharding.zip_map(lambda t, s: DTensor.from_local(
+            t, mesh.device_mesh, whole_slice(s), run_check=False).redistribute(
+                mesh.device_mesh, s.placements), cache, c_sh)
+
+    def local(batch):
+        return {k: v.to_local() for k, v in batch.items()}
+
+    if shape.kind == "prefill":
+        def prefill_fn(params, batch):
+            b = local(batch)
+            aux = {k: v for k, v in b.items() if k != "tokens"}
+            with constraints.activation_mesh(mesh), constraints.batch_slices(dp_group):
+                logits, cache = smodel.prefill(sharded_step.compute_view(params), b["tokens"],
+                                               aux=aux or None, max_len=shape.seq_len)
+            return logits, place(cache)
+        return prefill_fn, (params, batch)
+
+    cache = sharding.meta_shards(c_spec, c_sh)
+
+    def decode_fn(params, cache, batch):
+        b = local(batch)
+        whole = sharding.zip_map(lambda t, s: t.redistribute(
+            mesh.device_mesh, whole_slice(s)).to_local(), cache, c_sh)
+        with constraints.activation_mesh(mesh), constraints.batch_slices(dp_group):
+            logits, whole = smodel.decode(sharded_step.compute_view(params), whole,
+                                          b["tokens"], b["pos"])
+        return logits, place(whole)
+    return decode_fn, (params, cache, batch)
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
+             force: bool = False) -> dict:
+    """Dry-run one cell (skipped where ``cell_is_runnable`` refuses it) and
+    write its record; an existing record is returned unless ``force``.  A
+    failing cell is a fault of the port's sharding: its record has
+    ``status`` "error", the error and its traceback."""
+    mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
+    out_path = Path(out_dir) / mesh_name / f"{arch}_{shape_name}.json"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    if out_path.exists() and not force:
+        return json.loads(out_path.read_text())
+
+    cfg = configs.get_config(arch)
+    shape = configs.SHAPES[shape_name]
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+           "kind": shape.kind, "seq_len": shape.seq_len,
+           "global_batch": shape.global_batch}
+    runnable, reason = configs.cell_is_runnable(cfg, shape)
+    if not runnable:
+        rec.update(status="skipped", reason=reason)
+        out_path.write_text(json.dumps(rec, indent=1))
+        return rec
+
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    n_dev = 512 if multi_pod else 256
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n_dev)
+    try:
+        t0 = time.time()
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        fn, args = build_step(cfg, shape, mesh)
+        t_build = time.time() - t0
+        ta = trace_analysis.analyze(fn, *args)
+        t_trace = time.time() - t0 - t_build
+        counts = cfg.param_counts()
+        rec.update(
+            status="ok", build_s=round(t_build, 2), trace_s=round(t_trace, 2),
+            n_devices=int(mesh.size),
+            memory_analysis={"argument_size_in_bytes": _local_bytes(args),
+                             "temp_size_in_bytes": ta["temp_peak_bytes"]},
+            trace_analysis=ta,
+            roofline=dict(roofline_terms(ta["flops"], ta["bytes"], ta["coll_eff_bytes"]),
+                          card=CARD),
+            params_total=counts["total"], params_active=counts["active"])
+    except Exception as e:  # a failing cell is a fault of the port's sharding
+        rec.update(status="error", error=f"{type(e).__name__}: {e}",
+                   traceback=traceback.format_exc()[-4000:])
+    finally:
+        dist.destroy_process_group()
+    out_path.write_text(json.dumps(rec, indent=1))
+    return rec
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True, choices=list(configs.SHAPES))
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--out", default="results/dryrun_torch")
+    ap.add_argument("--force", action="store_true")
+    args = ap.parse_args()
+    rec = run_cell(args.arch, args.shape, args.multi_pod, Path(args.out), args.force)
+    brief = {k: rec.get(k) for k in ("arch", "shape", "mesh", "status", "trace_s", "error")}
+    if rec.get("status") == "ok":
+        t = rec["trace_analysis"]
+        print(json.dumps({**brief, "n_devices": rec["n_devices"],
+                          "flops_per_dev": t["flops"], "bytes_per_dev": t["bytes"],
+                          "coll_eff_bytes_per_dev": t["coll_eff_bytes"],
+                          "mem": rec["memory_analysis"], "roofline": rec["roofline"]}))
+    else:
+        print(json.dumps(brief))
+        if rec.get("status") == "error":
+            print(rec.get("traceback", ""))
+            raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

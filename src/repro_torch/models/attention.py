@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import constraints
 from repro_torch.kernels.decode_attention.ops import \
     decode_attention as dense_decode_kernel
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
@@ -99,11 +100,14 @@ def full_attention(cfg, q, k, v, causal: bool = True,
     which reads these layouts through its strides (heads-before-positions
     views, no copies).  Where grad mode is on and an input requires grad,
     on the card, the kernel's ``FlashAttention`` gives the gradient (its
-    backward kernel)."""
+    backward kernel).  Under a mesh, the queries (and so the scores and
+    probabilities inside the kernel) and the output pin batch to the DP
+    axes and heads to the TP axis."""
+    q = constraints.pin(q, ("batch", None, "model", None))
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal, window=window,
                         softcap=cfg.attn_softcap or None, scale=_scale(cfg))
-    return o.transpose(1, 2)
+    return constraints.pin(o.transpose(1, 2), ("batch", None, "model", None))
 
 
 def cross_attention(cfg, p, x, positions, k, v):
@@ -117,7 +121,10 @@ def cross_attention(cfg, p, x, positions, k, v):
 def decode_attention(cfg, q, k_cache, v_cache, lengths):
     """One-token decode over a dense cache.  q: (B, 1, nq, h); caches: (B,
     S, nkv, h); lengths: (B,), row b attending to cache slots [0, len) (0 =
-    dead row, output discarded)."""
+    dead row, output discarded).  Under a mesh the caches pin batch to the
+    DP axes and KV heads to the TP axis."""
+    k_cache = constraints.pin(k_cache, ("batch", None, "model", None))
+    v_cache = constraints.pin(v_cache, ("batch", None, "model", None))
     o = dense_decode_kernel(q[:, 0].contiguous(), k_cache, v_cache,
                             lengths.to(torch.int32).contiguous(),
                             softcap=cfg.attn_softcap or None,

@@ -27,6 +27,7 @@ from torch import nn
 
 from repro_torch import require_device
 from repro_torch.configs import LayerSpec
+from repro_torch.distributed import constraints
 from repro_torch.distributed import remat as remat_lib
 from repro_torch.models import attention, common, mamba, moe, xlstm
 
@@ -329,9 +330,11 @@ def layer_verify_paged(cfg, spec, p, x, pos, arena, page_table, n_tok=None):
 
 
 def _layer_slice(tree, r):
-    """Repeat ``r`` of a stacked params subtree."""
-    return {k: _layer_slice(v, r) if isinstance(v, dict) else v[r]
-            for k, v in tree.items()}
+    """Repeat ``r`` of a stacked params subtree; a sharded (DTensor) leaf
+    is gathered here, just before its layer uses it
+    (``constraints.gather``)."""
+    return {k: _layer_slice(v, r) if isinstance(v, dict)
+            else constraints.gather(v[r]) for k, v in tree.items()}
 
 
 # --------------------------------------------------------------------------
@@ -390,7 +393,7 @@ class LM(nn.Module):
         if cfg.rope_theta <= 0:
             idx = positions.long().clamp(max=MAX_LEARNED_POS - 1)
             x = x + params["pos_embed"][idx].to(cfg.compute_dtype)
-        return x
+        return constraints.constrain_batch(x)
 
     def _memory(self, params, aux):
         """What the cross-attention layers attend: the encoder's output
@@ -423,6 +426,18 @@ class LM(nn.Module):
         """Only attention KV has per-position state to page; recurrent
         and cross-attention mixers keep the dense slot pool."""
         return all(s.mixer == "attn" for s in self.cfg.pattern)
+
+    # ---------------- shapes ----------------
+    def param_specs(self):
+        """The weight tree as meta tensors (``init_params`` on the meta
+        device: shapes and dtypes, no storage), the reference's
+        ``jax.eval_shape(self.init, key)``."""
+        from repro_torch.params import init_params
+        return init_params(self.cfg, None, device="meta")
+
+    def cache_specs(self, B, max_len, T_mem=0):
+        """``cache_zeros(B, max_len, T_mem)`` as meta tensors."""
+        return LM(self.cfg, "meta").cache_zeros(B, max_len, T_mem)
 
     # ---------------- full forward ----------------
     @torch.no_grad()
@@ -563,11 +578,14 @@ class LM(nn.Module):
 # Loss
 # --------------------------------------------------------------------------
 
-def lm_loss(cfg, model: LM, params, tokens, labels, aux=None, remat=True):
+def lm_loss(cfg, model: LM, params, tokens, labels, aux=None, remat=True,
+            n_labels=None):
     """Mean next-token cross-entropy over the labels >= 0 (the reference's
     ``lm_loss``).  Returns (total, {"ce", "moe_aux", "tokens"}) with total
     = ce + 0.01 * moe_aux, the MoE configs' Switch load-balance loss (0
-    without MoE)."""
+    without MoE).  ``n_labels``: the count to divide the summed
+    cross-entropy by (default: this batch's labels >= 0); a rank that holds
+    a slice of the batch passes the whole batch's count."""
     collect = cfg.moe is not None
     out = model.apply(params, tokens, aux=aux, remat=remat, collect_aux=collect)
     logits, moe_aux = out if collect else \
@@ -577,6 +595,6 @@ def lm_loss(cfg, model: LM, params, tokens, labels, aux=None, remat=True):
     safe = labels.clamp_min(0).long()
     ll = torch.gather(logits, -1, safe[..., None])[..., 0] \
         - torch.logsumexp(logits, dim=-1)
-    ce = -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+    ce = -(ll * mask).sum() / (mask.sum() if n_labels is None else n_labels).clamp_min(1.0)
     return ce + 0.01 * moe_aux, {"ce": ce, "moe_aux": moe_aux,
                                  "tokens": mask.sum()}

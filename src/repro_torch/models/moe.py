@@ -15,14 +15,21 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed import _functional_collectives as funcol
 
+from repro_torch.distributed import constraints
 from repro_torch.models import common
 
 
-def _n_groups(batch: int, target: int = 16) -> int:
-    """Dispatch groups: the reference's ``gcd(dp_extent or 16, batch)``; on
-    one device there is no data-parallel extent, so ``gcd(16, batch)``."""
-    return math.gcd(target, batch)
+def _n_groups(batch: int) -> int:
+    """Dispatch groups: the installed mesh's DP extent where it divides the
+    batch, else the largest divisor of the batch up to 16: ``gcd(dp_extent
+    or 16, batch)``.  On a rank's batch slice (``constraints.batch_slices``)
+    the DP extent divides the global batch, so each rank holds one of those
+    groups."""
+    if constraints.dp_group() is not None:
+        return 1
+    return math.gcd(constraints.dp_extent() or 16, batch)
 
 
 def _glu(cfg, p, x, eq_in, eq_out):
@@ -39,7 +46,11 @@ def moe_ffn(cfg, p, x, capacity_factor: Optional[float] = None,
     Switch load-balance loss ``E * sum(frac_tokens * mean_probs)``, each
     factor averaged over the dispatch groups: ``frac_tokens`` the share of
     a group's (token, k) slots routed to each expert (before the capacity
-    drop), ``mean_probs`` the group's mean router probability of each."""
+    drop), ``mean_probs`` the group's mean router probability of each.  On
+    a rank's batch slice the loss is this rank's share: ``frac_tokens``
+    averaged over the DP ranks' groups, times this group's probabilities
+    over the DP extent, so the shares sum over the ranks to the loss of the
+    whole batch and its gradient."""
     m = cfg.moe
     cf = m.capacity_factor if capacity_factor is None else capacity_factor
     B, S, d = x.shape
@@ -49,7 +60,7 @@ def moe_ffn(cfg, p, x, capacity_factor: Optional[float] = None,
     G = _n_groups(B)
     Tg = T // G
     C = max(1, math.ceil(Tg * k / E * cf))
-    xt = x.reshape(G, Tg, d)
+    xt = constraints.pin(x.reshape(G, Tg, d), ("batch", None, None))
     dev = x.device
 
     probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)  # (G,Tg,E)
@@ -70,14 +81,17 @@ def moe_ffn(cfg, p, x, capacity_factor: Optional[float] = None,
     buf = torch.zeros((G, E, C + 1, d), dtype=dt, device=dev)
     src = torch.gather(xt, 1, tok_of_slot[..., None].expand(G, Tg * k, d))
     buf[g_ix, sorted_e, pos_c] = src.to(dt)
-    out_buf = _glu(cfg, p, buf[:, :, :C], "gecd,edf->gecf", "gecf,efd->gecd")
+    # experts on the model axis where the weights live, groups on the DP axes
+    buf = constraints.pin(buf[:, :, :C], ("batch", "model", None, None))
+    out_buf = _glu(cfg, p, buf, "gecd,edf->gecf", "gecf,efd->gecd")
+    out_buf = constraints.pin(out_buf, ("batch", None, None, None))
 
     w_sorted = torch.gather(gate_w.reshape(G, Tg * k), 1, order).to(dt)
     slot_out = torch.nn.functional.pad(out_buf, (0, 0, 0, 1))[g_ix, sorted_e, pos_c]
     contrib = slot_out * (w_sorted * keep.to(dt))[..., None]
     out = torch.zeros((G, Tg, d), dtype=dt, device=dev)
     out.scatter_add_(1, tok_of_slot[..., None].expand(G, Tg * k, d), contrib)
-    out = out.reshape(T, d)
+    out = constraints.pin(out, ("batch", None, None)).reshape(T, d)
     if m.num_shared:
         out = out + _glu(cfg, p["shared"], x.reshape(T, d).to(dt),
                          "td,df->tf", "tf,fd->td")
@@ -86,5 +100,11 @@ def moe_ffn(cfg, p, x, capacity_factor: Optional[float] = None,
         return out
     frac = torch.zeros((G, E), dtype=torch.float32, device=dev)
     frac.scatter_add_(1, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
-    frac = frac / (Tg * k)
-    return out, E * torch.sum(frac.mean(0) * probs.mean(1).mean(0))
+    frac = (frac / (Tg * k)).mean(0)
+    mean_probs = probs.mean(1).mean(0)
+    group = constraints.dp_group()
+    if group is not None:
+        n = group.size()
+        frac = funcol.all_reduce(frac, "sum", group) / n
+        mean_probs = mean_probs / n
+    return out, E * torch.sum(frac * mean_probs)

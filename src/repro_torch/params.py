@@ -46,7 +46,9 @@ def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
     the LM head and the learned positions, ones for norm scales, zeros for
     LayerNorm biases.  ``generator`` must live
     on ``device``; ``dtype`` defaults to ``cfg.params_dtype``.  The numbers
-    differ from the reference's for the same seed (another generator)."""
+    differ from the reference's for the same seed (another generator).  On
+    the meta device (``LM.param_specs``) nothing is drawn (``generator``
+    may be None) and the projections skip their per-layer loop."""
     dev = require_device(device)
     dtype = dtype or cfg.params_dtype
     R, d = cfg.n_repeats, cfg.d_model
@@ -56,6 +58,8 @@ def init_params(cfg, generator: torch.Generator, device="cuda", dtype=None):
         the leading axis) at a time in float32, so a full-width model never
         holds a float32 copy of itself."""
         out = torch.empty((n, *shape), dtype=dtype, device=dev)
+        if dev.type == "meta":
+            return out
         part = shape[1:] if per_expert else shape
         for r in range(n):
             for e in range(shape[0] if per_expert else 1):

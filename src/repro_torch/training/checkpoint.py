@@ -12,6 +12,11 @@ stored through its int16 view with ``"bfloat16"`` as its dtype name.
 Leaves are tensors (numpy arrays and scalars are taken as tensors).
 Restore takes a target tree for the structure and puts each leaf on the
 target leaf's device.
+
+Sharded trees: ``save`` gathers each DTensor leaf (every rank calls it,
+rank 0 writes, all wait for the write); ``restore`` with ``shardings``
+gives each rank its shard of the new placements, so a checkpoint saved on
+one mesh restores onto another (the elastic re-mesh).
 """
 from __future__ import annotations
 
@@ -22,7 +27,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import sharding
 from repro_torch.training.optimizer import tree_leaves, tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -37,12 +45,26 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 
 def save(ckpt_dir, step: int, tree, process_index: int = 0) -> Path:
+    """Write ``tree`` as step ``step``.  With DTensor leaves every rank of
+    their group must call it: the leaves are gathered, rank 0 writes, and
+    every rank returns once the checkpoint is committed."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
+    leaves = tree_leaves(tree)
+    if any(isinstance(x, DTensor) for x in leaves):
+        leaves = [x.full_tensor() if isinstance(x, DTensor) else x for x in leaves]
+        if dist.get_rank() == 0:
+            _write(d, step, leaves, process_index)
+        dist.barrier()
+        return d
+    return _write(d, step, leaves, process_index)
+
+
+def _write(d: Path, step: int, leaves, process_index: int) -> Path:
     tmp = Path(str(d) + ".tmp")
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-    leaves = [torch.as_tensor(x) for x in tree_leaves(tree)]
+    leaves = [torch.as_tensor(x) for x in leaves]
     np.savez(tmp / f"shard_{process_index}.npz",
              **{f"a{i}": _array(x) for i, x in enumerate(leaves)})
     manifest = {"step": step, "n_leaves": len(leaves),
@@ -65,10 +87,13 @@ def latest_step(ckpt_dir) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir, step: int, target_tree):
+def restore(ckpt_dir, step: int, target_tree, shardings=None):
     """The tree saved at ``step``, shaped as ``target_tree`` (its leaves
     give the structure and, for tensors, the device; other leaves come
-    back as CPU tensors).  Returns (tree, step)."""
+    back as CPU tensors).  ``shardings``: a tree of
+    ``sharding.NamedSharding`` (``param_shardings`` on the new mesh); each
+    leaf then comes back as a DTensor in its sharding, each rank holding
+    its own shard.  Returns (tree, step)."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     if not (d / "COMMITTED").exists():
         raise FileNotFoundError(f"no committed checkpoint at {d}")
@@ -86,7 +111,10 @@ def restore(ckpt_dir, step: int, target_tree):
         leaves.append(t.to(dtype=_DTYPES[name],
                            device=getattr(target, "device", "cpu")))
     it = iter(leaves)
-    return tree_map(lambda _: next(it), target_tree), manifest["step"]
+    tree = tree_map(lambda _: next(it), target_tree)
+    if shardings is not None:
+        tree = sharding.distribute(tree, shardings)
+    return tree, manifest["step"]
 
 
 def prune(ckpt_dir, keep: int = 3):

@@ -85,12 +85,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state):
+def apply_updates(cfg: AdamWConfig, params, grads, state, grad_norm=None):
     """One AdamW step.  Returns (new_params, new_state, {"grad_norm",
     "lr"}); the gradients are clipped to ``grad_clip`` by their global
-    norm, weight decay is decoupled."""
+    norm, weight decay is decoupled.  ``grad_norm``: that norm where the
+    trees are one rank's shards (the sharded step's, over every rank);
+    default ``global_norm(grads)``."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     stepf = step.to(torch.float32)

@@ -17,7 +17,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-SCRIPT_FILES = sorted((ROOT / "scripts").glob("*phases.py"))
+SCRIPT_FILES = sorted((ROOT / "scripts").glob("*phases.py")) + \
+    [ROOT / "scripts" / "dryrun_sweep_torch.py"]
 
 
 def _imported(path):

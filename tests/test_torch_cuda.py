@@ -1344,3 +1344,47 @@ def test_lm_loss_backward_on_card_matches_cpu(card, name):
         assert torch.isfinite(a).all()
         atol = 2e-4 if name != "xlstm-1.3b" else max(2e-4, 1e-4 * b.abs().max().item())
         torch.testing.assert_close(a, b, atol=atol, rtol=2e-4)
+
+
+@pytest.mark.parametrize("name", [NAME, "moonshot-v1-16b-a3b"])
+def test_sharded_step_on_one_nccl_rank_matches_unsharded(card, name, tmp_path):
+    """``make_sharded_train_step`` on a one-rank NCCL group over a (1, 1)
+    mesh against ``make_train_step``, both on the card, reduced float32:
+    loss and every leaf of params, mu and nu within 2e-5, and the same
+    flash launches (forward twice under remat, backward once a layer)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharded_step, sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import make_train_step
+    cfg = configs.get_config(name).reduced()
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(0), card)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 48)).astype(np.int32)).to(card)
+             for k in ("tokens", "labels")}
+    adamw = opt.AdamWConfig(lr=1e-3)
+    counters = (flash_ops.flash_attention, flash_ops.flash_attention_bwd)
+    for fn in counters:
+        fn.launches = 0
+    want_p, want_s, want_m = make_train_step(cfg, LM(cfg, card), adamw)(
+        params, opt.init_state(params), batch)
+    want_launches = [fn.launches for fn in counters]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh(1)
+        p = sharding.distribute(params, sharding.param_shardings(cfg, params, mesh, True))
+        b = sharding.distribute(batch, sharding.input_shardings(cfg, batch, mesh))
+        for fn in counters:
+            fn.launches = 0
+        got_p, got_s, got_m = sharded_step.make_sharded_train_step(
+            cfg, LM(cfg, card), adamw, mesh)(p, sharded_step.init_state(p), b)
+        assert [fn.launches for fn in counters] == want_launches
+        torch.testing.assert_close(got_m["loss"], want_m["loss"], atol=0, rtol=2e-5)
+        for g, w in zip(opt.tree_leaves((got_p, got_s["mu"], got_s["nu"])),
+                        opt.tree_leaves((want_p, want_s["mu"], want_s["nu"]))):
+            torch.testing.assert_close(g.to_local(), w, rtol=2e-5,
+                                       atol=2e-5 * w.abs().max().item())
+    finally:
+        dist.destroy_process_group()
