@@ -58,8 +58,13 @@ it, and drives the port's serving and training paths, each at full width:
 * distribution: the sharded train step (DTensor params and AdamW state,
   each layer's weights gathered before use) on a one-rank NCCL group over a
   (data=1, model=1) mesh, one float32 step against the unsharded step bit
-  for bit, then the llama training run above through it; and the dry-run
-  of one 16 x 16 cell (a fake process group of 256 ranks) on this host.
+  for bit, then the llama training run above through it; the dry-run of
+  one 16 x 16 cell (a fake process group of 256 ranks) on this host; and
+  tensor-parallel compute over 'model' at the production mesh's extent 16:
+  one full-width layer each of ``gentorrent-llama3-8b``, ``granite-20b``,
+  ``gemma2-9b`` and ``moonshot-v1-16b-a3b``, its 16 ranks' local attention
+  (both flash kernels on each rank's heads) and FFN run one after another
+  on the card and summed, against the unsharded layer in float32 and bf16.
 
 It prints one JSON line per phase.  Every phase must pass: any failure
 ends the run with a nonzero exit.  With no CUDA card it exits nonzero
@@ -613,7 +618,8 @@ def check_dense_flash(gen, dev):
     verifier's (``LM.apply`` over two challenges of 16-64 prompt and 16
     response tokens: B=2, S=48 and S=80, timed at S=80) and a long
     two-row prompt (B=2, S=1024, timed: its own launch count is 0 on the
-    serving run, 1 per 2048-token prefill)."""
+    serving run, 1 per 2048-token prefill); then one rank's heads at model
+    extent 16 (``_flash_tp_fwd``)."""
     from repro_torch.kernels.flash_attention import ops, ref
     H, Hkv, D = 32, 8, 128
 
@@ -655,6 +661,7 @@ def check_dense_flash(gen, dev):
     vkr, vvr = (t.repeat_interleave(H // Hkv, dim=1) for t in vx[1:])
     v_library_ms = time_ms(lambda: sdpa(vx[0], vkr, vvr, is_causal=True))
     full = _full_flash(gen, dev, errs)
+    tp_layouts = _flash_tp_fwd(gen, dev, errs)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
@@ -669,7 +676,7 @@ def check_dense_flash(gen, dev):
                              "ms": v_ms[0], "event_ms": v_ms[1], "plain_ms": v_plain_ms,
                              "bound_ms": v_bound_ms, "bound_by": v_bound_by,
                              "library_ms": v_library_ms},
-            **full, "errs": errs}
+            **full, "tp_layouts": tp_layouts, "errs": errs}
 
 
 # the backward's cases: (B, H, Hkv, Sq, Skv, D, causal, window, softcap): the
@@ -752,7 +759,8 @@ def _flash_bwd_plans_agree():
     dtypes; returns the shapes compared."""
     from repro_torch.kernels.flash_attention import ops
     layouts = {(H, Hkv, D) for B, H, Hkv, Sq, Skv, D, *_ in
-               (*FLASH_BWD_SHAPES.values(), *FLASH_BWD_TIMED.values())}
+               (*FLASH_BWD_SHAPES.values(), *FLASH_BWD_TIMED.values())} \
+        | {(H, Hkv, D) for H, Hkv, D, _ in TP_LAYOUTS.values()}
     n = 0
     for H, Hkv, D in sorted(layouts):
         for B in (1, 2, 8):
@@ -777,73 +785,20 @@ def check_flash_bwd(gen, dev):
     ``FLASH_BWD_TIMED``'s, each beside its bound, the plain version and the
     backward of SDPA (the backward pass alone; without the softcap, which
     SDPA does not take), with each device function's launches held to the
-    plan's."""
-    from repro_torch.kernels.flash_attention import ops, ref
+    plan's; then ``_flash_tp_bwd``'s local layouts."""
     errs, same_bits = {}, {}
     for name, shape in FLASH_BWD_SHAPES.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            r = flash_bwd_case(gen, dev, shape, dtype)
-            key = f"{name}/{r['key']}"
-            same_bits[key] = r["same_bits"]
-            assert same_bits[key], (name, dtype, "two calls differ")
-            assert r["lse_err"] <= 1e-4, (name, dtype, r["lse_err"])
-            for gname, (abs_err, err) in r["errs"].items():
-                assert err <= FLASH_BWD_TOL[dtype], (name, dtype, gname, err)
-                errs[f"{key}/{gname}"] = [abs_err, err / FLASH_BWD_TOL[dtype]]
+        _flash_bwd_checked(gen, dev, name, shape, errs, same_bits)
     plans_compared = _flash_bwd_plans_agree()
-
-    def inputs(*shape):
-        return _flash_bwd_inputs(gen, dev, *shape)
-
-    def timed(B, H, Hkv, S, Skv, D, causal, window, softcap):
-        """Device ms of the kernel, its plain version and SDPA's backward at
-        one bf16 shape, with the bound and the launch plan."""
-        q, k, v, do = inputs(B, H, Hkv, S, Skv, D, torch.bfloat16)
-        kw = dict(causal=causal, window=window, softcap=softcap)
-        o, lse = ops._dense_forward(q, k, v, causal, window, softcap, D ** -0.5,
-                                    with_lse=True)
-        ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do, lse, **kw), iters=5,
-                     warmup=2)
-        plain_ms = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, do, lse, **kw), iters=2,
-                           warmup=1)
-        b_ms, b_by = bound(*_flash_bwd_cost(B, H, Hkv, S, Skv, D, causal, 2), torch.bfloat16)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        x = [t.detach().repeat_interleave(H // t.shape[1], dim=1).requires_grad_(True)
-             for t in (q, k, v)]
-        out = sdpa(*x, is_causal=causal)
-        library_ms = time_ms(lambda: torch.autograd.grad(out, x, do, retain_graph=True),
-                             iters=10, warmup=2)
-        fwd_ms = time_ms(lambda: ops._dense_forward(q, k, v, causal, window, softcap,
-                                                    D ** -0.5, with_lse=True),
-                         iters=10, warmup=2)
-
-        def calls(n=5):
-            for _ in range(n):
-                ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
-            torch.cuda.synchronize()
-        by_kernel = {f: {"ms": r["ms"] / 5, "launches": r["launches"] / 5}
-                     for f, r in _bwd_kernel_ms(_device_rows(calls, tries=5)).items()
-                     if r["launches"]}
-        plan = ops.bwd_plan(B, H, Hkv, S, Skv, D, torch.bfloat16)
-        planned = collections.Counter(k["name"] for k in plan["launches"])
-        assert {f: r["launches"] for f, r in by_kernel.items()} == planned, \
-            (by_kernel, planned)
-        del x, out, q, k, v, do, o, lse
-        launches = [[k["name"], k.get("pass"), list(k["grid"]), k["threads"], k["smem"]]
-                    for k in plan["launches"]]
-        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": library_ms, "forward_with_lse_ms": fwd_ms,
-                "by_kernel": by_kernel,
-                "plan": {"splits": plan["splits"], "launches": launches}}
-
-    train = timed(*FLASH_BWD_SHAPES["train"])
+    train = _flash_bwd_timed(gen, dev, *FLASH_BWD_SHAPES["train"])
     others = {}
     for name, shape in FLASH_BWD_TIMED.items():
         B, H, Hkv, S, _, D, _, _, softcap = shape
         others[name] = {"shape": f"B={B} H={H} Hkv={Hkv} S={S} D={D} causal bf16"
                                  + (f" softcap {softcap}" if softcap else ""),
-                        **timed(*shape)}
+                        **_flash_bwd_timed(gen, dev, *shape)}
         _free()
+    tp_layouts = _flash_tp_bwd(gen, dev, errs)
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83 (backward of; "
@@ -851,9 +806,139 @@ def check_flash_bwd(gen, dev):
             **_summary(errs), **train,
             "timed_at": "B=2 H=32 Hkv=8 S=2048 D=128 causal bf16, (B,S,H,D) views; "
                         "library: SDPA's backward alone on H-expanded K/V",
-            "timed_more": others,
+            "timed_more": others, "tp_layouts": tp_layouts,
             "same_bits_on_a_second_call": all(same_bits.values()),
             "plans_equal_the_source": plans_compared, "errs": errs}
+
+
+def _flash_bwd_checked(gen, dev, name, shape, errs, same_bits):
+    """One backward case in f32 and bf16 (``flash_bwd_case``), each
+    gradient within ``FLASH_BWD_TOL`` of its largest entry and a second
+    call giving the same bits (asserted), into ``errs`` / ``same_bits``."""
+    for dtype in (torch.float32, torch.bfloat16):
+        r = flash_bwd_case(gen, dev, shape, dtype)
+        key = f"{name}/{r['key']}"
+        same_bits[key] = r["same_bits"]
+        assert same_bits[key], (name, dtype, "two calls differ")
+        assert r["lse_err"] <= 1e-4, (name, dtype, r["lse_err"])
+        for gname, (abs_err, err) in r["errs"].items():
+            assert err <= FLASH_BWD_TOL[dtype], (name, dtype, gname, err)
+            errs[f"{key}/{gname}"] = [abs_err, err / FLASH_BWD_TOL[dtype]]
+
+
+def _flash_bwd_timed(gen, dev, B, H, Hkv, S, Skv, D, causal, window, softcap):
+    """Device ms of the backward kernel, its plain version and SDPA's
+    backward at one bf16 shape, with the bound and the launch plan (each
+    device function's launches held to the plan's)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, k, v, do = _flash_bwd_inputs(gen, dev, B, H, Hkv, S, Skv, D, torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = ops._dense_forward(q, k, v, causal, window, softcap, D ** -0.5,
+                                with_lse=True)
+    ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do, lse, **kw), iters=5,
+                 warmup=2)
+    plain_ms = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, do, lse, **kw), iters=2,
+                       warmup=1)
+    b_ms, b_by = bound(*_flash_bwd_cost(B, H, Hkv, S, Skv, D, causal, 2), torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    x = [t.detach().repeat_interleave(H // t.shape[1], dim=1).requires_grad_(True)
+         for t in (q, k, v)]
+    out = sdpa(*x, is_causal=causal)
+    library_ms = time_ms(lambda: torch.autograd.grad(out, x, do, retain_graph=True),
+                         iters=10, warmup=2)
+    fwd_ms = time_ms(lambda: ops._dense_forward(q, k, v, causal, window, softcap,
+                                                D ** -0.5, with_lse=True),
+                     iters=10, warmup=2)
+
+    def calls(n=5):
+        for _ in range(n):
+            ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        torch.cuda.synchronize()
+    by_kernel = {f: {"ms": r["ms"] / 5, "launches": r["launches"] / 5}
+                 for f, r in _bwd_kernel_ms(_device_rows(calls, tries=5)).items()
+                 if r["launches"]}
+    plan = ops.bwd_plan(B, H, Hkv, S, Skv, D, torch.bfloat16)
+    planned = collections.Counter(k["name"] for k in plan["launches"])
+    assert {f: r["launches"] for f, r in by_kernel.items()} == planned, \
+        (by_kernel, planned)
+    del x, out, q, k, v, do, o, lse
+    launches = [[k["name"], k.get("pass"), list(k["grid"]), k["threads"], k["smem"]]
+                for k in plan["launches"]]
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "forward_with_lse_ms": fwd_ms,
+            "by_kernel": by_kernel,
+            "plan": {"splits": plan["splits"], "launches": launches}}
+
+
+# the flash kernels on one rank's heads at model extent 16, the production
+# mesh's (tensor-parallel compute over 'model', distributed/tensor_parallel.py):
+# (H, Hkv, D, softcap) of the rank's query and KV heads
+TP_LAYOUTS = {"llama": (2, 1, 128, None),     # llama, danube, vision, jamba's attention
+              "granite": (3, 1, 128, None),   # granite; dbrx (inside a group of 6)
+              "gemma2": (1, 1, 256, 50.0),
+              "moonshot": (1, 1, 128, None)}  # KV heads on 'model'
+TP_B, TP_S = 1, 2048                          # the tp_emulated_bf16 phase's tokens
+
+
+def _flash_tp_fwd(gen, dev, errs):
+    """The dense entry at each ``TP_LAYOUTS`` layout, B=1 S=2048 causal
+    (with the layout's softcap): float32 and bf16 against the plain
+    version (into ``errs``), bf16 timed beside its bound, the plain
+    version and SDPA (on K/V expanded to the query heads; without the
+    softcap, which SDPA does not take)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, (H, Hkv, D, softcap) in TP_LAYOUTS.items():
+        q = torch.randn(TP_B, TP_S, H, D, generator=gen, device=dev).transpose(1, 2)
+        k, v = (torch.randn(TP_B, TP_S, Hkv, D, generator=gen, device=dev).transpose(1, 2)
+                for _ in range(2))
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [t.to(dtype) for t in (q, k, v)]
+            got = ops.flash_attention(*x, softcap=softcap)
+            want = ref.attention_ref(*[t.float() for t in x], softcap=softcap)
+            torch.cuda.synchronize()
+            errs[f"tp_{name}/H{H}/Hkv{Hkv}/D{D}/{str(dtype)[6:]}/cap{softcap}"] = \
+                close(got, want, dtype)
+        x = [t.to(torch.bfloat16) for t in (q, k, v)]
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in x[1:])
+        b_ms, b_by = bound(*_dense_flash_cost(TP_B, H, Hkv, TP_S, D, 2), torch.bfloat16)
+        out[name] = {"shape": f"B={TP_B} H={H} Hkv={Hkv} S={TP_S} D={D} causal bf16"
+                              + (f" softcap {softcap}" if softcap else ""),
+                     "ms": time_ms(lambda: ops.flash_attention(*x, softcap=softcap), iters=20),
+                     "plain_ms": time_ms(lambda: ref.attention_ref(*x, softcap=softcap),
+                                         iters=5),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": time_ms(lambda: sdpa(x[0], kr, vr, is_causal=True),
+                                           iters=20)}
+    return out
+
+
+def _flash_tp_bwd(gen, dev, errs):
+    """The backward at each ``TP_LAYOUTS`` layout, B=1 S=2048 causal:
+    float32 (at a quarter of the sequence) and bf16 against the plain
+    version (``_flash_bwd_checked``, into ``errs``), bf16 timed
+    (``_flash_bwd_timed``)."""
+    out, same_bits = {}, {}
+    for name, (H, Hkv, D, softcap) in TP_LAYOUTS.items():
+        shape = (TP_B, H, Hkv, TP_S, TP_S, D, True, None, softcap)
+        _flash_bwd_checked(gen, dev, f"tp_{name}", shape, errs, same_bits)
+        out[name] = {"shape": f"B={TP_B} H={H} Hkv={Hkv} S={TP_S} D={D} causal bf16"
+                              + (f" softcap {softcap}" if softcap else ""),
+                     **_flash_bwd_timed(gen, dev, *shape)}
+        _free()
+    return out
+
+
+def check_flash_tp_layouts(gen, dev):
+    """Both flash kernels at ``TP_LAYOUTS`` alone (the ``distributed``
+    group of ``scripts/phases.py``): ``_flash_tp_fwd`` and
+    ``_flash_tp_bwd`` with their error summaries."""
+    fwd_errs, bwd_errs = {}, {}
+    fwd = _flash_tp_fwd(gen, dev, fwd_errs)
+    bwd = _flash_tp_bwd(gen, dev, bwd_errs)
+    return {"flash_attention": {**_summary(fwd_errs), "tp_layouts": fwd},
+            "flash_attention_bwd": {**_summary(bwd_errs), "tp_layouts": bwd}}
 
 
 def _decode_cost(lengths, H, Hkv, D, esize):
@@ -3724,6 +3809,215 @@ def train_sharded_bf16(seed, dev, out):
             "dryrun": dry, "nvidia_smi": smi_line(), "seconds": time.monotonic() - t0}, launches
 
 
+# tp_emulated_bf16: one full-width layer of each, at the production mesh's
+# model extent, its ranks emulated one after another on this card
+TP_CONFIGS = {NAME: "llama", "granite-20b": "granite", "gemma2-9b": "gemma2",
+              "moonshot-v1-16b-a3b": "moonshot"}      # config -> its TP_LAYOUTS entry
+TP_EXTENT = 16
+
+
+def _tp_sublayer(cfg, part, q, h, extent=None):
+    """One sublayer of pattern position 0 on its normed input ``h``:
+    ``part`` "mixer" (the attention) or "ffn" (the dense or MoE FFN), of
+    ``q`` (the layer's ``q[part]``), whole, or with ``extent`` model ranks
+    emulated (``tensor_parallel.emulate``): each rank on its shards
+    (``shard_params``) one after another, their partial sums and their
+    input's gradients summed in float32 as the collectives sum them."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import lm, moe
+    spec = cfg.pattern[0]
+
+    def run(q, h):
+        if part == "mixer":
+            return lm._self_attention(cfg, spec, q, h,
+                                      torch.arange(h.shape[1], device=h.device))[0]
+        return lm.ffn_forward(cfg, q, h) if spec.ffn == "dense" else moe.moe_ffn(cfg, q, h)
+    if extent is None:
+        return run(q, h)
+    return tp.emulate(lambda r, h: run(tp.shard_params(cfg, q, r, extent), h), extent, h)
+
+
+def _tp_layer(cfg, p, x, extent=None):
+    """Pattern position 0's layer (attention, then a dense or MoE FFN):
+    ``layer_forward_full`` whole, or each sublayer's ranks emulated
+    (``_tp_sublayer``), the norms and residuals as the layer has them."""
+    from repro_torch.models import common, lm
+    if extent is None:
+        return lm.layer_forward_full(cfg, cfg.pattern[0], p, x,
+                                     torch.arange(x.shape[1], device=x.device))
+    a = _tp_sublayer(cfg, "mixer", p["mixer"], common.apply_norm(cfg, p["norm1"], x), extent)
+    if cfg.double_norm:
+        a = common.apply_norm(cfg, p["norm1b"], a)
+    x = x + a
+    f = _tp_sublayer(cfg, "ffn", p["ffn"], common.apply_norm(cfg, p["norm2"], x), extent)
+    if cfg.double_norm:
+        f = common.apply_norm(cfg, p["norm2b"], f)
+    return x + f
+
+
+def _fresh(tree, contiguous=False):
+    """New leaves that need a gradient, copies (or contiguous copies) of
+    ``tree``'s."""
+    from repro_torch.distributed.sharding import tree_map_with_path
+    return tree_map_with_path(lambda _, t: (t.detach().contiguous() if contiguous
+                                            else t.detach().clone()).requires_grad_(True),
+                              tree)
+
+
+def _tp_grads(cfg, p, x, dy, extent):
+    """(output, the gradients of every leaf of ``p`` and of ``x``) of
+    ``_tp_layer`` on fresh copies of them, against ``dy``."""
+    pc = _fresh(p)
+    leaves = _leaves(pc)
+    xc = x.detach().clone().requires_grad_(True)
+    out = _tp_layer(cfg, pc, xc, extent)
+    (out.float() * dy).sum().backward()
+    return out.detach(), [t.grad for t in leaves] + [xc.grad]
+
+
+def _tp_sublayer_grads(cfg, part, p, inp, dy, extent):
+    """(output, the gradients of every leaf of ``p[part]`` and of ``inp``)
+    of one sublayer of pattern position 0 on fresh copies of them, against
+    ``dy``: ``_tp_sublayer`` on ``inp``, its normed input, whole or with
+    ``extent`` model ranks emulated."""
+    pc = _fresh(p[part])
+    xc = inp.detach().clone().requires_grad_(True)
+    out = _tp_sublayer(cfg, part, pc, xc, extent)
+    (out.float() * dy).sum().backward()
+    return out.detach(), [t.grad for t in _leaves(pc)] + [xc.grad]
+
+
+def _tp_rank_ms(cfg, p, x, dy, r):
+    """Device ms of rank ``r``'s attention and FFN forward and backward
+    (its shards contiguous, as a rank holds them; ``r`` None: the whole
+    layer's)."""
+    from repro_torch.distributed import constraints
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import common
+    p = _fresh(p if r is None else tp.shard_params(cfg, p, r, TP_EXTENT), contiguous=True)
+    h, h2 = (common.apply_norm(cfg, p[n], x).detach().requires_grad_(True)
+             for n in ("norm1", "norm2"))
+
+    def step():
+        a = _tp_sublayer(cfg, "mixer", p["mixer"], h)
+        f = _tp_sublayer(cfg, "ffn", p["ffn"], h2)
+        torch.autograd.backward([a, f], [dy.to(a.dtype), dy.to(f.dtype)])
+    if r is None:
+        return time_ms(step, iters=5, warmup=2)
+    with constraints.model_shards(None, r, TP_EXTENT):
+        return time_ms(step, iters=5, warmup=2)
+
+
+def _max_errs(got, want):
+    """Each tensor's largest error over its largest entry."""
+    return [(a.float() - w.float()).abs().max().item() / max(w.float().abs().max().item(), 1e-30)
+            for a, w in zip(got, want)]
+
+
+def tp_emulated_bf16(seed, dev, out):
+    """Tensor-parallel compute over 'model' at the production mesh's extent
+    16, on one card: for each ``TP_CONFIGS`` config one full-width layer
+    (pattern position 0: attention on 16 ranks' local heads through both
+    flash kernels, then its dense FFN on 16 ranks' columns and rows of
+    ``d_ff``, or moonshot's 64 experts, 4 a rank), B=1 S=2048, the 16
+    ranks' local sublayers run one after another, their outputs and their
+    inputs' gradients summed in float32 as the collectives sum them
+    (``_tp_layer``).  The output and every gradient (the ranks' shards'
+    gradients land in their whole leaves: concatenated, or summed where a
+    rank reads a part of a whole leaf; and the input's) are held, each
+    tensor's largest error against its largest entry, to the unsharded
+    layer on the same weights and the same bf16-rounded input: in float32
+    (TF32 off) the whole layer within 2e-5 of the float32 layer; with bf16
+    compute each sublayer (the attention, the FFN, each on the input the
+    unsharded bf16 layer gives it) within the bf16 gate, 2e-2, of the
+    float32 sublayer (as a bf16 kernel is held to its float32 plain
+    version) and of the bf16 sublayer.  Then each rank's
+    device ms of its attention and FFN forward and backward beside the
+    whole layer's.  Returns (line, the wrappers' launches over the
+    phase)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import common, lm
+    from repro_torch.params import init_params
+    t0 = time.monotonic()
+    _reset_launches()
+    cfgs, launches_by_layout = {}, {}
+    for name, layout in TP_CONFIGS.items():
+        before = _launches()
+        cfg16 = _family(name, n_layers=len(_family(name).pattern), dtype="bfloat16")
+        cfg32 = dataclasses.replace(cfg16, dtype="float32")
+        params = init_params(cfg16, torch.Generator(device=dev).manual_seed(seed), dev)
+        p = _fresh(lm._layer_slice(params["blocks"][0], 0))
+        del params
+        _free()
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        x = torch.randn(TP_B, TP_S, cfg16.d_model, generator=g, device=dev).to(torch.bfloat16)
+        dy = torch.randn(TP_B, TP_S, cfg16.d_model, generator=g, device=dev)
+        want32 = _tp_grads(cfg32, p, x.float(), dy, None)
+        got32 = _tp_grads(cfg32, p, x.float(), dy, TP_EXTENT)
+        torch.cuda.synchronize()
+        errs32 = _max_errs([got32[0], *got32[1]], [want32[0], *want32[1]])
+        assert max(errs32) <= FLASH_BWD_TOL[torch.float32], (name, "float32", errs32)
+        del got32
+        _free()
+        # bf16, sublayer by sublayer on the inputs the whole bf16 layer
+        # gives them: a layer-level bf16 comparison would see MoE routing
+        # flip on the ulps by which the attention's sum differs
+        with torch.no_grad():
+            h = common.apply_norm(cfg16, p["norm1"], x)
+            a = _tp_sublayer(cfg16, "mixer", p["mixer"], h)
+            if cfg16.double_norm:
+                a = common.apply_norm(cfg16, p["norm1b"], a)
+            h2 = common.apply_norm(cfg16, p["norm2"], x + a)
+        tol = FLASH_BWD_TOL[torch.bfloat16]
+        row = {"leaves": len(want32[1]) - 1,
+               "float32": {"out": errs32[0], "grads": max(errs32[1:]),
+                           "gate": FLASH_BWD_TOL[torch.float32],
+                           "held": "the whole layer against the whole float32 layer"},
+               "errs": "each tensor's largest error over its largest entry"}
+        del want32
+        _free()
+        for part, inp in (("mixer", h), ("ffn", h2)):
+            want = _tp_sublayer_grads(cfg32, part, p, inp.float(), dy, None)
+            whole = _tp_sublayer_grads(cfg16, part, p, inp, dy, None)
+            got = _tp_sublayer_grads(cfg16, part, p, inp, dy, TP_EXTENT)
+            torch.cuda.synchronize()
+            e32 = _max_errs([got[0], *got[1]], [want[0], *want[1]])
+            e16 = _max_errs([got[0], *got[1]], [whole[0], *whole[1]])
+            w16 = _max_errs([whole[0], *whole[1]], [want[0], *want[1]])
+            assert max(e32) <= tol and max(e16) <= tol, (name, part, e32, e16)
+            row[f"bfloat16_{part}"] = {"out": e32[0], "grads": max(e32[1:]),
+                                       "out_vs_bf16_unsharded": e16[0],
+                                       "grads_vs_bf16_unsharded": max(e16[1:]),
+                                       "bf16_unsharded_out": w16[0],
+                                       "bf16_unsharded_grads": max(w16[1:]), "gate": tol}
+            del want, whole, got
+            _free()
+        print(f"chip_smoke: tp_emulated_bf16 {name}: {json.dumps(row)}", file=sys.stderr,
+              flush=True)
+        rank_ms = [_tp_rank_ms(cfg16, p, x, dy, r) for r in range(TP_EXTENT)]
+        row["device_ms"] = {"whole_layer": _tp_rank_ms(cfg16, p, x, dy, None),
+                            "ranks": rank_ms, "sum_of_ranks": sum(rank_ms),
+                            "note": "bf16 attention and FFN forward and backward"}
+        del p, x, dy
+        _free()
+        after = _launches()
+        launches_by_layout[layout] = {k: after[k] - before[k]
+                                      for k in ("flash_attention", "flash_attention_bwd")}
+        lay = tp.head_layout(cfg16, 0, TP_EXTENT)
+        cfgs[name] = {"layout": layout, "rank_heads": [lay.nq, lay.nkv],
+                      "kv_split": lay.kv_split, **row}
+    launches = _launches()
+    for layout, n in launches_by_layout.items():
+        # each dtype: the whole layer once and its 16 ranks' local heads
+        assert n["flash_attention"] >= 2 * (1 + TP_EXTENT) and \
+            n["flash_attention_bwd"] >= 2 * (1 + TP_EXTENT), (layout, n)
+    return {"phase": "tp_emulated_bf16", "extent": TP_EXTENT, "batch": TP_B, "seq": TP_S,
+            "reduced": ["n_layers -> 1 (pattern position 0 of each config; gemma2's "
+                        "pattern of 2 built, its first layer run)"],
+            "configs": cfgs, "launches_by_layout": launches_by_layout,
+            "nvidia_smi": smi_line(), "seconds": time.monotonic() - t0}, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3846,6 +4140,11 @@ def main():
     line, sharded_launches = train_sharded_bf16(args.seed, dev, args.out)
     emit(line)
     _free()
+    # tensor-parallel compute over 'model': 16 ranks' local heads, d_ff and
+    # experts of a full-width layer, emulated one after another on this card
+    tp_line, tp_launches = tp_emulated_bf16(args.seed, dev, args.out)
+    emit(tp_line)
+    _free()
 
     # each kernel's launches on every path that runs it
     paths = {"paged_decode_attention": {"llama": paged_launches, "families": family_launches},
@@ -3853,8 +4152,9 @@ def main():
              "flash_attention": {"jamba": dense_launches,
                                  "verification": verification_launches,
                                  "encdec": encdec_launches, "training": train_launches,
-                                 "sharded": sharded_launches},
-             "flash_attention_bwd": {"training": train_launches, "sharded": sharded_launches},
+                                 "sharded": sharded_launches, "tp_emulated": tp_launches},
+             "flash_attention_bwd": {"training": train_launches, "sharded": sharded_launches,
+                                     "tp_emulated": tp_launches},
              "decode_attention": {"jamba": dense_launches, "encdec": encdec_launches},
              "mamba_scan": {"jamba": dense_launches, "training": train_launches},
              "mamba_scan_bwd": {"training": train_launches},
@@ -3867,6 +4167,8 @@ def main():
         k.pop("tol", None)
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths[k["name"]].items()}
         k["launches"] = sum(k["launches_by_path"].values())
+        for layout, case in k.get("tp_layouts", {}).items():
+            case["launches_tp_emulated"] = tp_line["launches_by_layout"][layout][k["name"]]
     # a time_ms that fell back to CUDA events timed the host's gaps too
     # traced sessions that lost a marker, and those of them that may have
     # lost traced work (no lead marker or no end marker kept)

@@ -10,15 +10,19 @@ groups) the data-parallel degree.
 
 The sharded train step (``sharded_step.py``) computes on plain local
 tensors: each rank holds its slice of the batch over the data-parallel
-ranks (``batch_slices``) and gathers each weight just before use
-(``gather``).
+ranks (``batch_slices``) and its shard over 'model' (``model_shards``:
+the model group, this rank's index on it and its extent).  Each weight is
+gathered just before use: over the DP axes only where the rules give it a
+'model' shard that the model code computes on (``gather_tp``), whole
+otherwise (``gather``).
 """
 from __future__ import annotations
 
 import contextlib
 import math
+from typing import NamedTuple
 
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed import sharding
 
@@ -26,6 +30,22 @@ DP_AXES = ("pod", "data")
 
 _ACTIVE_MESH = None
 _DP_GROUP = None
+
+
+class ModelShards(NamedTuple):
+    """Where a rank's compute sits on the 'model' axis: the process group
+    of the ranks that share its batch slice (None: no collective, one rank
+    or ranks emulated one after another in one process), its index on it
+    and the axis' extent; ``kv_group``, where KV heads are whole on 'model'
+    and several ranks' query heads read one, the group of those ranks
+    (``tensor_parallel.kv_sharers``), else None."""
+    group: object
+    index: int
+    extent: int
+    kv_group: object = None
+
+
+_MODEL = ModelShards(None, 0, 1)
 
 
 @contextlib.contextmanager
@@ -51,6 +71,27 @@ def batch_slices(group):
         yield
     finally:
         _DP_GROUP = prev
+
+
+@contextlib.contextmanager
+def model_shards(group, index: int, extent: int, kv_group=None):
+    """Inside: the model code computes rank ``index``'s shard of every
+    split over 'model' (``distributed/tensor_parallel.py``), of
+    ``extent``; ``group`` sums and gathers over the model ranks (None: the
+    caller combines the ranks' results itself); ``kv_group`` as
+    ``ModelShards`` says."""
+    global _MODEL
+    prev = _MODEL
+    _MODEL = ModelShards(group, int(index), int(extent), kv_group)
+    try:
+        yield
+    finally:
+        _MODEL = prev
+
+
+def model() -> ModelShards:
+    """The installed ``model_shards`` (extent 1 outside one)."""
+    return _MODEL
 
 
 def dp_group():
@@ -114,3 +155,23 @@ def gather(w):
     names = w.device_mesh.mesh_dim_names
     return w.full_tensor(grad_placements=[
         Partial() if n in DP_AXES else Replicate() for n in names])
+
+
+def gather_tp(w):
+    """A weight as this rank computes on it under tensor parallelism: a
+    DTensor is all-gathered over the DP axes and keeps its 'model' shard
+    (a leaf the rules leave whole on 'model' comes whole, as ``gather``
+    gives it).  Its gradient comes back ``Partial`` over the DP dims and
+    as the weight is placed over 'model': ``Shard`` where each model rank
+    computed with its own shard, ``Replicate`` where they all computed
+    with the whole leaf and got the same gradient (the model code sums a
+    whole leaf's gradient over the model ranks where each reads a part of
+    it, ``tensor_parallel.copy_in``).  A plain tensor is returned as it
+    is."""
+    if not isinstance(w, DTensor):
+        return w
+    names = w.device_mesh.mesh_dim_names
+    keep = [p if n == "model" and isinstance(p, Shard) else Replicate()
+            for n, p in zip(names, w.placements)]
+    return w.redistribute(w.device_mesh, keep).to_local(grad_placements=[
+        Partial() if n in DP_AXES else p for n, p in zip(names, keep)])

@@ -8,17 +8,25 @@ State: params and AdamW ``mu`` / ``nu`` are DTensors in
 every rank.  The batch is a dict of DTensors split over the DP axes
 (``input_shardings``).
 
-Compute is not split over 'model' (tensor-parallel compute is later work):
-each rank runs the unsharded model code on plain local tensors, its slice
-of the batch over the DP ranks, and the ranks that share a data index
-compute the same slice.  Each stacked weight is all-gathered just before
-its layer uses it (``constraints.gather`` in ``lm._layer_slice``; remat
+Each rank computes on plain local tensors: its slice of the batch over
+the DP ranks, and its shard over 'model' (``constraints.model_shards``;
+``distributed/tensor_parallel.py``): its query heads (and KV heads where
+they divide), its columns and rows of ``d_ff``, its experts, its vocab
+rows of the embedding and the head, with the sums and gathers that GSPMD
+inserts in the reference made explicit over the model group.  The Mamba,
+mLSTM and sLSTM mixers, and whatever the rules leave whole on 'model'
+(yi's 56 query heads at 16), are computed whole by every model rank.
+Each stacked weight is all-gathered over the DP axes just before its
+layer uses it, keeping its 'model' shard (``constraints.gather_tp`` in
+``lm._layer_slice``, ``constraints.gather`` in a recurrent mixer; remat
 gathers it again in the backward), the others once at the start of the
 step; the gradients come back summed over the data ranks and
 reduce-scattered onto the weights' placements.  The loss divides by the
 whole batch's label count and the MoE aux loss takes this rank's share, so
 the shares sum to the unsharded loss; AdamW clips by the norm over every
-rank's shards and updates each rank's shards in place of the whole.
+rank's shards and updates each rank's shards in place of the whole.  On a
+(1, 1) mesh every collective is skipped and the step is the unsharded
+one, bit for bit.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ import torch
 from torch.distributed import _functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.distributed import constraints, sharding
+from repro_torch.distributed import constraints, sharding, tensor_parallel
 from repro_torch.models.lm import lm_loss
 from repro_torch.training import optimizer as opt
 from repro_torch.training.optimizer import tree_leaves, tree_map
@@ -46,9 +54,25 @@ def _stacked(path) -> bool:
 def compute_view(params):
     """The params as the model code reads them on a rank: stacked leaves
     (``blocks``, the encoder's ``layers``) stay DTensors, gathered layer by
-    layer where they are used; every other leaf is gathered now."""
+    layer where they are used; every other leaf (the embedding, the head,
+    the final norms) is gathered over the DP axes now, keeping its 'model'
+    shard (``constraints.gather_tp``)."""
     return sharding.tree_map_with_path(
-        lambda path, t: t if _stacked(path) else constraints.gather(t), params)
+        lambda path, t: t if _stacked(path) else constraints.gather_tp(t), params)
+
+
+def model_shards_of(mesh, cfg) -> tuple:
+    """(group, index, extent, kv_group) of this rank on the mesh's 'model'
+    axis for ``cfg``, for ``constraints.model_shards``: (None, 0, 1, None)
+    without one or at extent 1; ``kv_group`` the blocks of ranks that read
+    one whole KV head (``tensor_parallel.kv_sharers``), made here, on every
+    rank."""
+    extent = mesh.shape.get("model", 1)
+    if extent == 1:
+        return None, 0, 1, None
+    n = tensor_parallel.kv_sharers(cfg, extent)
+    return (mesh.group(("model",)), mesh.device_mesh.get_local_rank("model"), extent,
+            mesh.model_blocks(n) if n > 1 else None)
 
 
 def _like(local, ref: DTensor) -> DTensor:
@@ -66,7 +90,9 @@ def _replicas(t: DTensor) -> int:
 def sharded_global_norm(grads, refs, group) -> torch.Tensor:
     """The gradients' global norm from each rank's shards (``refs``: the
     DTensors whose placements they have): every shard's sum of squares,
-    divided by the ranks that hold it, summed over ``group`` (every rank)."""
+    divided by the ranks that hold it (its ``Replicate`` mesh dims: a leaf
+    ``Shard`` over 'model' counts once a model rank), summed over
+    ``group`` (every rank)."""
     local = torch.stack([torch.sum(torch.square(g.float())) / _replicas(r)
                          for g, r in zip(tree_leaves(grads), tree_leaves(refs))]).sum()
     return torch.sqrt(_waited(funcol.all_reduce(local, "sum", group)))
@@ -89,6 +115,7 @@ def make_sharded_train_step(cfg, model, adamw: opt.AdamWConfig, mesh):
     dp_axes = tuple(a for a in constraints.DP_AXES if a in mesh.axis_names)
     dp_group = mesh.group(dp_axes)
     world = mesh.group(mesh.axis_names)
+    shards = model_shards_of(mesh, cfg)
 
     def dp_sum(x):
         return _waited(funcol.all_reduce(x, "sum", dp_group)) if dp_group is not None else x
@@ -104,7 +131,8 @@ def make_sharded_train_step(cfg, model, adamw: opt.AdamWConfig, mesh):
         it = iter(_like(x, p) for x, p in zip(live, refs))
         view = compute_view(tree_map(lambda _: next(it), params))
         aux = {k: v for k, v in local.items() if k not in ("tokens", "labels")}
-        with constraints.activation_mesh(mesh), constraints.batch_slices(dp_group):
+        with constraints.activation_mesh(mesh), constraints.batch_slices(dp_group), \
+                constraints.model_shards(*shards):
             n_labels = dp_sum((local["labels"] >= 0).sum().float())
             loss, _ = lm_loss(cfg, model, view, local["tokens"], local["labels"],
                               aux=aux or None, remat=True, n_labels=n_labels)

@@ -17,9 +17,14 @@ an upper bound) and collective bytes, with the H100 data-sheet roofline
 (``distributed.collectives``).  Meta tensors are not CUDA tensors, so the
 model runs its kernels' plain versions, as the reference lowers its jnp
 path.  Train cells run ``make_sharded_train_step``; prefill and decode
-cells the serving entry points with bf16 weights sharded on 'model' only,
-compute not split over 'model' (each rank gathers the weights and its
-batch slice of the cache).
+cells the serving entry points with bf16 weights sharded on 'model' only.
+Both compute each rank's shard over 'model' (``constraints.model_shards``;
+``distributed/tensor_parallel.py``): its heads, ``d_ff``, experts and
+vocab rows on its batch slice, the recurrent mixers whole; a serving rank
+gathers no weight but a recurrent mixer's, and reads its batch slice of
+the cache with its KV heads as ``cache_shardings`` places them (where KV
+heads are whole on 'model', it holds them all and writes and reads those
+its query heads use).
 
 Per-device argument bytes are the local shards' bytes, exactly; temporary
 bytes are the peak of live tensors the step made (``temp_peak_bytes``).
@@ -62,17 +67,17 @@ def _cache_spec(cfg, model, shape):
     return model.cache_specs(shape.global_batch, shape.seq_len, T_mem)
 
 
-def _batch_only(spec, batch_dim: int) -> sharding.P:
-    """``spec`` with every dim but ``batch_dim`` replicated."""
-    return sharding.P(*(e if i == batch_dim else None for i, e in enumerate(spec)))
+def _kept(spec, dims) -> sharding.P:
+    """``spec`` with every dim but ``dims`` replicated."""
+    return sharding.P(*(e if i in dims else None for i, e in enumerate(spec)))
 
 
 def build_step(cfg, shape, mesh):
     """(fn, args) of the cell's step on this rank: ``fn(*args)`` runs it.
     Train: ``make_sharded_train_step`` over params, AdamW state and batch
     in the rules' placements.  Prefill / decode: bf16 weights on 'model'
-    only, the cache in ``cache_shardings``' placements; each rank gathers
-    what its batch slice needs and computes it whole."""
+    only, the cache in ``cache_shardings``' placements; each rank computes
+    its batch slice on its shards over 'model'."""
     specs = configs.input_specs(cfg, shape)
     batch = sharding.meta_shards(specs, sharding.input_shardings(cfg, specs, mesh))
 
@@ -92,17 +97,19 @@ def build_step(cfg, shape, mesh):
     c_spec = _cache_spec(scfg, smodel, shape)
     c_sh = sharding.cache_shardings(scfg, c_spec, mesh, long_ctx=shape.name == "long_500k")
     dp_group = mesh.group(sharding.batch_axes(mesh, shape.global_batch))
-
-    def whole_slice(s):
-        """Placements of a cache leaf as a rank computes on it: its batch
-        slice (dim 1), every other dim whole."""
-        return sharding.placements(_batch_only(s.spec, 1), mesh)
+    shards = sharded_step.model_shards_of(mesh, scfg)
+    # placements of each cache leaf as a rank computes on it: its batch
+    # slice (dim 1), an attention cache's KV heads (dim 3) as placed,
+    # every other dim whole (a recurrent mixer's state, the sequence)
+    compute = sharding.tree_map_with_path(lambda path, s: sharding.placements(
+        _kept(s.spec, (1, 3) if path[-1] in ("k", "v") else (1,)), mesh), c_sh)
 
     def place(cache):
-        """A rank's whole-slice cache -> DTensors in ``c_sh`` (no traffic)."""
-        return sharding.zip_map(lambda t, s: DTensor.from_local(
-            t, mesh.device_mesh, whole_slice(s), run_check=False).redistribute(
-                mesh.device_mesh, s.placements), cache, c_sh)
+        """A rank's compute-placed cache -> DTensors in ``c_sh`` (no traffic)."""
+        return sharding.zip_map(lambda t, sc: DTensor.from_local(
+            t, mesh.device_mesh, sc[1], run_check=False).redistribute(
+                mesh.device_mesh, sc[0].placements), cache,
+            sharding.zip_map(lambda s, pl: (s, pl), c_sh, compute))
 
     def local(batch):
         return {k: v.to_local() for k, v in batch.items()}
@@ -111,7 +118,8 @@ def build_step(cfg, shape, mesh):
         def prefill_fn(params, batch):
             b = local(batch)
             aux = {k: v for k, v in b.items() if k != "tokens"}
-            with constraints.activation_mesh(mesh), constraints.batch_slices(dp_group):
+            with constraints.activation_mesh(mesh), constraints.batch_slices(dp_group), \
+                    constraints.model_shards(*shards):
                 logits, cache = smodel.prefill(sharded_step.compute_view(params), b["tokens"],
                                                aux=aux or None, max_len=shape.seq_len)
             return logits, place(cache)
@@ -121,12 +129,13 @@ def build_step(cfg, shape, mesh):
 
     def decode_fn(params, cache, batch):
         b = local(batch)
-        whole = sharding.zip_map(lambda t, s: t.redistribute(
-            mesh.device_mesh, whole_slice(s)).to_local(), cache, c_sh)
-        with constraints.activation_mesh(mesh), constraints.batch_slices(dp_group):
-            logits, whole = smodel.decode(sharded_step.compute_view(params), whole,
-                                          b["tokens"], b["pos"])
-        return logits, place(whole)
+        mine = sharding.zip_map(lambda t, pl: t.redistribute(
+            mesh.device_mesh, pl).to_local(), cache, compute)
+        with constraints.activation_mesh(mesh), constraints.batch_slices(dp_group), \
+                constraints.model_shards(*shards):
+            logits, mine = smodel.decode(sharded_step.compute_view(params), mine,
+                                         b["tokens"], b["pos"])
+        return logits, place(mine)
     return decode_fn, (params, cache, batch)
 
 

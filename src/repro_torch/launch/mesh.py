@@ -34,6 +34,17 @@ class Mesh:
             return self.device_mesh.get_group(axes[0])
         return self.device_mesh[axes]._flatten("_".join(axes)).get_group()
 
+    def model_blocks(self, size: int):
+        """The process group of this rank's block of ``size`` consecutive
+        ranks along 'model' (the last axis), its data indices fixed."""
+        names = self.axis_names
+        if names[-1] != "model" or self.shape["model"] % size:
+            raise ValueError(f"'model' of {self} does not split into blocks of {size}")
+        shape = tuple(self.shape[a] for a in names[:-1]) + (self.shape["model"] // size, size)
+        sub = init_device_mesh(self.device_mesh.device_type, shape,
+                               mesh_dim_names=names[:-1] + ("model_block", "model_share"))
+        return sub.get_group("model_share")
+
     def __repr__(self):
         return f"Mesh({self.shape})"
 

@@ -8,6 +8,13 @@ A dead row's output is garbage by contract, as in the reference: the
 kernels write zeros, the decode plain versions the reference's uniform
 average over masked keys.  Cache and arena updates happen **in
 place** (indexed assignment), where the reference returns new arrays.
+
+Under ``constraints.model_shards`` a rank computes its heads only
+(``tensor_parallel.head_layout``): the projections read its shards of
+``wq`` / ``wk`` / ``wv`` / ``wo`` (or, where KV heads are whole on
+'model', the KV heads its query heads use), the flash kernel runs on the
+local heads, and ``out_proj`` gives the rank's partial sum, which
+``merge_heads`` sums over the model ranks.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.distributed import constraints
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.decode_attention.ops import \
     decode_attention as dense_decode_kernel
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
@@ -32,8 +40,9 @@ def _scale(cfg) -> float:
 
 def _pad_heads_w(cfg, w, head_axis: int):
     """Zero-pad query heads per GQA group (keeps the original query-head
-    to KV-head assignment)."""
-    if not cfg.head_pad:
+    to KV-head assignment).  Heads split over 'model' are not padded: a
+    padded head's output meets zero rows of ``wo`` and adds exactly 0."""
+    if not cfg.head_pad or tp.head_layout(cfg).split:
         return w
     nkv = cfg.n_kv_heads
     g = cfg.n_heads // nkv
@@ -53,11 +62,36 @@ def _proj(x, w):
     return (x @ w.reshape(d, n * h)).reshape(*x.shape[:-1], n, h)
 
 
+def _kv_w(cfg, w):
+    """The rank's KV heads of ``wk`` / ``wv``: its shard as it comes where
+    KV heads are on 'model'; where they are whole and query heads split,
+    the KV heads its query heads read, out of the whole leaf (whose
+    gradient then sums over the model ranks)."""
+    lay = tp.head_layout(cfg)
+    if not lay.split or lay.kv_split:
+        return w
+    return tp.copy_in(w)[:, lay.kv0:lay.kv0 + lay.nkv]
+
+
+def _kv_proj(cfg, x, w):
+    """K or V of the rank's KV heads from x (B, S, d) and the whole leaf
+    ``w`` (``_kv_w``), projected by parts where ranks share a KV head
+    (``tp.kv_project``)."""
+    return tp.kv_project(_proj, x, _kv_w(cfg, w).to(cfg.compute_dtype))
+
+
+def _into_heads(cfg, x):
+    """``x`` into the region of split heads (``tp.copy_in``), where they
+    are split."""
+    return tp.copy_in(x) if tp.head_layout(cfg).split else x
+
+
 def project_qkv(cfg, p, x, positions=None, rope: bool = True):
+    """The rank's heads of q, k and v of x (B, S, d)."""
     dt = cfg.compute_dtype
+    x = _into_heads(cfg, x)
     q = _proj(x, _pad_heads_w(cfg, p["wq"].to(dt), 1))
-    k = _proj(x, p["wk"].to(dt))
-    v = _proj(x, p["wv"].to(dt))
+    k, v = _kv_proj(cfg, x, p["wk"]), _kv_proj(cfg, x, p["wv"])
     if rope and cfg.rope_theta > 0 and positions is not None:
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
@@ -68,7 +102,7 @@ def project_q_cross(cfg, p, x, positions):
     """A cross-attention layer's queries: the padded ``wq``, RoPE when the
     config has it (the memory's keys get none; the reference's
     ``attn_layer_forward(memory=...)`` and cross ``layer_decode``)."""
-    q = _proj(x, _pad_heads_w(cfg, p["wq"].to(cfg.compute_dtype), 1))
+    q = _proj(_into_heads(cfg, x), _pad_heads_w(cfg, p["wq"].to(cfg.compute_dtype), 1))
     if cfg.rope_theta > 0:
         q = common.apply_rope(q, positions, cfg.rope_theta)
     return q
@@ -76,14 +110,22 @@ def project_q_cross(cfg, p, x, positions):
 
 def project_kv_memory(cfg, p, mem):
     """Cross-attention K/V from a (B, T, d) memory, no RoPE."""
-    dt = cfg.compute_dtype
-    return _proj(mem, p["wk"].to(dt)), _proj(mem, p["wv"].to(dt))
+    mem = _into_heads(cfg, mem)
+    return _kv_proj(cfg, mem, p["wk"]), _kv_proj(cfg, mem, p["wv"])
 
 
 def out_proj(cfg, p, o):
+    """The output projection of the rank's heads o (B, S, n, h) -> (B, S,
+    d): where heads are split over 'model', the rank's partial sum."""
     wo = _pad_heads_w(cfg, p["wo"].to(cfg.compute_dtype), 0)
     n, h, d = wo.shape
     return o.reshape(*o.shape[:-2], n * h) @ wo.reshape(n * h, d)
+
+
+def merge_heads(cfg, p, o):
+    """``out_proj``, summed over the model ranks where heads are split."""
+    out = out_proj(cfg, p, o)
+    return tp.reduce_out(out) if tp.head_layout(cfg).split else out
 
 
 # --------------------------------------------------------------------------
@@ -115,7 +157,7 @@ def cross_attention(cfg, p, x, positions, k, v):
     queries of x (B, S, d) at ``positions``, every memory position visible
     (no causal mask, no window) -> (B, S, d)."""
     q = project_q_cross(cfg, p, x, positions)
-    return out_proj(cfg, p, full_attention(cfg, q, k, v, causal=False))
+    return merge_heads(cfg, p, full_attention(cfg, q, k, v, causal=False))
 
 
 def decode_attention(cfg, q, k_cache, v_cache, lengths):

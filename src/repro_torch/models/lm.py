@@ -17,6 +17,13 @@ never writes it), per Mamba layer ``{"conv", "h"}``, per mLSTM
 layer ``{"C", "n", "m", "conv"}``, per sLSTM layer ``{"h", "c", "n",
 "m"}``.  Both are updated **in place**: each entry point returns the object
 it was given.
+
+Under ``constraints.model_shards`` (the sharded train step, the dry-run)
+a rank computes its shard over 'model' (``distributed/tensor_parallel.py``):
+its heads, its columns and rows of ``d_ff``, its experts, its vocab rows
+of the embedding and the head; the Mamba, mLSTM and sLSTM mixers whole.
+Its logits are then its vocab slice, and a dense cache holds its KV heads
+(all of them, only its own written, where KV heads are whole on 'model').
 """
 from __future__ import annotations
 
@@ -29,18 +36,27 @@ from repro_torch import require_device
 from repro_torch.configs import LayerSpec
 from repro_torch.distributed import constraints
 from repro_torch.distributed import remat as remat_lib
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention, common, mamba, moe, xlstm
 
 MAX_LEARNED_POS = 65_536  # rows of the learned position table (whisper)
 
 
 def ffn_forward(cfg, p, x):
+    """The dense FFN; where ``d_ff`` splits over 'model', the rank's
+    columns of ``w_gate`` / ``w_up`` (``w_in``) and rows of ``w_down``
+    (``w_out``), the ranks' partial sums summed."""
     dt = cfg.compute_dtype
     act = common.act_fn(cfg.act)
+    split = tp.splits(cfg.d_ff)
+    if split:
+        x = tp.copy_in(x)
     if cfg.glu:
         g = act(x @ p["w_gate"].to(dt))
-        return (g * (x @ p["w_up"].to(dt))) @ p["w_down"].to(dt)
-    return act(x @ p["w_in"].to(dt)) @ p["w_out"].to(dt)
+        out = (g * (x @ p["w_up"].to(dt))) @ p["w_down"].to(dt)
+    else:
+        out = act(x @ p["w_in"].to(dt)) @ p["w_out"].to(dt)
+    return tp.reduce_out(out) if split else out
 
 
 def _ffn_block(cfg, spec, p, x, aux=None):
@@ -70,7 +86,7 @@ def _residual(cfg, spec, p, x, h, aux=None):
 
 def _mixer_out(cfg, spec, p, x, o):
     """Attention output projection, then ``_residual``."""
-    return _residual(cfg, spec, p, x, attention.out_proj(cfg, p["mixer"], o))
+    return _residual(cfg, spec, p, x, attention.merge_heads(cfg, p["mixer"], o))
 
 
 # --------------------------------------------------------------------------
@@ -102,17 +118,40 @@ def _self_attention(cfg, spec, p, x, positions):
     """Causal self-attention over a whole sequence (positions 0..S-1)
     through the flash kernel's dense entry.  Returns (out, k, v)."""
     q, k, v = attention.project_qkv(cfg, p, x, positions)
-    out = attention.out_proj(cfg, p, attention.full_attention(
+    out = attention.merge_heads(cfg, p, attention.full_attention(
         cfg, q, k, v, window=spec.window))
     return out, k, v
 
 
+def _cache_heads(cfg):
+    """(KV heads of a rank's dense cache, the slice of them it writes and
+    reads): all and all, but where heads are split over 'model' its shard
+    (KV heads on 'model') or, where KV heads are whole, all of them and
+    those its query heads use."""
+    lay = tp.head_layout(cfg)
+    if not lay.split or lay.kv_split:
+        return lay.nkv, slice(None)
+    return cfg.n_kv_heads, slice(lay.kv0, lay.kv0 + lay.nkv)
+
+
 def _cross_prefill(cfg, p, x, positions, memory):
-    """Cross-attention over ``memory`` (B, T, d); its cache is the
-    memory's K/V, which decoding reads as they are."""
+    """Cross-attention over ``memory`` (B, T, d).  Returns (out, k, v):
+    the memory's K/V, which decoding reads as they are."""
     k, v = attention.project_kv_memory(cfg, p, memory)
-    return attention.cross_attention(cfg, p, x, positions, k, v), \
-        {"k": k, "v": v}
+    return attention.cross_attention(cfg, p, x, positions, k, v), k, v
+
+
+def _memory_cache(cfg, k, v):
+    """A cross-attention layer's cache of the rank's memory K/V
+    (``_cache_heads``)."""
+    n, own = _cache_heads(cfg)
+    if n == k.shape[2]:
+        return {"k": k, "v": v}
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        out[name] = t.new_zeros((*t.shape[:2], n, t.shape[3]))
+        out[name][:, :, own] = t
+    return out
 
 
 def _attn_prefill(cfg, spec, p, x, positions, max_len):
@@ -121,12 +160,13 @@ def _attn_prefill(cfg, spec, p, x, positions, max_len):
     B, S, _ = x.shape
     out, k, v = _self_attention(cfg, spec, p, x, positions)
     size = _cache_size(spec, max_len)
-    kc = k.new_zeros((B, size, cfg.n_kv_heads, cfg.d_head))
+    n, own = _cache_heads(cfg)
+    kc = k.new_zeros((B, size, n, cfg.d_head))
     vc = torch.zeros_like(kc)
     tail = min(S, size)
     slots = positions[-tail:] % size if spec.window else positions[-tail:]
-    kc[:, slots] = k[:, -tail:]
-    vc[:, slots] = v[:, -tail:]
+    kc[:, slots, own] = k[:, -tail:]
+    vc[:, slots, own] = v[:, -tail:]
     return out, {"k": kc, "v": vc}
 
 
@@ -138,7 +178,8 @@ def layer_prefill(cfg, spec, p, x, positions, max_len, memory=None):
     if spec.mixer == "attn":
         h, cache = _attn_prefill(cfg, spec, p["mixer"], h, positions, max_len)
     elif spec.mixer == "cross_attn":
-        h, cache = _cross_prefill(cfg, p["mixer"], h, positions, memory)
+        h, k, v = _cross_prefill(cfg, p["mixer"], h, positions, memory)
+        cache = _memory_cache(cfg, k, v)
     else:
         h, cache = _RECURRENT[spec.mixer].forward(cfg, p["mixer"], h,
                                                   return_cache=True)
@@ -178,23 +219,23 @@ def layer_decode(cfg, spec, p, x, pos, cache, active=None):
     output is discarded; its recurrent state advances, as in the reference,
     and is overwritten at the next admission)."""
     h = common.apply_norm(cfg, p["norm1"], x)
+    if spec.mixer in ("attn", "cross_attn"):
+        own = _cache_heads(cfg)[1]
+        kc, vc = cache["k"][:, :, own], cache["v"][:, :, own]
     if spec.mixer == "attn":
         q, k, v = attention.project_qkv(cfg, p["mixer"], h, pos[:, None])
-        size = cache["k"].shape[1]
-        attention.update_cache(cache["k"], cache["v"], k, v,
-                               pos % size if spec.window else pos)
-        o = attention.decode_attention(
-            cfg, q, cache["k"], cache["v"],
-            _decode_lengths(spec, pos, size, active))
-        h = attention.out_proj(cfg, p["mixer"], o)
+        size = kc.shape[1]
+        attention.update_cache(kc, vc, k, v, pos % size if spec.window else pos)
+        o = attention.decode_attention(cfg, q, kc, vc,
+                                       _decode_lengths(spec, pos, size, active))
+        h = attention.merge_heads(cfg, p["mixer"], o)
     elif spec.mixer == "cross_attn":
         # every memory position is visible to a live row
         q = attention.project_q_cross(cfg, p["mixer"], h, pos[:, None])
-        T = torch.full_like(pos, cache["k"].shape[1])
+        T = torch.full_like(pos, kc.shape[1])
         o = attention.decode_attention(
-            cfg, q, cache["k"], cache["v"],
-            T if active is None else torch.where(active, T, 0))
-        h = attention.out_proj(cfg, p["mixer"], o)
+            cfg, q, kc, vc, T if active is None else torch.where(active, T, 0))
+        h = attention.merge_heads(cfg, p["mixer"], o)
     else:
         h, new = _RECURRENT[spec.mixer].decode(cfg, p["mixer"], h, cache)
         for n, t in cache.items():
@@ -329,12 +370,18 @@ def layer_verify_paged(cfg, spec, p, x, pos, arena, page_table, n_tok=None):
     return _mixer_out(cfg, spec, p, x, o)
 
 
-def _layer_slice(tree, r):
-    """Repeat ``r`` of a stacked params subtree; a sharded (DTensor) leaf
-    is gathered here, just before its layer uses it
+def _layer_slice(tree, r, spec=None, whole=False):
+    """Repeat ``r`` of a stacked params subtree (of a layer of ``spec``);
+    a sharded (DTensor) leaf is gathered here, just before its layer uses
+    it: with its 'model' shard kept (``constraints.gather_tp``), but whole
+    in a recurrent mixer, which every model rank computes whole
     (``constraints.gather``)."""
-    return {k: _layer_slice(v, r) if isinstance(v, dict)
-            else constraints.gather(v[r]) for k, v in tree.items()}
+    def one(k, v):
+        if isinstance(v, dict):
+            return _layer_slice(v, r, whole=whole or (
+                k == "mixer" and spec is not None and spec.mixer in tp.RECURRENT))
+        return (constraints.gather if whole else constraints.gather_tp)(v[r])
+    return {k: one(k, v) for k, v in tree.items()}
 
 
 # --------------------------------------------------------------------------
@@ -357,7 +404,7 @@ def encode(cfg, p, frames):
         lp = _layer_slice(p["layers"], r)
         h = common.apply_norm(cfg, lp["norm1"], x)
         q, k, v = attention.project_qkv(cfg, lp["mixer"], h, rope=False)
-        x = x + attention.out_proj(cfg, lp["mixer"], attention.full_attention(
+        x = x + attention.merge_heads(cfg, lp["mixer"], attention.full_attention(
             cfg, q, k, v, causal=False))
         x = _ffn_block(cfg, ENC_SPEC, lp, x)
     return common.apply_norm(cfg, p["final_norm"], x)
@@ -379,20 +426,26 @@ class LM(nn.Module):
         cfg = self.cfg
         for r in range(cfg.n_repeats):
             for i, spec in enumerate(cfg.pattern):
-                yield (spec, _layer_slice(params["blocks"][i], r),
+                yield (spec, _layer_slice(params["blocks"][i], r, spec),
                        None if state is None else
                        {n: t[r] for n, t in state[i].items()})
 
     def _embed(self, params, tokens, positions):
         """Token embeddings, plus the learned position rows (clamped to the
         table) where the config has no RoPE; ``positions`` broadcasts
-        against ``tokens``."""
+        against ``tokens``.  A table whose rows split over 'model' is
+        looked up on each rank's rows and summed (``tp.vocab_lookup``)."""
         cfg = self.cfg
-        x = common.take_embedding(params["embed"], tokens,
-                                  cfg.embed_scale, cfg.compute_dtype)
+        dt = cfg.compute_dtype
+
+        def take(table, rows, idx, scale):
+            if tp.splits(rows):
+                return tp.vocab_lookup(table, idx, scale, dt, common.take_embedding)
+            return common.take_embedding(table, idx, scale, dt)
+        x = take(params["embed"], cfg.padded_vocab, tokens, cfg.embed_scale)
         if cfg.rope_theta <= 0:
             idx = positions.long().clamp(max=MAX_LEARNED_POS - 1)
-            x = x + params["pos_embed"][idx].to(cfg.compute_dtype)
+            x = x + take(params["pos_embed"], MAX_LEARNED_POS, idx, False)
         return constraints.constrain_batch(x)
 
     def _memory(self, params, aux):
@@ -409,12 +462,16 @@ class LM(nn.Module):
         return None
 
     def _logits(self, params, x):
+        """float32 logits; where the vocab splits over 'model', the rank's
+        slice of them (its rows of the head, or of a tied ``embed``)."""
         cfg = self.cfg
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        if tp.splits(cfg.padded_vocab):
+            x = tp.copy_in(x)
         logits = (x @ head.to(cfg.compute_dtype).t()).float()
         logits = common.softcap(logits, cfg.final_softcap)
         if cfg.padded_vocab != cfg.vocab:   # out of place: tanh's backward reads its output
-            pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+            pad = tp.vocab_index(logits.shape[-1], logits.device) >= cfg.vocab
             logits = logits.masked_fill(pad, -1e30)
         return logits
 
@@ -467,7 +524,7 @@ class LM(nn.Module):
             """Repeat ``r`` of the pattern -> (x, its MoE aux losses summed)."""
             aux = [] if collect_aux else None
             for i, spec in enumerate(cfg.pattern):
-                x = layer_forward_full(cfg, spec, _layer_slice(params["blocks"][i], r),
+                x = layer_forward_full(cfg, spec, _layer_slice(params["blocks"][i], r, spec),
                                        x, positions, memory, aux)
             return x, sum(aux or [], x.new_zeros((), dtype=torch.float32))
 
@@ -583,7 +640,9 @@ def lm_loss(cfg, model: LM, params, tokens, labels, aux=None, remat=True,
     """Mean next-token cross-entropy over the labels >= 0 (the reference's
     ``lm_loss``).  Returns (total, {"ce", "moe_aux", "tokens"}) with total
     = ce + 0.01 * moe_aux, the MoE configs' Switch load-balance loss (0
-    without MoE).  ``n_labels``: the count to divide the summed
+    without MoE).  Where the vocab splits over 'model', each label's
+    log-likelihood comes from the ranks' logit slices
+    (``tp.log_likelihood``).  ``n_labels``: the count to divide the summed
     cross-entropy by (default: this batch's labels >= 0); a rank that holds
     a slice of the batch passes the whole batch's count."""
     collect = cfg.moe is not None
@@ -593,8 +652,11 @@ def lm_loss(cfg, model: LM, params, tokens, labels, aux=None, remat=True,
     logits = logits.float()
     mask = (labels >= 0).float()
     safe = labels.clamp_min(0).long()
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0] \
-        - torch.logsumexp(logits, dim=-1)
+    if tp.splits(cfg.padded_vocab):    # logits: this rank's vocab slice
+        ll = tp.log_likelihood(logits, safe)
+    else:
+        ll = torch.gather(logits, -1, safe[..., None])[..., 0] \
+            - torch.logsumexp(logits, dim=-1)
     ce = -(ll * mask).sum() / (mask.sum() if n_labels is None else n_labels).clamp_min(1.0)
     return ce + 0.01 * moe_aux, {"ce": ce, "moe_aux": moe_aux,
                                  "tokens": mask.sum()}

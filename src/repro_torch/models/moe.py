@@ -8,6 +8,14 @@ past an expert's capacity C dropped; the experts run as batched products
 over that buffer, and each slot's output is gathered back, weighted by its
 renormalised gate.  Same numerics as the reference: the router in float32,
 the buffer and the experts in the compute dtype.
+
+Under ``constraints.model_shards``, where the experts split over 'model',
+a rank runs its E/m experts over its dispatch buffer and combines their
+slots' outputs, and the ranks' partial sums are summed
+(``tensor_parallel.reduce_out``); routing, capacity and the drop are the
+same on every model rank.  The shared experts split as the dense FFN
+(columns of ``w_gate`` / ``w_up``, rows of ``w_down``) where their
+``d_ff`` divides.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import torch
 from torch.distributed import _functional_collectives as funcol
 
 from repro_torch.distributed import constraints
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import common
 
 
@@ -63,6 +72,10 @@ def moe_ffn(cfg, p, x, capacity_factor: Optional[float] = None,
     xt = constraints.pin(x.reshape(G, Tg, d), ("batch", None, None))
     dev = x.device
 
+    split = tp.splits(E)        # this rank's experts [e0, e0 + E_loc)
+    E_loc = E // constraints.model().extent if split else E
+    e0 = constraints.model().index * E_loc if split else 0
+
     probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)  # (G,Tg,E)
     gate_w, expert_ix = torch.topk(probs, k, dim=-1)                 # (G,Tg,k)
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -78,23 +91,40 @@ def moe_ffn(cfg, p, x, capacity_factor: Optional[float] = None,
     # for a boolean index), which the experts never see
     pos_c = torch.where(keep, pos_in_e, C)
     g_ix = torch.arange(G, device=dev)[:, None].expand(G, Tg * k)
-    buf = torch.zeros((G, E, C + 1, d), dtype=dt, device=dev)
+    w_sorted = torch.gather(gate_w.reshape(G, Tg * k), 1, order).to(dt)
+    if split:   # the other ranks' slots land in a spare expert E_loc
+        local_e = sorted_e - e0
+        mine = (local_e >= 0) & (local_e < E_loc)
+        e_buf, rows, use = torch.where(mine, local_e, E_loc), E_loc + 1, keep & mine
+        xt, w_sorted = tp.copy_in(xt), tp.copy_in(w_sorted)
+    else:
+        e_buf, rows, use = sorted_e, E, keep
+    buf = torch.zeros((G, rows, C + 1, d), dtype=dt, device=dev)
     src = torch.gather(xt, 1, tok_of_slot[..., None].expand(G, Tg * k, d))
-    buf[g_ix, sorted_e, pos_c] = src.to(dt)
+    buf[g_ix, e_buf, pos_c] = src.to(dt)
     # experts on the model axis where the weights live, groups on the DP axes
-    buf = constraints.pin(buf[:, :, :C], ("batch", "model", None, None))
+    buf = constraints.pin(buf[:, :E_loc, :C], ("batch", "model", None, None))
     out_buf = _glu(cfg, p, buf, "gecd,edf->gecf", "gecf,efd->gecd")
     out_buf = constraints.pin(out_buf, ("batch", None, None, None))
 
-    w_sorted = torch.gather(gate_w.reshape(G, Tg * k), 1, order).to(dt)
-    slot_out = torch.nn.functional.pad(out_buf, (0, 0, 0, 1))[g_ix, sorted_e, pos_c]
-    contrib = slot_out * (w_sorted * keep.to(dt))[..., None]
+    pad = (0, 0, 0, 1, 0, 1) if split else (0, 0, 0, 1)
+    slot_out = torch.nn.functional.pad(out_buf, pad)[g_ix, e_buf, pos_c]
+    contrib = slot_out * (w_sorted * use.to(dt))[..., None]
     out = torch.zeros((G, Tg, d), dtype=dt, device=dev)
     out.scatter_add_(1, tok_of_slot[..., None].expand(G, Tg * k, d), contrib)
     out = constraints.pin(out, ("batch", None, None)).reshape(T, d)
+    partial, whole = (out, None) if split else (None, out)
     if m.num_shared:
-        out = out + _glu(cfg, p["shared"], x.reshape(T, d).to(dt),
-                         "td,df->tf", "tf,fd->td")
+        sh_split = tp.splits(m.num_shared * m.d_ff_expert)
+        sh = _glu(cfg, p["shared"], (tp.copy_in(x) if sh_split else x).reshape(T, d).to(dt),
+                  "td,df->tf", "tf,fd->td")
+        if sh_split:
+            partial = sh if partial is None else partial + sh
+        else:
+            whole = whole + sh if whole is not None else sh
+    if partial is not None:
+        partial = tp.reduce_out(partial)
+    out = partial if whole is None else whole if partial is None else partial + whole
     out = out.reshape(B, S, d)
     if not return_aux:
         return out

@@ -398,7 +398,7 @@ def test_dense_decode_is_one_kernel_a_call(card, lengths):
 
 
 @pytest.mark.parametrize("D", [16, 64, 80, 128, 256])
-@pytest.mark.parametrize("G", [1, 2, 4, 6, 7, 8, 48])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 6, 7, 8, 48])
 def test_flash_bf16_every_head_layout(card, D, G):
     """The tensor-core body at every registered config's head dim (padded
     to 64, 128 or 256 in shared memory) and GQA group: the dense entry on
@@ -1039,7 +1039,14 @@ BWD_SHAPES = [(2, 32, 8, 2048, 2048, 128, True, None, None),
               (1, 16, 8, 384, 384, 256, True, None, 3.0),
               (1, 48, 1, 400, 400, 128, True, None, 3.0),
               (2, 16, 8, 1024, 1024, 256, True, None, 3.0),
-              (2, 32, 8, 1024, 1024, 128, True, None, 3.0)]
+              (2, 32, 8, 1024, 1024, 128, True, None, 3.0),
+              # one rank's heads at model extent 16 (tensor parallelism):
+              # llama's 2 on 1 KV head, granite's 3 on 1, gemma2's 1 at
+              # D=256 with its softcap, moonshot's 1 on 1
+              (1, 2, 1, 2048, 2048, 128, True, None, None),
+              (1, 3, 1, 2048, 2048, 128, True, None, None),
+              (1, 1, 1, 2048, 2048, 256, True, None, 50.0),
+              (1, 1, 1, 2048, 2048, 128, True, None, None)]
 # each gradient against the plain version's, relative to its largest entry:
 # float32 sums in another order (2e-5), bfloat16 inputs and outputs (2e-2)
 BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}

@@ -13,6 +13,12 @@ the tests hold it against the reference in this process:
 - ``moonshot-v1-16b-a3b`` reduced the same way (MoE with its aux loss):
   the sharded step equals the reference's step with its DP extent set to
   4 (``constraints.dp_extent``), as GSPMD runs it on that mesh;
+- the step with compute split over 'model' (tensor parallelism) on the
+  meshes (2, 4) and (8, 1) too: danube on both, moonshot and gemma2
+  (softcaps; 2 KV heads whole on 4 model ranks) on (2, 4), each equal to
+  the reference's unsharded step;
+- a rank computes only its shard: rank 0's matmul flops in danube's (2, 4)
+  step are within 5% of its (8, 1) step's, B/8 of each split product;
 - the danube step's params saved on (4, 2) restore onto (2, 4), each rank
   holding its shard of the new placements, every leaf identical;
 - ``dbrx-132b`` ``.reduced()``'s ``moe_ffn`` under the (4, 2) mesh
@@ -49,6 +55,11 @@ WORLD = 8
 TIMEOUT_S = 120
 B, S = 8, 32
 STEP_ARCHS = ["h2o-danube-1.8b", "moonshot-v1-16b-a3b"]
+# more meshes over the same 8 ranks (data, model), and the configs stepped on each
+TP_STEPS = {(2, 4): ["h2o-danube-1.8b", "moonshot-v1-16b-a3b", "gemma2-9b"],
+            (8, 1): ["h2o-danube-1.8b"]}
+ARCHS = STEP_ARCHS + ["gemma2-9b"]
+FLOPS_ARCH = "h2o-danube-1.8b"
 MOE_ARCH = "dbrx-132b"
 LR = 1e-3
 
@@ -59,7 +70,7 @@ WORKER = textwrap.dedent("""
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
                             world_size=8)
     from repro_torch import configs
-    from repro_torch.distributed import constraints, sharded_step, sharding
+    from repro_torch.distributed import constraints, sharded_step, sharding, trace_analysis
     from repro_torch.launch.mesh import make_host_mesh, make_mesh
     from repro_torch.models import moe
     from repro_torch.models.lm import LM
@@ -79,10 +90,10 @@ WORKER = textwrap.dedent("""
             key(p), t.full_tensor().numpy() if hasattr(t, "full_tensor") else t.numpy()), tree)
         return out
 
-    mesh = make_host_mesh(model=2)
-    assert mesh.shape == {"data": 4, "model": 2}
-    out = {}
-    for name in %(STEP_ARCHS)r:
+    def run_step(name, mesh, prefix, flops=False):
+        # one sharded step of name on mesh, its metrics and leaves into out
+        # under prefix; with flops, counted by trace_analysis (the rank's
+        # matmul flops under prefix/flops)
         cfg = cfg_of(name)
         data = np.load(f"{tmp}/{name}.npz")
         params = sharding.tree_map_with_path(
@@ -94,13 +105,33 @@ WORKER = textwrap.dedent("""
         batch = sharding.distribute(batch, sharding.input_shardings(cfg, batch, mesh))
         step = sharded_step.make_sharded_train_step(
             cfg, LM(cfg, "cpu"), opt.AdamWConfig(lr=%(LR)r), mesh)
-        new, state, m = step(params, sharded_step.init_state(params), batch)
+        res = []
+        counts = trace_analysis.analyze(
+            lambda: res.append(step(params, sharded_step.init_state(params), batch))) \
+            if flops else None
+        new, state, m = res[0] if flops else step(params, sharded_step.init_state(params),
+                                                  batch)
+        if flops:
+            out[f"{prefix}/flops"] = np.array(counts["flops"])
         for k, v in m.items():
-            out[f"{name}/metric/{k}"] = v.numpy()
+            out[f"{prefix}/metric/{k}"] = v.numpy()
         for part, tree in (("params", new), ("mu", state["mu"]), ("nu", state["nu"])):
             for k, v in leaves(tree).items():
-                out[f"{name}/{part}/{k}"] = v
+                out[f"{prefix}/{part}/{k}"] = v
+        return new
+
+    mesh = make_host_mesh(model=2)
+    assert mesh.shape == {"data": 4, "model": 2}
+    out = {}
+    for shape, names in %(TP_STEPS)r.items():
+        tp_mesh = make_mesh(shape, ("data", "model"))
+        for name in names:
+            run_step(name, tp_mesh, f"{shape[0]}x{shape[1]}/{name}",
+                     flops=name == %(FLOPS_ARCH)r)
+    for name in %(STEP_ARCHS)r:
+        new = run_step(name, mesh, name)
         if name == %(STEP_ARCHS)r[0]:
+            cfg = cfg_of(name)
             # elastic re-mesh: save on (4, 2), restore onto (2, 4)
             checkpoint.save(f"{tmp}/ckpt", 1, new)
             mesh2 = make_mesh((2, 4), ("data", "model"))
@@ -134,7 +165,8 @@ WORKER = textwrap.dedent("""
         np.savez(f"{tmp}/out.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
-""") % {"STEP_ARCHS": STEP_ARCHS, "LR": LR, "MOE_ARCH": MOE_ARCH, "B": B}
+""") % {"STEP_ARCHS": STEP_ARCHS, "LR": LR, "MOE_ARCH": MOE_ARCH, "B": B,
+        "TP_STEPS": TP_STEPS, "FLOPS_ARCH": FLOPS_ARCH}
 
 
 def _cfgs(name):
@@ -167,7 +199,7 @@ def run(tmp_path_factory):
     """Inputs from the reference, the 8 workers' run, their outputs."""
     tmp = tmp_path_factory.mktemp("dist")
     inputs = {}
-    for i, name in enumerate(STEP_ARCHS):
+    for i, name in enumerate(ARCHS):
         jcfg, _ = _cfgs(name)
         params = build_model(jcfg).init(jax.random.PRNGKey(i))
         batch = _batch(i)
@@ -201,10 +233,10 @@ def run(tmp_path_factory):
     return inputs, mp, x, dict(np.load(tmp / "out.npz"))
 
 
-def _reference_step(name, params, batch, monkeypatch):
+def _reference_step(name, params, batch, monkeypatch, dp=4):
     jcfg, _ = _cfgs(name)
-    if jcfg.moe is not None:   # GSPMD's grouping on the (4, 2) mesh
-        monkeypatch.setattr(jconstraints, "dp_extent", lambda: 4)
+    if jcfg.moe is not None:   # GSPMD's grouping on a mesh of ``dp`` data ranks
+        monkeypatch.setattr(jconstraints, "dp_extent", lambda: dp)
     step = jax.jit(jmake_step(jcfg, build_model(jcfg), jopt.AdamWConfig(lr=LR), block_q=32))
     new, state, m = step(params, jopt.init_state(params),
                          {k: jnp.asarray(v) for k, v in batch.items()})
@@ -217,17 +249,48 @@ def test_sharded_step_matches_reference(run, name, monkeypatch):
     sharded step on (4, 2) equal the reference's unsharded step (the
     train-step tolerances of test_torch_training.py)."""
     inputs, _, _, out = run
-    params, batch = inputs[name]
-    new, mu, nu, m = _reference_step(name, params, batch, monkeypatch)
-    assert float(out[f"{name}/metric/loss"]) == pytest.approx(float(m["loss"]), rel=1e-5)
-    assert float(out[f"{name}/metric/grad_norm"]) == \
+    _check_step(out, name, name, *inputs[name], monkeypatch)
+
+
+def _check_step(out, prefix, name, params, batch, monkeypatch, dp=4):
+    """The step written under ``prefix`` against the reference's."""
+    new, mu, nu, m = _reference_step(name, params, batch, monkeypatch, dp)
+    assert float(out[f"{prefix}/metric/loss"]) == pytest.approx(float(m["loss"]), rel=1e-5)
+    assert float(out[f"{prefix}/metric/grad_norm"]) == \
         pytest.approx(float(m["grad_norm"]), rel=1e-4)
-    assert float(out[f"{name}/metric/lr"]) == pytest.approx(float(m["lr"]), rel=1e-7)
+    assert float(out[f"{prefix}/metric/lr"]) == pytest.approx(float(m["lr"]), rel=1e-7)
     for part, want in (("params", new), ("mu", mu), ("nu", nu)):
-        assert {k.split("/", 2)[2] for k in out if k.startswith(f"{name}/{part}/")} == set(want)
+        n = prefix.count("/") + 2
+        assert {k.split("/", n)[n] for k in out if k.startswith(f"{prefix}/{part}/")} \
+            == set(want)
         for k, w in want.items():
-            np.testing.assert_allclose(out[f"{name}/{part}/{k}"], w, rtol=2e-4, atol=2e-5,
+            np.testing.assert_allclose(out[f"{prefix}/{part}/{k}"], w, rtol=2e-4, atol=2e-5,
                                        err_msg=f"{part} {k}")
+
+
+@pytest.mark.parametrize("shape,name", [(s, n) for s, ns in TP_STEPS.items() for n in ns],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_tp_step_matches_reference(run, shape, name, monkeypatch):
+    """With compute split over 'model' (heads, d_ff, experts, vocab) on
+    (2, 4), and with none on (8, 1): loss, gradient norm and every leaf of
+    params, mu and nu after one step equal the reference's unsharded step
+    at the tolerances above."""
+    inputs, _, _, out = run
+    _check_step(out, f"{shape[0]}x{shape[1]}/{name}", name, *inputs[name], monkeypatch,
+                dp=shape[0])
+
+
+def test_a_rank_computes_only_its_shard(run):
+    """Rank 0's matmul flops (``trace_analysis``) in danube's step on (2,
+    4), B/2 of the batch split over 4 model ranks, are within 5% of its
+    step on (8, 1), B/8 unsplit: every product splits over 'model'.  The
+    reduced config's 2 KV heads stay whole on 4 model ranks, and the 2
+    ranks that read one KV head each project half of the tokens
+    (``tensor_parallel.kv_project``)."""
+    out = run[3]
+    tp_flops = float(out[f"2x4/{FLOPS_ARCH}/flops"])
+    dp_flops = float(out[f"8x1/{FLOPS_ARCH}/flops"])
+    assert dp_flops > 0 and abs(tp_flops / dp_flops - 1) < 0.05, (tp_flops, dp_flops)
 
 
 def test_restore_onto_another_mesh(run):

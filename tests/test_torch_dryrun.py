@@ -3,7 +3,10 @@
 compiled HLO), the ring factors of ``collectives`` against the
 reference's HLO parser, and ``launch.dryrun.run_cell`` on a reduced config
 over a fake 16 x 16 process group (in a subprocess: the fake group is
-process-global), rendered by ``launch.roofline``."""
+process-global), rendered by ``launch.roofline``; and a train cell of a
+reduced config widened so that heads, ``d_ff`` and vocab split over the 16
+model ranks, whose useful flops show each rank computing only its shard."""
+import dataclasses
 import json
 import math
 import os
@@ -107,27 +110,42 @@ def test_roofline_terms_use_the_h100_data_sheet():
         collectives.effective_bytes("gather", 1, 2)
 
 
+# reduced llama widened so that its 16 query heads (on 8 KV heads, whole
+# on 'model'), d_ff and vocab split over 16 model ranks, and the products
+# outweigh the plain attention's S x S scores at S=4096; a vocab small
+# beside the layer, as in the full configs (MODEL_FLOPS counts the
+# embedding table's parameters, which the lookup multiplies by nothing)
+WIDE = dict(name="gentorrent-llama3-8b-tp16", d_model=2048, n_heads=16, n_kv_heads=8,
+            d_head=128, d_ff=8192, vocab=4096)
 CELL = textwrap.dedent("""
-    import sys
+    import dataclasses, sys
     from pathlib import Path
     from repro_torch import configs
     from repro_torch.launch import dryrun
-    configs.register(configs.get_config("gentorrent-llama3-8b").reduced())
+    cfg = configs.register(configs.get_config("gentorrent-llama3-8b").reduced())
     for shape in ("train_4k", "decode_32k"):
         rec = dryrun.run_cell("gentorrent-llama3-8b-reduced", shape, False,
                               Path(sys.argv[1]), force=True)
         assert rec["status"] == "ok", rec
-""")
+    wide = configs.register(dataclasses.replace(cfg, **%r))
+    rec = dryrun.run_cell(wide.name, "train_4k", False, Path(sys.argv[2]), force=True)
+    assert rec["status"] == "ok", rec
+""" % WIDE)
 
 
 @pytest.fixture(scope="module")
-def records(tmp_path_factory):
-    out = tmp_path_factory.mktemp("dryrun")
-    r = subprocess.run([sys.executable, "-c", CELL, str(out)], cwd=ROOT, timeout=120,
-                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+def cells(tmp_path_factory):
+    out, wide = tmp_path_factory.mktemp("dryrun"), tmp_path_factory.mktemp("wide")
+    r = subprocess.run([sys.executable, "-c", CELL, str(out), str(wide)], cwd=ROOT,
+                       timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                        capture_output=True, text=True)
     assert r.returncode == 0, r.stderr[-3000:]
-    return out / "pod16x16"
+    return out / "pod16x16", wide / "pod16x16"
+
+
+@pytest.fixture(scope="module")
+def records(cells):
+    return cells[0]
 
 
 def _local_bytes(cfg, tree, mesh, train):
@@ -186,3 +204,20 @@ def test_roofline_renders_the_records(records, capsys, monkeypatch):
     assert [line.split()[:2] for line in out[1:]] == [
         ["gentorrent-llama3-8b-reduced", "decode_32k"],
         ["gentorrent-llama3-8b-reduced", "train_4k"]]
+
+
+def test_a_train_cell_split_over_model_counts_its_shard(cells):
+    """The widened config's 16 x 16 train cell: useful flops (MODEL_FLOPS
+    over every device's traced flops) at least 0.4 (at most 1), where a
+    rank that computed its batch slice whole would count 16 x (4/3) x
+    MODEL_FLOPS / 256 and show ~0.05; the reference's rules split its
+    heads, d_ff and vocab over 'model'."""
+    cfg = dataclasses.replace(base.get_config("gentorrent-llama3-8b").reduced(),
+                              **{k: v for k, v in WIDE.items() if k != "name"})
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    specs = {getattr(p[-1], "key", None): jsharding.param_pspec(cfg, p, x.shape, mesh, True)
+             for p, x in jax.tree_util.tree_flatten_with_path(
+                 build_model(cfg).param_specs())[0]}
+    assert specs["wq"][2] == specs["w_up"][2] == specs["embed"][0] == "model"
+    (row,) = roofline.build_table(str(cells[1]))
+    assert row["status"] == "ok" and 0.4 <= row["useful_flops_ratio"] <= 1.0, row
