@@ -24,10 +24,11 @@ GROUP is one of:
 * ``distributed``: ``train_sharded_bf16`` (the sharded train step on a
   one-rank NCCL group: its f32 check against the unsharded step, its bf16
   run, the dry-run of one 16 x 16 cell on this host), then both flash
-  kernels at one rank's heads under tensor parallelism (``TP_LAYOUTS``)
-  and ``tp_emulated_bf16`` (16 model ranks of a full-width layer emulated
-  on the card); card tests ``-k sharded`` and the flash backward at those
-  layouts.
+  kernels at one rank's heads under tensor parallelism (``TP_LAYOUTS``),
+  the scan and the mLSTM with their backwards at one rank's share
+  (``TP_SCAN``, ``TP_MLSTM``) and ``tp_emulated_bf16`` (16 model ranks
+  of a full-width layer emulated on the card); card tests ``-k sharded``
+  and the kernels at those layouts.
 
 Builds the kernels the group runs, prints the card's name and power
 limit, then one JSON line a phase as ``chip_smoke.py`` prints it, with
@@ -93,12 +94,16 @@ def _groups(c, seed, dev, out):
             lambda: c.train_jamba_bf16(seed, dev, out),
             lambda: c.train_xlstm_bf16(seed, dev, out)],
             "bwd or backward or refuse_a_gradient or float64 or return_gradients"),
-        "distributed": (["flash_attention", "flash_attention_bwd"], [
+        "distributed": (["flash_attention", "flash_attention_bwd", "mamba_scan",
+                         "mamba_scan_bwd", "mlstm", "mlstm_bwd"], [
             lambda: c.train_sharded_bf16(seed, dev, out),
-            lambda: {"phase": "kernels", "kernels": c.check_flash_tp_layouts(
-                torch.Generator(device=dev).manual_seed(seed), dev)},
+            lambda: {"phase": "kernels", "kernels": {
+                **c.check_flash_tp_layouts(torch.Generator(device=dev).manual_seed(seed), dev),
+                **c.check_recurrent_tp_layouts(torch.Generator(device=dev).manual_seed(seed),
+                                               dev)}},
             lambda: c.tp_emulated_bf16(seed, dev, out)],
-            "sharded or 1x2x1x2048 or 1x3x1x2048 or 1x1x1x2048"),
+            "sharded or 1x2x1x2048 or 1x3x1x2048 or 1x1x1x2048 or 2048x4x128 "
+            "or 1x2048x4x1024x64"),
     }
 
 

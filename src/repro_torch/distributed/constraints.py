@@ -35,14 +35,17 @@ _DP_GROUP = None
 class ModelShards(NamedTuple):
     """Where a rank's compute sits on the 'model' axis: the process group
     of the ranks that share its batch slice (None: no collective, one rank
-    or ranks emulated one after another in one process), its index on it
-    and the axis' extent; ``kv_group``, where KV heads are whole on 'model'
-    and several ranks' query heads read one, the group of those ranks
-    (``tensor_parallel.kv_sharers``), else None."""
+    or ranks emulated in one process), its index on it and the axis'
+    extent; ``kv_group``, where KV heads are whole on 'model' and several
+    ranks' query heads read one, the group of those ranks
+    (``tensor_parallel.kv_sharers``), else None; ``peers``, where the ranks
+    are emulated in one process (``tensor_parallel.emulate``), what their
+    collectives inside a split sublayer meet at, else None."""
     group: object
     index: int
     extent: int
     kv_group: object = None
+    peers: object = None
 
 
 _MODEL = ModelShards(None, 0, 1)
@@ -74,19 +77,27 @@ def batch_slices(group):
 
 
 @contextlib.contextmanager
-def model_shards(group, index: int, extent: int, kv_group=None):
+def model_shards(group, index: int, extent: int, kv_group=None, peers=None):
     """Inside: the model code computes rank ``index``'s shard of every
     split over 'model' (``distributed/tensor_parallel.py``), of
     ``extent``; ``group`` sums and gathers over the model ranks (None: the
-    caller combines the ranks' results itself); ``kv_group`` as
-    ``ModelShards`` says."""
-    global _MODEL
-    prev = _MODEL
-    _MODEL = ModelShards(group, int(index), int(extent), kv_group)
+    caller combines the ranks' results itself); ``kv_group`` and ``peers``
+    as ``ModelShards`` says.  Process-wide, as the other installs here
+    are: the autograd engine runs a CUDA graph's backward, and the
+    recompute of a checkpointed body with it, on a thread of its own."""
+    prev = install_model(ModelShards(group, int(index), int(extent), kv_group, peers))
     try:
         yield
     finally:
-        _MODEL = prev
+        install_model(prev)
+
+
+def install_model(shards: ModelShards) -> ModelShards:
+    """Install ``shards`` as ``model()``; returns what was installed
+    (``model_shards``, and emulated ranks taking their turns)."""
+    global _MODEL
+    prev, _MODEL = _MODEL, shards
+    return prev
 
 
 def model() -> ModelShards:

@@ -12,15 +12,17 @@ Each rank computes on plain local tensors: its slice of the batch over
 the DP ranks, and its shard over 'model' (``constraints.model_shards``;
 ``distributed/tensor_parallel.py``): its query heads (and KV heads where
 they divide), its columns and rows of ``d_ff``, its experts, its vocab
-rows of the embedding and the head, with the sums and gathers that GSPMD
-inserts in the reference made explicit over the model group.  The Mamba,
-mLSTM and sLSTM mixers, and whatever the rules leave whole on 'model'
-(yi's 56 query heads at 16), are computed whole by every model rank.
-Each stacked weight is all-gathered over the DP axes just before its
-layer uses it, keeping its 'model' shard (``constraints.gather_tp`` in
-``lm._layer_slice``, ``constraints.gather`` in a recurrent mixer; remat
-gathers it again in the backward), the others once at the start of the
-step; the gradients come back summed over the data ranks and
+rows of the embedding and the head, a Mamba mixer's heads and an
+mLSTM's value columns of every head, with the sums, gathers and
+all-to-alls that GSPMD inserts in the reference made explicit over the
+model group.  The sLSTM, and whatever the rules leave whole on 'model'
+(yi's 56 query heads at 16; a Mamba or mLSTM mixer whose split dim does
+not divide the extent), are computed whole by every model rank.  Each
+stacked weight is all-gathered over the DP axes just before its layer
+uses it, keeping its 'model' shard (``constraints.gather_tp`` in
+``lm._layer_slice``, ``constraints.gather`` in a mixer computed whole;
+remat gathers it again in the backward), the others once at the start of
+the step; the gradients come back summed over the data ranks and
 reduce-scattered onto the weights' placements.  The loss divides by the
 whole batch's label count and the MoE aux loss takes this rank's share, so
 the shares sum to the unsharded loss; AdamW clips by the norm over every

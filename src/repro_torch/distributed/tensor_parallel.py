@@ -1,7 +1,8 @@
 """Tensor-parallel compute over the mesh's 'model' axis: the sums and
 gathers that GSPMD inserts in the reference (``repro/distributed/
 sharding.py``'s rules put query heads, KV heads where they divide,
-``d_ff``, experts and vocab on 'model'), made explicit.
+``d_ff``, experts, vocab and the Mamba and mLSTM mixers' channels on
+'model'), made explicit.
 
 A rank computes on its shards (``constraints.gather_tp``) under
 ``constraints.model_shards(group, index, extent)``.  The model code
@@ -14,13 +15,25 @@ backward): the Megatron pair.  Both are functional collectives
 sums run in float32 and round once to a bf16 tensor's dtype, as the
 unsplit product's accumulator does.
 
+Inside a split sublayer the recurrent mixers meet once more, where the
+compute needs another layout than the rules give its weights:
+``all_sum`` (the ranks' partial sums summed forward, and their gradients
+summed backward: every rank reads the sum), ``gather_last`` (the ranks'
+blocks of the last dim concatenated; backward, reduce-scattered) and
+``regroup`` (an all-to-all that hands each rank the entries of a dim it
+computes on, e.g. ``xz_columns``' x and z channels of its own heads from
+``w_in``'s flat column chunks).  The sums run in float32 and round once.
+
 Each rank's local computation depends only on its shards, its index and
-the extent; the collectives stand outside it and do nothing where the
-group is None.  So m ranks can be emulated in one process: ``emulate``
-runs m calls, each under ``model_shards(None, r, m)`` with rank r's
-shards (``shard_params``), and sums their outputs and their inputs'
-gradients as the collectives do; the gradients of the whole leaves that
-the shards are views of come out concatenated or summed by autograd.
+the extent, and on what those collectives hand it; ``copy_in`` and
+``reduce_out`` do nothing where the group is None.  So m ranks can be
+emulated in one process: ``emulate`` runs m calls, each under
+``model_shards(None, r, m)`` with rank r's shards (``shard_params``), and
+sums their outputs and their inputs' gradients as the collectives do;
+the gradients of the whole leaves that the shards are views of come out
+concatenated or summed by autograd.  A call that meets the others inside
+(``all_sum`` and the rest) runs on a thread of its own, the calls one at
+a time in rank order, handing over at each collective (``_Peers``).
 
 What splits, rule for rule (a dim splits where it divides the extent):
 query heads where ``n_heads`` does (else the attention stays whole on
@@ -28,11 +41,21 @@ every model rank: yi's 56 stored heads at 16); KV heads where
 ``n_kv_heads`` does, else every rank holds them whole and reads the ones
 its query heads use (``head_layout``), the ranks that read one KV head
 each projecting a part of the tokens (``kv_project``); ``d_ff``;
-experts; vocab rows of ``embed``, ``lm_head`` and ``pos_embed``.  The
-Mamba, mLSTM and sLSTM mixers stay whole on every model rank.
+experts; vocab rows of ``embed``, ``lm_head`` and ``pos_embed``; a
+Mamba mixer's heads where ``H`` does (``mamba.py``: the conv channels,
+the rows of ``w_dt`` / ``w_B`` / ``w_C`` / ``w_out`` and the columns of
+``w_in`` as the rules chunk them, the state's heads), else the mixer
+stays whole on every model rank; an mLSTM's value columns of every head
+where its head width does (``xlstm.py``: ``v``, ``h`` and C's columns, as
+the cache rule splits C, with q, k, n and m whole), else it stays whole.
+The sLSTM stays whole on every model rank (``WHOLE``).  A mixer that
+stays whole runs as the one rank of one (``lm._recurrent``), so each
+mixer has one code path.
 """
 from __future__ import annotations
 
+import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -40,7 +63,7 @@ from torch.distributed import _functional_collectives as funcol
 
 from repro_torch.distributed import constraints, sharding
 
-RECURRENT = ("mamba", "mlstm", "slstm")
+WHOLE = ("slstm",)   # mixers every model rank computes whole
 
 
 def _waited(x):
@@ -56,11 +79,26 @@ def _sum_over(x, group):
     return _all_reduce(x.float(), "sum", group).to(x.dtype)
 
 
-def splits(n: int) -> bool:
-    """Whether a dim of ``n`` splits over the installed model extent (the
-    rules' divisibility guard), at an extent above 1."""
-    extent = constraints.model().extent
+def splits(n: int, extent: int = None) -> bool:
+    """Whether a dim of ``n`` splits over ``extent`` (default: the
+    installed model extent; the rules' divisibility guard), above 1."""
+    extent = constraints.model().extent if extent is None else extent
     return extent > 1 and n % extent == 0
+
+
+def mixer_splits(cfg, mixer: str, extent: int = None) -> bool:
+    """Whether a layer's ``mixer`` computes its share over ``extent``
+    model ranks (default: the installed extent): attention always (its
+    heads decide, ``head_layout``); a Mamba mixer where its heads split,
+    an mLSTM where its head width does; never the sLSTM."""
+    from repro_torch.models import mamba, xlstm    # they import this module
+    if mixer in WHOLE:
+        return False
+    if mixer == "mamba":
+        return splits(mamba.dims(cfg)[1], extent)
+    if mixer == "mlstm":
+        return splits(xlstm.mlstm_dims(cfg)[2], extent)
+    return True
 
 
 class _CopyIn(torch.autograd.Function):
@@ -96,6 +134,201 @@ def reduce_out(x):
     backward, the gradient as it is (it is the same on every rank)."""
     group = constraints.model().group
     return x if group is None else _ReduceOut.apply(x, group)
+
+
+# --------------------------------------------------------------------------
+# Collectives inside a split sublayer (the recurrent mixers)
+# --------------------------------------------------------------------------
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.group), None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = _waited(funcol.all_gather_tensor(x.movedim(-1, 0).contiguous(), 0, group))
+        return y.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        y = _waited(funcol.reduce_scatter_tensor(
+            g.float().movedim(-1, 0).contiguous(), "sum", 0, ctx.group))
+        return y.movedim(0, -1).to(g.dtype), None
+
+
+class _Plan(NamedTuple):
+    """Rank r's all-to-all of ``regroup``: the entries of its block it
+    sends (indices into the block, receivers in rank order), how many to
+    each rank, how many it receives from each, and where each received
+    entry goes in its new block."""
+    send: torch.Tensor
+    send_splits: list
+    recv_splits: list
+    place: torch.Tensor
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(have: tuple, want: tuple, r: int) -> _Plan:
+    """``have[s]`` / ``want[s]``: the global indices rank s holds / needs,
+    in its block's order."""
+    where = {i: (s, j) for s, h in enumerate(have) for j, i in enumerate(h)}
+    send = [[j for i in want[q] for s, j in [where[i]] if s == r] for q in range(len(want))]
+    got = [[i for i in want[r] if where[i][0] == s] for s in range(len(have))]
+    order = {i: n for n, i in enumerate(x for part in got for x in part)}
+    return _Plan(torch.tensor([j for part in send for j in part], dtype=torch.long),
+                 [len(x) for x in send], [len(x) for x in got],
+                 torch.tensor([order[i] for i in want[r]], dtype=torch.long))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan, group):
+        ctx.plan, ctx.group, ctx.n = plan, group, x.shape[-1]
+        buf = x.index_select(-1, plan.send.to(x.device)).movedim(-1, 0).contiguous()
+        y = _waited(funcol.all_to_all_single(buf, plan.recv_splits, plan.send_splits, group))
+        return y.movedim(0, -1).index_select(-1, plan.place.to(x.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        back = torch.empty_like(g).index_copy_(-1, plan.place.to(g.device), g)
+        y = _waited(funcol.all_to_all_single(back.movedim(-1, 0).contiguous(),
+                                             plan.send_splits, plan.recv_splits, ctx.group))
+        dx = g.new_zeros((*g.shape[:-1], ctx.n))
+        return dx.index_add_(-1, plan.send.to(g.device), y.movedim(0, -1)), None, None
+
+
+def _inside(x, real, emulated):
+    """A collective inside a split sublayer: ``real(x, group)`` over the
+    model group, ``emulated(xs)`` (every rank's ``x`` -> every rank's
+    result) among emulated ranks, ``x`` itself at extent 1."""
+    ms = constraints.model()
+    if ms.extent == 1:
+        return x
+    if ms.peers is not None:
+        return ms.peers.exchange(ms.index, x, emulated)
+    if ms.group is None:
+        raise RuntimeError("a collective inside a split sublayer needs the model group "
+                           "or the emulated ranks (tensor_parallel.emulate)")
+    return real(x, ms.group)
+
+
+class _EmulatedSum(torch.autograd.Function):
+    """Every emulated rank's ``x`` summed in float32, a copy to each;
+    backward, their gradients summed alike."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        total = _f32_sum(xs)
+        return tuple(total.clone() for _ in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        total = _f32_sum(gs)
+        return tuple(total.clone() for _ in gs)
+
+
+class _EmulatedGather(torch.autograd.Function):
+    """Every emulated rank's block of the last dim concatenated, a copy to
+    each; backward, the gradients summed in float32 and cut into the
+    ranks' blocks."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.sizes = [x.shape[-1] for x in xs]
+        whole = torch.cat(xs, -1)
+        return tuple(whole.clone() for _ in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return tuple(t.contiguous() for t in _f32_sum(gs).split(ctx.sizes, -1))
+
+
+def all_sum(x):
+    """The model ranks' partial sums ``x`` summed (all-reduce, in float32,
+    rounded once) forward, where every rank reads the whole sum; backward,
+    the ranks' gradients summed alike (each rank's read adds its share)."""
+    return _inside(x, _AllSum.apply, lambda xs: _EmulatedSum.apply(*xs))
+
+
+def gather_last(x):
+    """The model ranks' blocks of ``x``'s last dim concatenated in rank
+    order (all-gather); backward, each rank's block of the gradient summed
+    over the ranks in float32 (reduce-scatter)."""
+    return _inside(x, _GatherLast.apply, lambda xs: _EmulatedGather.apply(*xs))
+
+
+def regroup(x, have: tuple, want: tuple):
+    """The entries of ``x``'s last dim that this rank computes on
+    (``want[r]``, global indices), from the blocks the ranks hold
+    (``have[s]``): an all-to-all of the entries, backward the reverse.
+    ``have`` and ``want``: a tuple of indices for each rank."""
+    def real(x, group):
+        return _AllToAll.apply(x, _plan(have, want, constraints.model().index), group)
+
+    def emulated(xs):
+        whole = torch.cat(xs, -1)      # in the order of cat(have)
+        order = torch.tensor([i for h in have for i in h], device=whole.device)
+        whole = torch.empty_like(whole).index_copy(-1, order, whole)
+        return [whole.index_select(-1, torch.tensor(w, device=whole.device)) for w in want]
+    return _inside(x, real, emulated)
+
+
+@functools.lru_cache(maxsize=None)
+def _flat(n: int, m: int) -> tuple:
+    """Each of m ranks' flat block of n entries (the rules' chunks)."""
+    return tuple(tuple(range(r * n // m, (r + 1) * n // m)) for r in range(m))
+
+
+@functools.lru_cache(maxsize=None)
+def _xz(di: int, m: int) -> tuple:
+    """Each rank's x channels and z channels of its flat block of ``di``
+    (x | z concatenated, 2 di columns)."""
+    return tuple(tuple(i for part in (b, (di + i for i in b)) for i in part)
+                 for b in _flat(di, m))
+
+
+@functools.lru_cache(maxsize=None)
+def _columns(H: int, dh: int, m: int) -> tuple:
+    """Each rank's share of the columns of every one of H heads of width
+    dh, head by head."""
+    dv = dh // m
+    return tuple(tuple(h * dh + r * dv + j for h in range(H) for j in range(dv))
+                 for r in range(m))
+
+
+def xz_columns(w, di: int):
+    """A weight whose columns are x | z (``di`` each: ``w_in``, ``w_up``),
+    chunked flat over the model ranks by the rules (rank r holds columns
+    [2 r di / m, 2 (r + 1) di / m), x only or z only at an even extent):
+    the rank's own block of x's columns and the same block of z's."""
+    m = constraints.model().extent
+    return regroup(w, _flat(2 * di, m), _xz(di, m))
+
+
+def head_columns(x, H: int, dh: int):
+    """``x``'s last dim, the rank's flat block of the H * dh channels, as
+    its share of every head's columns ((..., H * dh / m) -> (..., H, dh /
+    m)): what an mLSTM rank's v, h and C hold."""
+    m = constraints.model().extent
+    return regroup(x, _flat(H * dh, m), _columns(H, dh, m)).unflatten(-1, (H, dh // m))
+
+
+def flat_channels(x):
+    """The inverse of ``head_columns``: (..., H, dh / m) -> the rank's
+    flat block of the H * dh channels."""
+    m = constraints.model().extent
+    H, dv = x.shape[-2:]
+    return regroup(x.flatten(-2), _columns(H, dv * m, m), _flat(H * dv * m, m))
 
 
 # --------------------------------------------------------------------------
@@ -240,21 +473,21 @@ class _ModelOnly:
         self.shape = {"model": extent}
 
 
-def _recurrent(cfg, path) -> bool:
+def _whole(cfg, path, extent) -> bool:
     return len(path) > 2 and path[0] == "blocks" and path[2] == "mixer" \
-        and cfg.pattern[path[1]].mixer in RECURRENT
+        and not mixer_splits(cfg, cfg.pattern[path[1]].mixer, extent)
 
 
 def shard_params(cfg, tree, index: int, extent: int):
     """Rank ``index``'s shards of a param tree (a whole model's, or one
     layer's), as ``constraints.gather_tp`` gives them on a mesh whose
     'model' axis is ``extent``: each leaf's chunk along the dim the rules
-    put on 'model', views of the whole leaves; a recurrent mixer's leaves
-    whole."""
+    put on 'model', views of the whole leaves; the leaves of a mixer that
+    stays whole (``mixer_splits``) whole."""
     mesh = _ModelOnly(extent)
 
     def one(path, t):
-        if _recurrent(cfg, path):
+        if _whole(cfg, path, extent):
             return t
         spec = sharding.param_pspec(cfg, path, tuple(t.shape), mesh, train=False)
         for dim, entry in enumerate(spec):
@@ -268,20 +501,113 @@ def _f32_sum(ts):
     return torch.stack([t.float() for t in ts]).sum(0).to(ts[0].dtype)
 
 
+class _Abandoned(Exception):
+    """An emulated rank stopped because another one failed."""
+
+
+class _Peers:
+    """The emulated ranks of ``emulate``: each on a thread of its own, one
+    running at a time in rank order, from its start or its last
+    collective to its next collective (or its end), when the next rank
+    takes over.  The rank whose turn it is is installed as
+    ``constraints.model()`` (rank r's ``model_shards(None, r, m)``, with
+    these peers).  The last rank to reach a collective works it out for
+    all of them (``exchange``).  So the ranks run as one after another
+    in one thread would, in the same order, and nothing they share is
+    touched by two threads at once.  A rank that waits longer than
+    ``WAIT_S`` for its turn (ranks that do not meet at the same
+    collectives) fails the call."""
+
+    WAIT_S = 1800.0
+
+    def __init__(self, extent: int):
+        self.extent = extent
+        self.cond = threading.Condition()
+        self.turn = 0
+        self.slots = [None] * extent
+        self.result = None
+        self.error = None
+        self.shards = [constraints.ModelShards(None, r, extent, peers=self)
+                       for r in range(extent)]
+
+    def _hand_over(self, r: int):
+        """Rank ``r`` gives the next rank its turn and waits for its own
+        (the lock held)."""
+        self.turn = (r + 1) % self.extent
+        self.cond.notify_all()
+        self._wait(r)
+
+    def _wait(self, r: int):
+        if not self.cond.wait_for(lambda: self.turn == r or self.error is not None,
+                                  self.WAIT_S):
+            raise RuntimeError(f"emulated rank {r} waited {self.WAIT_S} s for its turn")
+        if self.error is not None:
+            raise _Abandoned()
+        constraints.install_model(self.shards[r])
+
+    def exchange(self, r: int, x, combine):
+        """Rank ``r``'s ``x`` into a collective; its share of ``combine(xs)``
+        (a result for every rank), once every rank's ``x`` is in."""
+        with self.cond:
+            self.slots[r] = x
+            if r == self.extent - 1:
+                self.result, self.slots = combine(self.slots), [None] * self.extent
+            self._hand_over(r)
+            return self.result[r]
+
+    def run(self, fns) -> list:
+        """Each rank's ``fns[r]()`` on its own thread, in turns; their
+        results, or the first error raised."""
+        outs = [None] * self.extent
+
+        def one(r):
+            try:
+                with self.cond:
+                    self._wait(r)
+                outs[r] = fns[r]()
+                with self.cond:
+                    self.turn = (r + 1) % self.extent
+                    self.cond.notify_all()
+            except _Abandoned:
+                pass
+            except Exception as e:  # handed to the caller
+                with self.cond:
+                    self.error = self.error or e
+                    self.cond.notify_all()
+        threads = [threading.Thread(target=one, args=(r,), daemon=True)
+                   for r in range(self.extent)]
+        outer = constraints.model()
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            constraints.install_model(outer)
+        if self.error is not None:
+            raise self.error
+        return outs
+
+
 class _Ranks(torch.autograd.Function):
     """``emulate``'s ranks: each rank's graph built on its own copies of
-    the inputs; backward, each graph run back (its weights' gradients land
-    in their leaves) and the inputs' gradients summed over the ranks."""
+    the inputs (the ranks' graphs meet where a split sublayer's
+    collectives join them); backward, the graphs run back (the weights'
+    gradients land in their leaves) and the inputs' gradients summed over
+    the ranks."""
 
     @staticmethod
     def forward(ctx, fn, extent, *xs):
-        ctx.ins, ctx.outs = [], []
-        with torch.enable_grad():
-            for r in range(extent):
-                ins = [x.detach().requires_grad_(x.requires_grad) for x in xs]
-                with constraints.model_shards(None, r, extent):
-                    ctx.outs.append(fn(r, *ins))
-                ctx.ins.append(ins)
+        ctx.ins = [[x.detach().requires_grad_(x.requires_grad) for x in xs]
+                   for _ in range(extent)]
+        peers = _Peers(extent)
+
+        def rank(r):
+            def call():
+                with torch.enable_grad():
+                    return fn(r, *ctx.ins[r])
+            return call
+        ctx.outs = peers.run([rank(r) for r in range(extent)])
         return _f32_sum([o.detach() for o in ctx.outs])
 
     @staticmethod
@@ -298,8 +624,9 @@ class _Ranks(torch.autograd.Function):
 def emulate(fn, extent: int, *xs):
     """The ``extent`` model ranks of a split sublayer in one process:
     ``fn(r, *xs)`` under ``model_shards(None, r, extent)`` (rank r's
-    partial sum, on rank r's shards), the ranks' outputs summed in float32
-    as ``reduce_out`` sums them, and in the backward the gradients of the
-    inputs ``xs`` (replicated on every rank) summed in float32 as
-    ``copy_in``'s backward sums them."""
+    partial sum, on rank r's shards; the collectives inside it, e.g. a
+    mixer's ``all_sum``, among the emulated ranks: ``_Peers``), the ranks'
+    outputs summed in float32 as ``reduce_out`` sums them, and in the
+    backward the gradients of the inputs ``xs`` (replicated on every
+    rank) summed in float32 as ``copy_in``'s backward sums them."""
     return _Ranks.apply(fn, extent, *xs)

@@ -4,7 +4,8 @@
 // Replaces the Pallas TPU kernel mlstm_pallas
 // (src/repro/kernels/mlstm/kernel.py, body _mlstm_kernel, launched at
 // kernel.py:106).  Per (batch row b, head h), over chunks of L steps, with
-// the stabilized state (C (dh, dh), n (dh), m) carried in float32:
+// the stabilized state (C (dh, dv), n (dh), m) carried in float32 (dv = dh
+// but on a tensor-parallel rank, which holds dv of every head's columns):
 //   b      = inclusive cumsum of log f within the chunk
 //   m_new  = b + max(m_prev, cummax(log i - b))
 //   inter  = exp(b + m_prev - m_new)
@@ -264,7 +265,7 @@ __global__ void __launch_bounds__(kThreads) recurrent_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ C0, const float* __restrict__ n0, const float* __restrict__ recs,
     float* __restrict__ h_out, float* __restrict__ C_out, float* __restrict__ n_out, int S,
-    int H, int dh, int L, float scale) {
+    int H, int dh, int dv, int L, float scale) {
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int f0 = blockIdx.y * kCols;  // this block's columns [f0, f0 + 32) of C, v, h
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -282,18 +283,19 @@ __global__ void __launch_bounds__(kThreads) recurrent_kernel(
   const float* w = gv + kRecW * L;
   const float* rowsum = gv + kRecRowsum * L;
 
-  const size_t cbase = (size_t)bh * dh * dh;
+  const size_t cbase = (size_t)bh * dh * dv;
   for (int i = tid; i < dh * kCols; i += kThreads) {
     const int e = i / kCols, f = i - e * kCols;
-    Cs[i] = C0 ? C0[cbase + (size_t)e * dh + f0 + f] : 0.f;
+    Cs[i] = C0 ? C0[cbase + (size_t)e * dv + f0 + f] : 0.f;
   }
   for (int e = tid; e < dh; e += kThreads) ns[e] = n0 ? n0[(size_t)bh * dh + e] : 0.f;
 
-  const size_t row_stride = (size_t)H * dh;
+  const size_t row_stride = (size_t)H * dh, vrs = (size_t)H * dv;
   const int n_chunks = (S + L - 1) / L;
   for (int c = 0; c < n_chunks; ++c) {
     const int t0 = c * L, Lc = min(L, S - t0);
     const size_t base = ((size_t)b * S + t0) * row_stride + (size_t)h * dh;
+    const size_t vbase = ((size_t)b * S + t0) * vrs + (size_t)h * dv;
     const float* rec = recs + ((size_t)bh * n_chunks + c) * record_floats(L);
     uint4 rq[kVec], rk[kVec];
     fetch(rq, q, base, row_stride, Lc);
@@ -303,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) recurrent_kernel(
     for (int i = tid; i < L * L; i += kThreads) att[i] = rec[4 * L + i];
     for (int i = tid; i < Lc * kCols; i += kThreads) {
       const int t = i / kCols, f = i - t * kCols;
-      vs[i] = v[base + t * row_stride + f0 + f];
+      vs[i] = v[vbase + t * vrs + f0 + f];
     }
     __syncthreads();
     const float decay = inter[Lc - 1];
@@ -376,14 +378,14 @@ __global__ void __launch_bounds__(kThreads) recurrent_kernel(
       const float is = inter[s];
       num = fmaf(is, qc[i], num);
       const float den = fmaf(is, qni, rowsum[s]);
-      h_out[base + (size_t)s * row_stride + f0 + lane] = num / fmaxf(fabsf(den), expf(-mn[s]));
+      h_out[vbase + (size_t)s * vrs + f0 + lane] = num / fmaxf(fabsf(den), expf(-mn[s]));
     }
   }
 
   __syncthreads();
   for (int i = tid; i < dh * kCols; i += kThreads) {
     const int e = i / kCols, f = i - e * kCols;
-    C_out[cbase + (size_t)e * dh + f0 + f] = Cs[i];
+    C_out[cbase + (size_t)e * dv + f0 + f] = Cs[i];
   }
   if (blockIdx.y == 0)
     for (int e = tid; e < dh; e += kThreads) n_out[(size_t)bh * dh + e] = ns[e];
@@ -538,7 +540,7 @@ __global__ void __launch_bounds__(128 * NWG, 1) recurrent_tc(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const float* __restrict__ C0, const float* __restrict__ n0, const float* __restrict__ recs,
     bf16* __restrict__ h_out, float* __restrict__ C_out, float* __restrict__ n_out, int S,
-    int H, int dh, int L, float scale) {
+    int H, int dh, int dv, int L, float scale) {
   using Lay = RecLayout<NWG, MT>;
   constexpr int kT = 128 * NWG;
   const int bh = blockIdx.x, b = bh / H, hh = bh % H;
@@ -560,9 +562,9 @@ __global__ void __launch_bounds__(128 * NWG, 1) recurrent_tc(
 
   const int n_et = (dh + 63) / 64;
   const int my_tiles = max(0, min(MT, n_et - wg * MT));  // this warpgroup's real e-tiles
-  const size_t row_stride = (size_t)H * dh;
+  const size_t row_stride = (size_t)H * dh, vrs = (size_t)H * dv;
   const int n_chunks = (S + L - 1) / L;
-  const size_t cbase = (size_t)bh * dh * dh;
+  const size_t cbase = (size_t)bh * dh * dv;
 
   // this warpgroup's rows of C, columns f0.., in wgmma's accumulator layout
   float C[MT][16];
@@ -571,7 +573,7 @@ __global__ void __launch_bounds__(128 * NWG, 1) recurrent_tc(
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int e = (wg * MT + j) * 64 + acc_row(i);
-      C[j][i] = (C0 && e < dh) ? C0[cbase + (size_t)e * dh + f0 + acc_col(i)] : 0.f;
+      C[j][i] = (C0 && e < dh) ? C0[cbase + (size_t)e * dv + f0 + acc_col(i)] : 0.f;
     }
   for (int e = tid; e < NWG * MT * 64; e += kT) n_s[e] = (n0 && e < dh) ? n0[(size_t)bh * dh + e] : 0.f;
 
@@ -595,11 +597,11 @@ __global__ void __launch_bounds__(128 * NWG, 1) recurrent_tc(
     const float* rec = recs + ((size_t)bh * n_chunks + c) * record_floats(L);
     for (int i = tid; i < L; i += kT)  // 4 L floats
       sm90::cp_async16(sm_a + Lay::kGates + buf * 4 * kMaxL * 4 + i * 16, rec + i * 4, true);
-    const size_t vbase = ((size_t)b * S + c * L) * row_stride + (size_t)hh * dh + f0;
+    const size_t vbase = ((size_t)b * S + c * L) * vrs + (size_t)hh * dv + f0;
     for (int i = tid; i < 64 * kCols / 8; i += kT) {
       const int t = i / (kCols / 8), ch = i % (kCols / 8);
       sm90::cp_async16(sm_a + Lay::kV + buf * 64 * kCols * 2 + i * 16,
-                       t < Lc ? v + vbase + t * row_stride + ch * 8 : v, t < Lc);
+                       t < Lc ? v + vbase + t * vrs + ch * 8 : v, t < Lc);
     }
   };
   load_gates_v(0);
@@ -799,7 +801,7 @@ __global__ void __launch_bounds__(128 * NWG, 1) recurrent_tc(
         const float den = rowsum[r] + inter[r] * (scale * x);
         const float inv = 1.f / fmaxf(fabsf(den), expf(-mn[r]));
         *reinterpret_cast<__nv_bfloat162*>(
-            h_out + ((size_t)b * S + t0 + r) * row_stride + (size_t)hh * dh + f0 + acc_col(i)) =
+            h_out + ((size_t)b * S + t0 + r) * vrs + (size_t)hh * dv + f0 + acc_col(i)) =
             __floats2bfloat162_rn(num[i] * inv, num[i + 1] * inv);
       }
     }
@@ -813,7 +815,7 @@ __global__ void __launch_bounds__(128 * NWG, 1) recurrent_tc(
     for (int i = 0; i < 16; i += 2) {
       const int e = (wg * MT + j) * 64 + acc_row(i);
       if (e < dh)
-        *reinterpret_cast<float2*>(C_out + cbase + (size_t)e * dh + f0 + acc_col(i)) =
+        *reinterpret_cast<float2*>(C_out + cbase + (size_t)e * dv + f0 + acc_col(i)) =
             make_float2(C[j][i], C[j][i + 1]);
     }
   }
@@ -835,7 +837,7 @@ __global__ void __launch_bounds__(kTcThreads)
     boot_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
             const float* __restrict__ log_i, const float* __restrict__ log_f,
             bf16* __restrict__ h_out, float* __restrict__ C_out, float* __restrict__ n_out,
-            float* __restrict__ m_out, int S, int H, int dh, float scale) {
+            float* __restrict__ m_out, int S, int H, int dh, int dv, float scale) {
   __shared__ GateSmem<kTcThreads> g;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = aligned_smem(smem_raw);
@@ -845,16 +847,17 @@ __global__ void __launch_bounds__(kTcThreads)
   const int bh = blockIdx.x, b = bh / H, hh = bh % H;
   const int f0 = blockIdx.y * kBootF, eg = blockIdx.z;
   const int tid = threadIdx.x;
-  const size_t row_stride = (size_t)H * dh;
+  const size_t row_stride = (size_t)H * dh, vrs = (size_t)H * dv;
   const size_t base = (size_t)b * S * row_stride + (size_t)hh * dh;
-  const size_t cbase = (size_t)bh * dh * dh;
+  const size_t vbase = (size_t)b * S * vrs + (size_t)hh * dv;
+  const size_t cbase = (size_t)bh * dh * dv;
   const int ksteps = (S + 15) / 16;  // 16-step slices of K = t
   const int n_et = (dh + 63) / 64;
   const int et0 = eg * kBootE, et1 = min(n_et, et0 + kBootE);
   const bool h_block = eg == (int)gridDim.z - 1;
 
   chunk_gates<kTcThreads>(log_i, log_f, nullptr, b, hh, H, S, S, 0, g);
-  load_vt(vt, v, base + f0, row_stride, S, kBootF, dh - f0, kTcThreads);
+  load_vt(vt, v, vbase + f0, vrs, S, kBootF, dv - f0, kTcThreads);
   if (h_block) {
     // h of this block's columns: att v / max(|rowsum(att)|, exp(-m_new))
     float s[32], rs[2];
@@ -882,9 +885,9 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const int r = acc_row(i), f = f0 + acc_col(i);
-      if (r >= S || f >= dh) continue;
+      if (r >= S || f >= dv) continue;
       const float inv = 1.f / fmaxf(fabsf(rs[(i >> 1) & 1]), expf(-g.mn[r]));
-      *reinterpret_cast<__nv_bfloat162*>(h_out + base + (size_t)r * row_stride + f) =
+      *reinterpret_cast<__nv_bfloat162*>(h_out + vbase + (size_t)r * vrs + f) =
           __floats2bfloat162_rn(num[i] * inv, num[i + 1] * inv);
     }
     if (blockIdx.y == 0 && tid == 0) m_out[bh] = g.mn[S - 1];
@@ -931,8 +934,8 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const int e = et * 64 + acc_row(i), f = f0 + acc_col(i);
-      if (e < dh && f < dh)
-        *reinterpret_cast<float2*>(C_out + cbase + (size_t)e * dh + f) =
+      if (e < dh && f < dv)
+        *reinterpret_cast<float2*>(C_out + cbase + (size_t)e * dv + f) =
             make_float2(acc[i], acc[i + 1]);
     }
   }
@@ -951,8 +954,8 @@ cudaError_t prepare(Kernel* kernel, size_t smem, int (&set)[kv_tile::kMaxDevices
 
 int launch_f32(const float* q, const float* k, const float* v, const float* log_i,
                const float* log_f, const float* C0, const float* n0, const float* m0, float* rec,
-               float* h, float* C, float* n, float* m, int B, int S, int H, int dh, int L,
-               float scale, cudaStream_t stream) {
+               float* h, float* C, float* n, float* m, int B, int S, int H, int dh, int dv,
+               int L, float scale, cudaStream_t stream) {
   const int n_chunks = (S + L - 1) / L;
   scores_kernel<<<dim3(n_chunks, B * H), kThreads, 0, stream>>>(q, k, log_i, log_f, m0, rec, m,
                                                                  S, H, dh, L, scale);
@@ -961,35 +964,36 @@ int launch_f32(const float* q, const float* k, const float* v, const float* log_
   const size_t smem = sizeof(float) * recurrent_smem_floats(L, dh);
   static int set[kv_tile::kMaxDevices] = {};
   if ((err = prepare(recurrent_kernel, smem, set)) != cudaSuccess) return (int)err;
-  recurrent_kernel<<<dim3(B * H, dh / kCols), kThreads, smem, stream>>>(
-      q, k, v, C0, n0, rec, h, C, n, S, H, dh, L, scale);
+  recurrent_kernel<<<dim3(B * H, dv / kCols), kThreads, smem, stream>>>(
+      q, k, v, C0, n0, rec, h, C, n, S, H, dh, dv, L, scale);
   return (int)cudaGetLastError();
 }
 
 template <int NWG, int MT>
 int launch_recurrent_tc(const bf16* q, const bf16* k, const bf16* v, const float* C0,
                         const float* n0, const float* rec, bf16* h, float* C, float* n, int B,
-                        int S, int H, int dh, int L, float scale, cudaStream_t stream) {
+                        int S, int H, int dh, int dv, int L, float scale,
+                        cudaStream_t stream) {
   constexpr int smem = RecLayout<NWG, MT>::kBytes;
   static int set[kv_tile::kMaxDevices] = {};
   const cudaError_t err = prepare(recurrent_tc<NWG, MT>, smem, set);
   if (err != cudaSuccess) return (int)err;
-  recurrent_tc<NWG, MT><<<dim3(B * H, dh / kCols), 128 * NWG, smem, stream>>>(
-      q, k, v, C0, n0, rec, h, C, n, S, H, dh, L, scale);
+  recurrent_tc<NWG, MT><<<dim3(B * H, dv / kCols), 128 * NWG, smem, stream>>>(
+      q, k, v, C0, n0, rec, h, C, n, S, H, dh, dv, L, scale);
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* log_i,
                 const float* log_f, const float* C0, const float* n0, const float* m0,
                 float* rec, bf16* h, float* C, float* n, float* m, int B, int S, int H, int dh,
-                int L, float scale, cudaStream_t stream) {
+                int dv, int L, float scale, cudaStream_t stream) {
   const int n_et = (dh + 63) / 64;
   cudaError_t err;
   if (C0 == nullptr && S <= L) {  // the boot path: one launch
     static int set[kv_tile::kMaxDevices] = {};
     if ((err = prepare(boot_tc, kBootSmem, set)) != cudaSuccess) return (int)err;
-    boot_tc<<<dim3(B * H, (dh + kBootF - 1) / kBootF, (n_et + kBootE - 1) / kBootE + 1),
-              kTcThreads, kBootSmem, stream>>>(q, k, v, log_i, log_f, h, C, n, m, S, H, dh,
+    boot_tc<<<dim3(B * H, (dv + kBootF - 1) / kBootF, (n_et + kBootE - 1) / kBootE + 1),
+              kTcThreads, kBootSmem, stream>>>(q, k, v, log_i, log_f, h, C, n, m, S, H, dh, dv,
                                                scale);
     return (int)cudaGetLastError();
   }
@@ -1000,31 +1004,33 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* log_i,
       q, k, log_i, log_f, m0, rec, m, S, H, dh, L, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // warpgroups x e-tiles each: ops.py plan mirrors this choice
-  if (n_et <= 1) return launch_recurrent_tc<1, 1>(q, k, v, C0, n0, rec, h, C, n, B, S, H, dh, L, scale, stream);
-  if (n_et <= 2) return launch_recurrent_tc<2, 1>(q, k, v, C0, n0, rec, h, C, n, B, S, H, dh, L, scale, stream);
-  if (n_et <= 4) return launch_recurrent_tc<4, 1>(q, k, v, C0, n0, rec, h, C, n, B, S, H, dh, L, scale, stream);
-  if (n_et <= 8) return launch_recurrent_tc<4, 2>(q, k, v, C0, n0, rec, h, C, n, B, S, H, dh, L, scale, stream);
-  if (n_et <= 12) return launch_recurrent_tc<4, 3>(q, k, v, C0, n0, rec, h, C, n, B, S, H, dh, L, scale, stream);
-  if (n_et <= 16) return launch_recurrent_tc<4, 4>(q, k, v, C0, n0, rec, h, C, n, B, S, H, dh, L, scale, stream);
+  if (n_et <= 1) return launch_recurrent_tc<1, 1>(q, k, v, C0, n0, rec, h, C, n, B, S, H, dh, dv, L, scale, stream);
+  if (n_et <= 2) return launch_recurrent_tc<2, 1>(q, k, v, C0, n0, rec, h, C, n, B, S, H, dh, dv, L, scale, stream);
+  if (n_et <= 4) return launch_recurrent_tc<4, 1>(q, k, v, C0, n0, rec, h, C, n, B, S, H, dh, dv, L, scale, stream);
+  if (n_et <= 8) return launch_recurrent_tc<4, 2>(q, k, v, C0, n0, rec, h, C, n, B, S, H, dh, dv, L, scale, stream);
+  if (n_et <= 12) return launch_recurrent_tc<4, 3>(q, k, v, C0, n0, rec, h, C, n, B, S, H, dh, dv, L, scale, stream);
+  if (n_et <= 16) return launch_recurrent_tc<4, 4>(q, k, v, C0, n0, rec, h, C, n, B, S, H, dh, dv, L, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k, v (B, S, H, dh); log_i, log_f (B, S, H) float32; C0 (B, H, dh, dh),
-// n0 (B, H, dh), m0 (B, H) float32, all null for a new stream (C = n = 0,
-// m = -1e30); rec (B * H, n_chunks, L * L + 4 L) float32 scratch (unused,
-// and may be null, on the bf16 boot path: bf16, no state, S <= L); h (B,
-// S, H, dh); C, n, m the final state, float32.  L: chunk length (<= 64);
-// scale multiplies q.  dtype 0 = float32 (scalar bodies), 1 = bfloat16
-// (tensor cores).  The wrapper guarantees contiguous 16-byte-aligned
-// inputs, dh a multiple of 32 and at most 1024, and the shared memory
-// within the card's 227 KB.  Returns cudaGetLastError() after the
+// q, k (B, S, H, dh); v (B, S, H, dv); log_i, log_f (B, S, H) float32; C0
+// (B, H, dh, dv), n0 (B, H, dh), m0 (B, H) float32, all null for a new
+// stream (C = n = 0, m = -1e30); rec (B * H, n_chunks, L * L + 4 L) float32
+// scratch (unused, and may be null, on the bf16 boot path: bf16, no state,
+// S <= L); h (B, S, H, dv); C, n, m the final state, float32.  dv <= dh: a
+// tensor-parallel rank's value columns of every head (v, h and C's
+// columns), q and k whole; the column blocks just number dv / 32.  L: chunk
+// length (<= 64); scale multiplies q.  dtype 0 = float32 (scalar bodies),
+// 1 = bfloat16 (tensor cores).  The wrapper guarantees contiguous
+// 16-byte-aligned inputs, dh and dv multiples of 32 and at most 1024, and
+// the shared memory within the card's 227 KB.  Returns cudaGetLastError() after the
 // launches (0 = success).
 extern "C" int mlstm(const void* q, const void* k, const void* v, const void* log_i,
                      const void* log_f, const void* C0, const void* n0, const void* m0,
                      void* rec, void* h, void* C, void* n, void* m, int B, int S, int H, int dh,
-                     int L, float scale, int dtype, void* stream) {
+                     int dv, int L, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* li = static_cast<const float*>(log_i);
   const float* lf = static_cast<const float*>(log_f);
@@ -1038,8 +1044,8 @@ extern "C" int mlstm(const void* q, const void* k, const void* v, const void* lo
   if (dtype == 1)
     return launch_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                        static_cast<const bf16*>(v), li, lf, c0, nn0, mm0, r,
-                       static_cast<bf16*>(h), Cf, nf, mf, B, S, H, dh, L, scale, s);
+                       static_cast<bf16*>(h), Cf, nf, mf, B, S, H, dh, dv, L, scale, s);
   return launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                     static_cast<const float*>(v), li, lf, c0, nn0, mm0, r,
-                    static_cast<float*>(h), Cf, nf, mf, B, S, H, dh, L, scale, s);
+                    static_cast<float*>(h), Cf, nf, mf, B, S, H, dh, dv, L, scale, s);
 }

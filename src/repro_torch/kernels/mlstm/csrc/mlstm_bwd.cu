@@ -66,6 +66,11 @@
 //      m terms (each block chains the chunks' summaries for m_fin's step).
 // Deterministic: no atomics, every sum in a fixed order; two calls give the
 // same bits.
+// A tensor-parallel rank holds Dv of every head's value columns (v, dh,
+// dv, C's columns) with q and k whole (D): the states and column sweeps
+// then have Dv / 32 blocks a head, the row sweep still D / 32, each over
+// Dv columns; the rank's dq, dk and gate gradients are its share of the
+// sum over the ranks' columns.  Dv = D is the unsplit call, unchanged.
 //
 // bfloat16 (the training dtype): launches 1, 2, 4 and 5 on the tensor cores
 // (wgmma, sm90.cuh), bf16 operands and float32 accumulators, on the
@@ -159,39 +164,40 @@ __host__ __device__ inline size_t brec_floats(int L) {
 
 // The float32 scratch, carved in this order (ops.py bwd_plan mirrors it):
 // the records (B H, n_chunks); the entering C (B H, n_chunks, cst_floats:
-// float32 (dh, dh) for the scalar bodies, bf16 tiles for the tensor-core
-// ones, cst_tc_floats) and n (B H, n_chunks, dh); X's shares (B H,
-// n_chunks, dh / 32, L); dw's (B H, n_chunks, dh / 32, L) and d inter_L's
-// (B H, n_chunks, dh / 32); the shares of <dC_fin, C_fin> + <dn_fin, n_fin>
-// and <dC0, C0> + <dn0, n0> (B H, dh / 32 each).
+// float32 (D, Dv) for the scalar bodies, bf16 tiles for the tensor-core
+// ones, cst_tc_floats) and n (B H, n_chunks, D); X's shares, one a column
+// block (B H, n_chunks, Dv / 32, L); dw's, one a row block (B H, n_chunks,
+// D / 32, L), and d inter_L's (B H, n_chunks, D / 32); the row blocks'
+// shares of <dC_fin, C_fin> + <dn_fin, n_fin> and <dC0, C0> + <dn0, n0> (B
+// H, D / 32 each).
 struct Scratch {
   float *rec, *Cst, *nst, *Xp, *pdw, *pdi, *pfin, *p0;
 };
 
 // Floats a chunk's entering C takes in the tensor-core bodies' layout: bf16
 // tiles of 32 rows e x 64 columns f (128-byte rows, swizzled as sm90.cuh
-// describes), [dh / 32][ceil(dh / 64)] of them, the columns past dh zeros.
-__host__ __device__ inline size_t cst_tc_floats(int D) {
-  return (size_t)(D / kCols) * ((D + 63) / 64) * 32 * 64 / 2;
+// describes), [D / 32][ceil(Dv / 64)] of them, the columns past Dv zeros.
+__host__ __device__ inline size_t cst_tc_floats(int D, int Dv) {
+  return (size_t)(D / kCols) * ((Dv + 63) / 64) * 32 * 64 / 2;
 }
 
-__host__ inline Scratch carve(float* base, int BH, int nc, int dh, int L, size_t cst) {
-  const size_t ncb = dh / kCols, n = (size_t)BH * nc;
+__host__ inline Scratch carve(float* base, int BH, int nc, int D, int Dv, int L, size_t cst) {
+  const size_t nck = D / kCols, ncv = Dv / kCols, n = (size_t)BH * nc;
   Scratch s;
   s.rec = base;
   s.Cst = s.rec + n * brec_floats(L);
   s.nst = s.Cst + n * cst;
-  s.Xp = s.nst + n * dh;
-  s.pdw = s.Xp + n * ncb * L;
-  s.pdi = s.pdw + n * ncb * L;
-  s.pfin = s.pdi + n * ncb;
-  s.p0 = s.pfin + (size_t)BH * ncb;
+  s.Xp = s.nst + n * D;
+  s.pdw = s.Xp + n * ncv * L;
+  s.pdi = s.pdw + n * nck * L;
+  s.pfin = s.pdi + n * nck;
+  s.p0 = s.pfin + (size_t)BH * nck;
   return s;
 }
 
-__host__ inline size_t scratch_floats(int BH, int nc, int dh, int L, size_t cst) {
-  const size_t ncb = dh / kCols, n = (size_t)BH * nc;
-  return n * (brec_floats(L) + cst + dh + 2 * ncb * L + ncb) + 2 * (size_t)BH * ncb;
+__host__ inline size_t scratch_floats(int BH, int nc, int D, int Dv, int L, size_t cst) {
+  const size_t nck = D / kCols, ncv = Dv / kCols, n = (size_t)BH * nc;
+  return n * (brec_floats(L) + cst + D + ncv * L + nck * L + nck) + 2 * (size_t)BH * nck;
 }
 
 // The block's sum of v over NT threads, in a fixed order (lanes, then the
@@ -220,25 +226,26 @@ __global__ void __launch_bounds__(kThreads) prep(const T* __restrict__ q, const 
                                                  const float* __restrict__ log_f,
                                                  const float* __restrict__ m0,
                                                  float* __restrict__ recs, int S, int H, int D,
-                                                 int L, float scale) {
+                                                 int Dv, int L, float scale) {
   __shared__ float qs[kMaxL][kLd], ks[kMaxL][kLd], ds[kMaxL][kLd], vs[kMaxL][kLd];
   __shared__ GateSmem<kThreads> g;
   const int c = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H, tid = threadIdx.x;
   const int nc = gridDim.x, t0 = c * L, Lc = min(L, S - t0);
   const int ty = tid / 16, tx = tid % 16;
   const size_t rs = (size_t)H * D, base = ((size_t)b * S + t0) * rs + (size_t)h * D;
+  const size_t rsv = (size_t)H * Dv, vbase = ((size_t)b * S + t0) * rsv + (size_t)h * Dv;
   chunk_gates<kThreads>(log_i, log_f, m0, b, h, H, S, L, c, g);
   float sc[4][4] = {}, dv[4][4] = {};
-  for (int e0 = 0; e0 < D; e0 += kCols) {
+  for (int e0 = 0; e0 < max(D, Dv); e0 += kCols) {  // Q k^T over D, dh v^T over Dv
     __syncthreads();  // the last tile is consumed
     for (int i = tid; i < kMaxL * kCols; i += kThreads) {
       const int t = i / kCols, e = i - t * kCols;
-      const bool in = t < Lc;
-      const size_t o = base + t * rs + e0 + e;
-      qs[t][e] = in ? to_float(q[o]) * scale : 0.f;
-      ks[t][e] = in ? to_float(k[o]) : 0.f;
-      ds[t][e] = in ? to_float(dh[o]) : 0.f;
-      vs[t][e] = in ? to_float(v[o]) : 0.f;
+      const bool ink = t < Lc && e0 < D, inv = t < Lc && e0 < Dv;
+      const size_t o = base + t * rs + e0 + e, ov = vbase + t * rsv + e0 + e;
+      qs[t][e] = ink ? to_float(q[o]) * scale : 0.f;
+      ks[t][e] = ink ? to_float(k[o]) : 0.f;
+      ds[t][e] = inv ? to_float(dh[ov]) : 0.f;
+      vs[t][e] = inv ? to_float(v[ov]) : 0.f;
     }
     __syncthreads();
     for (int e = 0; e < kCols; ++e) {
@@ -307,7 +314,8 @@ __global__ void __launch_bounds__(kThreads) states(const T* __restrict__ q,
                                                    const T* __restrict__ dh,
                                                    const float* __restrict__ C0,
                                                    const float* __restrict__ n0, Scratch sc,
-                                                   int S, int H, int D, int L, float scale) {
+                                                   int S, int H, int D, int Dv, int L,
+                                                   float scale) {
   extern __shared__ float smem[];
   float* Cs = smem;            // [D][32] the carried columns of C
   float* ns = Cs + D * kCols;  // [D] the carried n (every block carries all of it)
@@ -320,19 +328,20 @@ __global__ void __launch_bounds__(kThreads) states(const T* __restrict__ q,
   const int bh = blockIdx.x, b = bh / H, h = bh % H, fb = blockIdx.y, f0 = fb * kCols;
   const int ncb = gridDim.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nc = (S + L - 1) / L;
-  const size_t cbase = (size_t)bh * D * D, rs = (size_t)H * D;
+  const size_t cbase = (size_t)bh * D * Dv, rs = (size_t)H * D, rsv = (size_t)H * Dv;
   for (int i = tid; i < D * kCols; i += kThreads) {
     const int e = i / kCols, f = i - e * kCols;
-    Cs[i] = C0 ? C0[cbase + (size_t)e * D + f0 + f] : 0.f;
+    Cs[i] = C0 ? C0[cbase + (size_t)e * Dv + f0 + f] : 0.f;
   }
   for (int e = tid; e < D; e += kThreads) ns[e] = n0 ? n0[(size_t)bh * D + e] : 0.f;
   int rows[kRows];  // this warp's chunk rows, clamped into the tiles
   for (int c = 0; c < nc; ++c) {
     const int t0 = c * L, Lc = min(L, S - t0);
     const size_t base = ((size_t)b * S + t0) * rs + (size_t)h * D;
+    const size_t vbase = ((size_t)b * S + t0) * rsv + (size_t)h * Dv;
     const size_t pc = (size_t)bh * nc + c;
     float* rec = sc.rec + pc * brec_floats(L);
-    float* Cst = sc.Cst + pc * D * D;
+    float* Cst = sc.Cst + pc * D * Dv;
     __syncthreads();  // the previous chunk is done with shared memory
     for (int t = tid; t < L; t += kThreads) {
       it[t] = rec[kIt * L + t];
@@ -341,7 +350,7 @@ __global__ void __launch_bounds__(kThreads) states(const T* __restrict__ q,
     for (int i = tid; i < L * kCols; i += kThreads) {
       const int t = i / kCols, f = i - t * kCols;
       const bool in = t < Lc;
-      const size_t o = base + t * rs + f0 + f;
+      const size_t o = vbase + t * rsv + f0 + f;
       vt[i] = in ? to_float(v[o]) : 0.f;
       dt[i] = in ? to_float(dh[o]) : 0.f;
     }
@@ -370,7 +379,7 @@ __global__ void __launch_bounds__(kThreads) states(const T* __restrict__ q,
       for (int i = 0; i < kRows; ++i) qn[i] = fmaf(qt[rows[i] * kCols + lane], ns[e0 + lane], qn[i]);
       for (int i = tid; i < kCols * kCols; i += kThreads) {
         const int e = i / kCols, f = i - e * kCols;
-        Cst[(size_t)(e0 + e) * D + f0 + f] = Cs[(e0 + e) * kCols + f];
+        Cst[(size_t)(e0 + e) * Dv + f0 + f] = Cs[(e0 + e) * kCols + f];
       }
       if (fb == 0 && tid < kCols) sc.nst[pc * D + e0 + tid] = ns[e0 + tid];
       __syncthreads();  // every read of the old tile is done
@@ -478,8 +487,8 @@ __global__ void __launch_bounds__(kThreads) steps(Scratch sc, int S, int L, int 
 // 4. reverse_rows: one block per (b * H + h, rows e0 .. e0 + 31 of C); a
 // thread holds dC v and C dnum at rows t (s) = warp + 8 i, row e = lane.
 // ---------------------------------------------------------------------------
-__host__ __device__ inline size_t rows_smem_floats(int D, int L) {
-  return (size_t)kCols * (D + 1) + 2 * kCols + 2 * (size_t)L * kCols + (size_t)L * L + 4 * L +
+__host__ __device__ inline size_t rows_smem_floats(int Dv, int L) {
+  return (size_t)kCols * (Dv + 1) + 2 * kCols + 2 * (size_t)L * kCols + (size_t)L * L + 4 * L +
          2 * (size_t)L * kLd + kCols * kLd + kWarps;
 }
 
@@ -490,10 +499,10 @@ __global__ void __launch_bounds__(kThreads) reverse_rows(
     const float* __restrict__ C_fin, const float* __restrict__ n_fin,
     const float* __restrict__ dC_fin, const float* __restrict__ dn_fin, T* __restrict__ dq,
     T* __restrict__ dk, float* __restrict__ dC0, float* __restrict__ dn0, Scratch sc, int S,
-    int H, int D, int L, float scale) {
+    int H, int D, int Dv, int L, float scale) {
   extern __shared__ float smem[];
-  const int ldc = D + 1;  // padded rows: the 32 lanes read 32 rows at once
-  float* dCs = smem;                  // [32][D + 1] rows e0.. of the carried dC
+  const int ldc = Dv + 1;  // padded rows: the 32 lanes read 32 rows at once
+  float* dCs = smem;                  // [32][Dv + 1] rows e0.. of the carried dC
   float* dns = dCs + kCols * ldc;     // [32] and of dn
   float* np = dns + kCols;            // [32] n before the chunk, these rows
   float* Qe = np + kCols;             // [L][32] columns e0.. of Q
@@ -510,11 +519,11 @@ __global__ void __launch_bounds__(kThreads) reverse_rows(
   const int bh = blockIdx.x, b = bh / H, h = bh % H, eb = blockIdx.y, e0 = eb * kCols;
   const int ncb = gridDim.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nc = (S + L - 1) / L;
-  const size_t rbase = (size_t)bh * D * D + (size_t)e0 * D;  // row e0 of (b, h)'s matrices
-  const size_t rs = (size_t)H * D;
+  const size_t rbase = (size_t)bh * D * Dv + (size_t)e0 * Dv;  // row e0 of (b, h)'s matrices
+  const size_t rs = (size_t)H * D, rsv = (size_t)H * Dv;
   float pf = 0.f;  // this thread's share of <dC_fin, C_fin> + <dn_fin, n_fin>
-  for (int i = tid; i < kCols * D; i += kThreads) {
-    const int e = i / D, f = i - e * D;
+  for (int i = tid; i < kCols * Dv; i += kThreads) {
+    const int e = i / Dv, f = i - e * Dv;
     const float g = dC_fin ? dC_fin[rbase + i] : 0.f;
     dCs[e * ldc + f] = g;
     if (dC_fin) pf = fmaf(g, C_fin[rbase + i], pf);
@@ -530,9 +539,10 @@ __global__ void __launch_bounds__(kThreads) reverse_rows(
   for (int c = nc - 1; c >= 0; --c) {
     const int t0 = c * L, Lc = min(L, S - t0);
     const size_t base = ((size_t)b * S + t0) * rs + (size_t)h * D;
+    const size_t vbase = ((size_t)b * S + t0) * rsv + (size_t)h * Dv;
     const size_t pc = (size_t)bh * nc + c;
     const float* rec = sc.rec + pc * brec_floats(L);
-    const float* Cprev = sc.Cst + pc * D * D + (size_t)e0 * D;
+    const float* Cprev = sc.Cst + pc * D * Dv + (size_t)e0 * Dv;
     __syncthreads();  // the previous chunk is done with shared memory
     for (int t = tid; t < L; t += kThreads) {
       it[t] = rec[kIt * L + t];
@@ -555,17 +565,17 @@ __global__ void __launch_bounds__(kThreads) reverse_rows(
     for (int i = 0; i < kRows; ++i) rows[i] = min(warp + kWarps * i, L - 1);
     float U[kRows] = {}, Y[kRows] = {};
     float pd = 0.f;  // this thread's share of <dC, C_{c-1}>
-    for (int f0 = 0; f0 < D; f0 += kCols) {
+    for (int f0 = 0; f0 < Dv; f0 += kCols) {
       for (int i = tid; i < L * kCols; i += kThreads) {
         const int t = i / kCols, f = i - t * kCols;
         const bool in = t < Lc;
-        const size_t o = base + t * rs + f0 + f;
+        const size_t o = vbase + t * rsv + f0 + f;
         vt[t * kLd + f] = in ? to_float(v[o]) : 0.f;
         dnt[t * kLd + f] = in ? to_float(dh[o]) * im[t] : 0.f;
       }
       for (int i = tid; i < kCols * kCols; i += kThreads) {
         const int e = i / kCols, f = i - e * kCols;
-        Ct[e * kLd + f] = Cprev[(size_t)e * D + f0 + f];
+        Ct[e * kLd + f] = Cprev[(size_t)e * Dv + f0 + f];
       }
       __syncthreads();
       for (int f = 0; f < kCols; ++f) {
@@ -620,8 +630,8 @@ __global__ void __launch_bounds__(kThreads) reverse_rows(
   }
   __syncthreads();
   float p0 = 0.f;  // this thread's share of <dC0, C0> + <dn0, n0>
-  for (int i = tid; i < kCols * D; i += kThreads) {
-    const int e = i / D, f = i - e * D;
+  for (int i = tid; i < kCols * Dv; i += kThreads) {
+    const int e = i / Dv, f = i - e * Dv;
     const float g = dCs[e * ldc + f];
     if (dC0) dC0[rbase + i] = g;
     if (C0) p0 = fmaf(g, C0[rbase + i], p0);
@@ -646,7 +656,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) reverse_cols(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ dh,
     const float* __restrict__ dC_fin, T* __restrict__ dv, Scratch sc, int S, int H, int D,
-    int L, float scale) {
+    int Dv, int L, float scale) {
   extern __shared__ float smem[];
   float* dCs = smem;            // [D][32] columns f0.. of the carried dC
   float* att = dCs + D * kCols; // [L][L]
@@ -659,15 +669,16 @@ __global__ void __launch_bounds__(kThreads) reverse_cols(
   const int bh = blockIdx.x, b = bh / H, h = bh % H, f0 = blockIdx.y * kCols;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nc = (S + L - 1) / L;
-  const size_t cbase = (size_t)bh * D * D, rs = (size_t)H * D;
+  const size_t cbase = (size_t)bh * D * Dv, rs = (size_t)H * D, rsv = (size_t)H * Dv;
   for (int i = tid; i < D * kCols; i += kThreads) {
     const int e = i / kCols, f = i - e * kCols;
-    dCs[i] = dC_fin ? dC_fin[cbase + (size_t)e * D + f0 + f] : 0.f;
+    dCs[i] = dC_fin ? dC_fin[cbase + (size_t)e * Dv + f0 + f] : 0.f;
   }
   int rows[kRows];
   for (int c = nc - 1; c >= 0; --c) {
     const int t0 = c * L, Lc = min(L, S - t0);
     const size_t base = ((size_t)b * S + t0) * rs + (size_t)h * D;
+    const size_t vbase = ((size_t)b * S + t0) * rsv + (size_t)h * Dv;
     const float* rec = sc.rec + ((size_t)bh * nc + c) * brec_floats(L);
     __syncthreads();  // the previous chunk is done with shared memory
     for (int t = tid; t < L; t += kThreads) {
@@ -679,7 +690,7 @@ __global__ void __launch_bounds__(kThreads) reverse_cols(
     __syncthreads();
     for (int i = tid; i < L * kCols; i += kThreads) {
       const int t = i / kCols, f = i - t * kCols;
-      dnt[i] = t < Lc ? to_float(dh[base + t * rs + f0 + f]) * im[t] : 0.f;
+      dnt[i] = t < Lc ? to_float(dh[vbase + t * rsv + f0 + f]) * im[t] : 0.f;
     }
     const float decay = it[Lc - 1];
 #pragma unroll
@@ -716,7 +727,7 @@ __global__ void __launch_bounds__(kThreads) reverse_cols(
       if (t >= Lc) continue;
       float a = wv[t] * Vk[i];
       for (int s = t; s < Lc; ++s) a = fmaf(att[s * L + t], dnt[s * kCols + lane], a);
-      store(dv + base + (size_t)t * rs + f0 + lane, a);
+      store(dv + vbase + (size_t)t * rsv + f0 + lane, a);
     }
   }
 }
@@ -862,8 +873,8 @@ __device__ __forceinline__ void store_pair_t(uint8_t* hi, uint8_t* lo, float x, 
 
 // Offset (bf16 elements) of (e, f) in a chunk's entering C, tensor-core
 // layout (cst_tc_floats): tile (e / 32, f / 64), row e % 32, column f % 64.
-__device__ __forceinline__ size_t cst_at(int e, int f, int D) {
-  return ((size_t)(e >> 5) * ((D + 63) >> 6) + (f >> 6)) * 2048 +
+__device__ __forceinline__ size_t cst_at(int e, int f, int Dv) {
+  return ((size_t)(e >> 5) * ((Dv + 63) >> 6) + (f >> 6)) * 2048 +
          (sm90::swizzle128(e & 31, (f & 63) >> 3) >> 1) + (f & 7);
 }
 
@@ -875,18 +886,19 @@ __global__ void __launch_bounds__(128) prep_tc(const bf16* __restrict__ q, const
                                                const float* __restrict__ log_i,
                                                const float* __restrict__ log_f,
                                                const float* __restrict__ m0,
-                                               float* __restrict__ recs, int S, int H, int D, int L,
-                                               float scale) {
+                                               float* __restrict__ recs, int S, int H, int D, int Dv,
+                                               int L, float scale) {
   __shared__ GateSmem<128> g;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t ring = sm90::smem_addr(aligned_smem(smem_raw));
   const int c = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H, tid = threadIdx.x;
   const int nc = gridDim.x, t0 = c * L, Lc = min(L, S - t0);
   const size_t rs = (size_t)H * D, base = ((size_t)b * S + t0) * rs + (size_t)h * D;
+  const size_t rsv = (size_t)H * Dv, vbase = ((size_t)b * S + t0) * rsv + (size_t)h * Dv;
   chunk_gates<128>(log_i, log_f, m0, b, h, H, S, L, c, g);
   float sc[32], dv[32];
   tc_tile::scores_tc_loop<kPrepStages>(sc, ring, q, k, base, rs, Lc, D);
-  tc_tile::scores_tc_loop<kPrepStages>(dv, ring, dh, v, base, rs, Lc, D);
+  tc_tile::scores_tc_loop<kPrepStages>(dv, ring, dh, v, vbase, rsv, Lc, Dv);
   float* rec = recs + ((size_t)bh * nc + c) * brec_floats(L);
   float* att = rec + kVecs * L;
   float* gt = att + L * L;
@@ -959,7 +971,7 @@ struct StatesLayout {
 __global__ void __launch_bounds__(kTc, 1) states_tc(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dh, const float* __restrict__ C0, const float* __restrict__ n0,
-    Scratch sc, int S, int H, int D, int L, float scale) {
+    Scratch sc, int S, int H, int D, int Dv, int L, float scale) {
   using Lay = StatesLayout;
   const int bh = blockIdx.x, b = bh / H, hh = bh % H, fb = blockIdx.y, f0 = fb * kCols;
   const int ncb = gridDim.y, tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
@@ -976,10 +988,10 @@ __global__ void __launch_bounds__(kTc, 1) states_tc(
 
   const int n_et = (D + 63) / 64;
   const int my_tiles = max(0, min(kMt, n_et - wg * kMt));
-  const size_t rs = (size_t)H * D;
+  const size_t rs = (size_t)H * D, rsv = (size_t)H * Dv;
   const int nc = (S + L - 1) / L;
-  const size_t cbase = (size_t)bh * D * D;
-  const bool pad_half = (D & 63) && fb == ncb - 1;  // this block's tiles have 32 columns past dh
+  const size_t cbase = (size_t)bh * D * Dv;
+  const bool pad_half = (Dv & 63) && fb == ncb - 1;  // this block's tiles have 32 columns past Dv
 
   float C[kMt][16];
 #pragma unroll
@@ -987,7 +999,7 @@ __global__ void __launch_bounds__(kTc, 1) states_tc(
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int e = (wg * kMt + j) * 64 + acc_row(i);
-      C[j][i] = (C0 && e < D) ? C0[cbase + (size_t)e * D + f0 + acc_col(i)] : 0.f;
+      C[j][i] = (C0 && e < D) ? C0[cbase + (size_t)e * Dv + f0 + acc_col(i)] : 0.f;
     }
   for (int e = tid; e < kWg * kMt * 64; e += kTc) n_s[e] = (n0 && e < D) ? n0[(size_t)bh * D + e] : 0.f;
 
@@ -1010,13 +1022,13 @@ __global__ void __launch_bounds__(kTc, 1) states_tc(
     const float* rec = sc.rec + ((size_t)bh * nc + c) * brec_floats(L);
     for (int i = tid; i < L; i += kTc)  // m_new, inter, w, rowsum: 4 L floats
       sm90::cp_async16(sm_a + Lay::kGates + buf * 4 * kMaxL * 4 + i * 16, rec + i * 4, true);
-    const size_t vbase = ((size_t)b * S + c * L) * rs + (size_t)hh * D + f0;
+    const size_t vbase = ((size_t)b * S + c * L) * rsv + (size_t)hh * Dv + f0;
     for (int i = tid; i < 2 * 64 * kCols / 8; i += kTc) {
       const int which = i >= 64 * kCols / 8, r = i - which * (64 * kCols / 8);
       const int t = r / (kCols / 8), ch = r % (kCols / 8);
       const bf16* src = which ? dh : v;
       sm90::cp_async16(sm_a + (which ? Lay::kD : Lay::kV) + buf * 64 * kCols * 2 + r * 16,
-                       t < Lc ? src + vbase + t * rs + ch * 8 : src, t < Lc);
+                       t < Lc ? src + vbase + t * rsv + ch * 8 : src, t < Lc);
     }
   };
   load_gates_vd(0);
@@ -1028,7 +1040,7 @@ __global__ void __launch_bounds__(kTc, 1) states_tc(
     const float* gv = reinterpret_cast<const float*>(sm + Lay::kGates + (c & 1) * 4 * kMaxL * 4);
     const float* inter = gv + kIt * L;
     const float* w = gv + kW * L;
-    bf16* cst_c = cst + pc * (cst_tc_floats(D) * 2);
+    bf16* cst_c = cst + pc * (cst_tc_floats(D, Dv) * 2);
     sm90::cp_async_wait<0>();
     __syncthreads();  // the last chunk's X is written; this chunk's gates, v and dh landed
     {
@@ -1061,8 +1073,8 @@ __global__ void __launch_bounds__(kTc, 1) states_tc(
         store_pair_t(ct, ct + kHalf, C[j][i], C[j][i + 1], r, f);
         const uint32_t pr = sm90::pack_bf16(C[j][i], C[j][i + 1]);
         if (e0 + r < D) {
-          *reinterpret_cast<uint32_t*>(cst_c + cst_at(e0 + r, f0 + f, D)) = pr;
-          if (pad_half) *reinterpret_cast<uint32_t*>(cst_c + cst_at(e0 + r, f0 + kCols + f, D)) = 0u;
+          *reinterpret_cast<uint32_t*>(cst_c + cst_at(e0 + r, f0 + f, Dv)) = pr;
+          if (pad_half) *reinterpret_cast<uint32_t*>(cst_c + cst_at(e0 + r, f0 + kCols + f, Dv)) = 0u;
         }
       }
       if (j == 0)
@@ -1233,7 +1245,7 @@ __global__ void __launch_bounds__(kTc, 1) rows_tc(
     const float* __restrict__ C_fin, const float* __restrict__ n_fin,
     const float* __restrict__ dC_fin, const float* __restrict__ dn_fin, bf16* __restrict__ dq,
     bf16* __restrict__ dk, float* __restrict__ dC0, float* __restrict__ dn0, Scratch sc, int S,
-    int H, int D, int L, float scale) {
+    int H, int D, int Dv, int L, float scale) {
   using Lay = RowsLayout;
   const int bh = blockIdx.x, b = bh / H, hh = bh % H, eb = blockIdx.y, e0 = eb * kCols;
   const int ncb = gridDim.y, tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
@@ -1255,11 +1267,11 @@ __global__ void __launch_bounds__(kTc, 1) rows_tc(
   float* sums = dns + kCols;
   const bf16* cst = reinterpret_cast<const bf16*>(sc.Cst);
 
-  const int n_ft = (D + 63) / 64;
+  const int n_ft = (Dv + 63) / 64;
   const int my_tiles = max(0, min(kMt, n_ft - wg * kMt));
-  const size_t rs = (size_t)H * D;
+  const size_t rs = (size_t)H * D, rsv = (size_t)H * Dv;
   const int nc = (S + L - 1) / L;
-  const size_t cbase = (size_t)bh * D * D;
+  const size_t cbase = (size_t)bh * D * Dv;
 
   // this warpgroup's rows f of dC^T, columns e (the block's rows e of dC)
   float dC[kMt][16];
@@ -1269,10 +1281,10 @@ __global__ void __launch_bounds__(kTc, 1) rows_tc(
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int f = (wg * kMt + j) * 64 + acc_row(i);
-      const size_t o = cbase + (size_t)(e0 + acc_col(i)) * D + f;
-      const float g = (dC_fin && f < D) ? dC_fin[o] : 0.f;
+      const size_t o = cbase + (size_t)(e0 + acc_col(i)) * Dv + f;
+      const float g = (dC_fin && f < Dv) ? dC_fin[o] : 0.f;
       dC[j][i] = g;
-      if (dC_fin && f < D) pf = fmaf(g, C_fin[o], pf);
+      if (dC_fin && f < Dv) pf = fmaf(g, C_fin[o], pf);
     }
   if (tid < kCols) {
     const float g = dn_fin ? dn_fin[(size_t)bh * D + e0 + tid] : 0.f;
@@ -1288,11 +1300,11 @@ __global__ void __launch_bounds__(kTc, 1) rows_tc(
   auto load = [&](int u) {
     const int c = nc - 1 - u / my_tiles, j = u % my_tiles, ft = wg * kMt + j;
     const int t0 = c * L, Lc = min(L, S - t0);
-    const size_t base = ((size_t)b * S + t0) * rs + (size_t)hh * D + ft * 64;
+    const size_t vbase = ((size_t)b * S + t0) * rsv + (size_t)hh * Dv + ft * 64;
     const uint32_t slot = ring + (u & 1) * Lay::kSlot;
-    load_tile(slot, v, base, rs, Lc, D - ft * 64, wt);
-    load_tile(slot + kTile, dh, base, rs, Lc, D - ft * 64, wt);
-    const bf16* ct = cst + ((size_t)bh * nc + c) * (cst_tc_floats(D) * 2) +
+    load_tile(slot, v, vbase, rsv, Lc, Dv - ft * 64, wt);
+    load_tile(slot + kTile, dh, vbase, rsv, Lc, Dv - ft * 64, wt);
+    const bf16* ct = cst + ((size_t)bh * nc + c) * (cst_tc_floats(D, Dv) * 2) +
                      ((size_t)eb * n_ft + ft) * 2048;
 #pragma unroll
     for (int p = 0; p < 2; ++p)
@@ -1498,8 +1510,8 @@ __global__ void __launch_bounds__(kTc, 1) rows_tc(
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int f = (wg * kMt + j) * 64 + acc_row(i);
-      if (f >= D) continue;
-      const size_t o = cbase + (size_t)(e0 + acc_col(i)) * D + f;
+      if (f >= Dv) continue;
+      const size_t o = cbase + (size_t)(e0 + acc_col(i)) * Dv + f;
       if (dC0) dC0[o] = dC[j][i];
       if (C0) p0 = fmaf(dC[j][i], C0[o], p0);
     }
@@ -1533,7 +1545,7 @@ struct ColsLayout {
 __global__ void __launch_bounds__(kTc, 1) cols_tc(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ dh,
     const float* __restrict__ dC_fin, bf16* __restrict__ dv, Scratch sc, int S, int H, int D,
-    int L, float scale) {
+    int Dv, int L, float scale) {
   using Lay = ColsLayout;
   const int bh = blockIdx.x, b = bh / H, hh = bh % H, f0 = blockIdx.y * kCols;
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
@@ -1551,9 +1563,9 @@ __global__ void __launch_bounds__(kTc, 1) cols_tc(
 
   const int n_et = (D + 63) / 64;
   const int my_tiles = max(0, min(kMt, n_et - wg * kMt));
-  const size_t rs = (size_t)H * D;
+  const size_t rs = (size_t)H * D, rsv = (size_t)H * Dv;
   const int nc = (S + L - 1) / L;
-  const size_t cbase = (size_t)bh * D * D;
+  const size_t cbase = (size_t)bh * D * Dv;
 
   float dC[kMt][16];  // rows e, columns f0.. of the carried dC
 #pragma unroll
@@ -1561,7 +1573,7 @@ __global__ void __launch_bounds__(kTc, 1) cols_tc(
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int e = (wg * kMt + j) * 64 + acc_row(i);
-      dC[j][i] = (dC_fin && e < D) ? dC_fin[cbase + (size_t)e * D + f0 + acc_col(i)] : 0.f;
+      dC[j][i] = (dC_fin && e < D) ? dC_fin[cbase + (size_t)e * Dv + f0 + acc_col(i)] : 0.f;
     }
 
   const uint32_t ring = sm_a + Lay::kRing + wg * 2 * 2 * kTile;
@@ -1580,7 +1592,7 @@ __global__ void __launch_bounds__(kTc, 1) cols_tc(
 
   for (int c = nc - 1; c >= 0; --c) {
     const int t0 = c * L, Lc = min(L, S - t0);
-    const size_t base = ((size_t)b * S + t0) * rs + (size_t)hh * D;
+    const size_t vbase = ((size_t)b * S + t0) * rsv + (size_t)hh * Dv;
     const float* rec = sc.rec + ((size_t)bh * nc + c) * brec_floats(L);
     __syncthreads();  // the last chunk is done with the chunk's operands
     for (int t = tid; t < kMaxL; t += kTc) {
@@ -1597,7 +1609,7 @@ __global__ void __launch_bounds__(kTc, 1) cols_tc(
     for (int i = tid; i < 64 * kCols / 8; i += kTc) {  // dh^T and (scale inter / M o dh)^T
       const int t = i / (kCols / 8), ch = i % (kCols / 8);
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (t < Lc) x = *reinterpret_cast<const uint4*>(dh + base + t * rs + f0 + ch * 8);
+      if (t < Lc) x = *reinterpret_cast<const uint4*>(dh + vbase + t * rsv + f0 + ch * 8);
       const bf16* x8 = reinterpret_cast<const bf16*>(&x);
       const float g = scale * it[t] * im[t];
 #pragma unroll
@@ -1677,7 +1689,7 @@ __global__ void __launch_bounds__(kTc, 1) cols_tc(
       for (int i = 0; i < 16; i += 2) {
         const int t = acc_row(i), f = acc_col(i);
         if (t < Lc)
-          *reinterpret_cast<__nv_bfloat162*>(dv + base + (size_t)t * rs + f0 + f) =
+          *reinterpret_cast<__nv_bfloat162*>(dv + vbase + (size_t)t * rsv + f0 + f) =
               __floats2bfloat162_rn(fmaf(wv[t], vk[i], a[i]), fmaf(wv[t], vk[i + 1], a[i + 1]));
       }
     }
@@ -1708,24 +1720,26 @@ struct Launch {
 // The six launches of a call, in order (ops.py bwd_plan mirrors them), and
 // the scratch's floats: float32 takes the scalar bodies, bf16 the
 // tensor-core ones (prep_tc, states_tc, rows_tc, cols_tc; steps and
-// gate_grads are shared).
-int plan(int B, int S, int H, int D, int L, int dtype, Launch (&ls)[6], size_t& scratch) {
-  const int nc = (S + L - 1) / L, BH = B * H, ncb = D / kCols;
+// gate_grads are shared).  The states and column sweeps have a block per 32
+// columns of C (Dv / 32), the row sweep one per 32 rows (D / 32).
+int plan(int B, int S, int H, int D, int Dv, int L, int dtype, Launch (&ls)[6],
+         size_t& scratch) {
+  const int nc = (S + L - 1) / L, BH = B * H;
   const bool tc = dtype == 1;
-  scratch = scratch_floats(BH, nc, D, L, tc ? cst_tc_floats(D) : (size_t)D * D);
-  const dim3 per_chunk(nc, BH), sweep(BH, ncb);
+  scratch = scratch_floats(BH, nc, D, Dv, L, tc ? cst_tc_floats(D, Dv) : (size_t)D * Dv);
+  const dim3 per_chunk(nc, BH), by_cols(BH, Dv / kCols), by_rows(BH, D / kCols);
   ls[2] = {per_chunk, kThreads, 0};  // steps
   ls[5] = {per_chunk, kMaxL, 0};     // gate_grads
   if (tc) {
     ls[0] = {per_chunk, 128, (size_t)kPrepSmem};
-    ls[1] = {sweep, kTc, (size_t)StatesLayout::kBytes};
-    ls[3] = {sweep, kTc, (size_t)RowsLayout::kBytes};
-    ls[4] = {sweep, kTc, (size_t)ColsLayout::kBytes};
+    ls[1] = {by_cols, kTc, (size_t)StatesLayout::kBytes};
+    ls[3] = {by_rows, kTc, (size_t)RowsLayout::kBytes};
+    ls[4] = {by_cols, kTc, (size_t)ColsLayout::kBytes};
   } else {
     ls[0] = {per_chunk, kThreads, 0};
-    ls[1] = {sweep, kThreads, sizeof(float) * states_smem_floats(D, L)};
-    ls[3] = {sweep, kThreads, sizeof(float) * rows_smem_floats(D, L)};
-    ls[4] = {sweep, kThreads, sizeof(float) * cols_smem_floats(D, L)};
+    ls[1] = {by_cols, kThreads, sizeof(float) * states_smem_floats(D, L)};
+    ls[3] = {by_rows, kThreads, sizeof(float) * rows_smem_floats(Dv, L)};
+    ls[4] = {by_cols, kThreads, sizeof(float) * cols_smem_floats(D, L)};
   }
   return 0;
 }
@@ -1738,14 +1752,14 @@ int plan(int B, int S, int H, int D, int L, int dtype, Launch (&ls)[6], size_t& 
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;                       \
   } while (0)
 
-int launch(const Args& a, int B, int S, int H, int D, int L, float scale, int dtype,
+int launch(const Args& a, int B, int S, int H, int D, int Dv, int L, float scale, int dtype,
            cudaStream_t stream) {
   Launch ls[6];
   size_t n_scratch;
-  plan(B, S, H, D, L, dtype, ls, n_scratch);
-  const int nc = (S + L - 1) / L, BH = B * H, ncb = D / kCols;
-  const Scratch sc = carve(static_cast<float*>(a.scratch), BH, nc, D, L,
-                           dtype == 1 ? cst_tc_floats(D) : (size_t)D * D);
+  plan(B, S, H, D, Dv, L, dtype, ls, n_scratch);
+  const int nc = (S + L - 1) / L, BH = B * H, nck = D / kCols, ncv = Dv / kCols;
+  const Scratch sc = carve(static_cast<float*>(a.scratch), BH, nc, D, Dv, L,
+                           dtype == 1 ? cst_tc_floats(D, Dv) : (size_t)D * Dv);
   const float* li = static_cast<const float*>(a.log_i);
   const float* lf = static_cast<const float*>(a.log_f);
   const float* C0 = static_cast<const float*>(a.C0);
@@ -1763,46 +1777,54 @@ int launch(const Args& a, int B, int S, int H, int D, int L, float scale, int dt
     const bf16* k = static_cast<const bf16*>(a.k);
     const bf16* v = static_cast<const bf16*>(a.v);
     const bf16* dh = static_cast<const bf16*>(a.dh);
-    LAUNCH(0, prep_tc, q, k, v, dh, li, lf, m0, sc.rec, S, H, D, L, scale);
-    LAUNCH(1, states_tc, q, k, v, dh, C0, n0, sc, S, H, D, L, scale);
-    LAUNCH(2, steps, sc, S, L, ncb);
+    LAUNCH(0, prep_tc, q, k, v, dh, li, lf, m0, sc.rec, S, H, D, Dv, L, scale);
+    LAUNCH(1, states_tc, q, k, v, dh, C0, n0, sc, S, H, D, Dv, L, scale);
+    LAUNCH(2, steps, sc, S, L, ncv);
     LAUNCH(3, rows_tc, q, k, v, dh, C0, n0, Cf, nf, dCf, dnf, static_cast<bf16*>(a.dq),
-           static_cast<bf16*>(a.dk), dC0, dn0, sc, S, H, D, L, scale);
-    LAUNCH(4, cols_tc, q, k, dh, dCf, static_cast<bf16*>(a.dv), sc, S, H, D, L, scale);
+           static_cast<bf16*>(a.dk), dC0, dn0, sc, S, H, D, Dv, L, scale);
+    LAUNCH(4, cols_tc, q, k, dh, dCf, static_cast<bf16*>(a.dv), sc, S, H, D, Dv, L, scale);
   } else {
     const float* q = static_cast<const float*>(a.q);
     const float* k = static_cast<const float*>(a.k);
     const float* v = static_cast<const float*>(a.v);
     const float* dh = static_cast<const float*>(a.dh);
-    LAUNCH(0, prep<float>, q, k, v, dh, li, lf, m0, sc.rec, S, H, D, L, scale);
-    LAUNCH(1, states<float>, q, k, v, dh, C0, n0, sc, S, H, D, L, scale);
-    LAUNCH(2, steps, sc, S, L, ncb);
+    LAUNCH(0, prep<float>, q, k, v, dh, li, lf, m0, sc.rec, S, H, D, Dv, L, scale);
+    LAUNCH(1, states<float>, q, k, v, dh, C0, n0, sc, S, H, D, Dv, L, scale);
+    LAUNCH(2, steps, sc, S, L, ncv);
     LAUNCH(3, reverse_rows<float>, q, k, v, dh, C0, n0, Cf, nf, dCf, dnf,
-           static_cast<float*>(a.dq), static_cast<float*>(a.dk), dC0, dn0, sc, S, H, D, L,
+           static_cast<float*>(a.dq), static_cast<float*>(a.dk), dC0, dn0, sc, S, H, D, Dv, L,
            scale);
-    LAUNCH(4, reverse_cols<float>, q, k, dh, dCf, static_cast<float*>(a.dv), sc, S, H, D, L,
-           scale);
+    LAUNCH(4, reverse_cols<float>, q, k, dh, dCf, static_cast<float*>(a.dv), sc, S, H, D, Dv,
+           L, scale);
   }
   LAUNCH(5, gate_grads, li, lf, m0, static_cast<const float*>(a.dm_fin),
          static_cast<float*>(a.dlog_i), static_cast<float*>(a.dlog_f),
-         static_cast<float*>(a.dm0), sc, S, H, L, ncb);
+         static_cast<float*>(a.dm0), sc, S, H, L, nck);
   return 0;
 }
 
 #undef LAUNCH
 
+bool valid(int D, int Dv, int L) {
+  return L <= kMaxL && D % kCols == 0 && Dv % kCols == 0 && 0 < Dv && Dv <= D &&
+         D <= kWg * kMt * 64;
+}
+
 }  // namespace
 
-// q, k, v, dh (B, S, H, D); log_i, log_f (B, S, H) float32; C0 (B, H, D, D),
-// n0 (B, H, D), m0 (B, H) float32, all null for a new stream; C_fin, n_fin
-// the forward's final state (read where dC_fin, dn_fin are given); dC_fin,
-// dn_fin, dm_fin the final state's gradient, each null for zeros; outputs
-// dq, dk, dv (B, S, H, D), dlog_i, dlog_f (B, S, H) float32, dC0, dn0, dm0
+// q, k (B, S, H, D); v, dh (B, S, H, Dv), Dv <= D (a tensor-parallel
+// rank's value columns of every head; Dv = D otherwise); log_i, log_f (B,
+// S, H) float32; C0 (B, H, D, Dv), n0 (B, H, D), m0 (B, H) float32, all
+// null for a new stream; C_fin, n_fin the forward's final state (read
+// where dC_fin, dn_fin are given); dC_fin, dn_fin, dm_fin the final state's
+// gradient, each null for zeros; outputs dq, dk (B, S, H, D), dv (B, S, H,
+// Dv), dlog_i, dlog_f (B, S, H) float32, dC0, dn0, dm0
 // float32 or null (not wanted); scratch: float32, as carve() lays it out
 // (mlstm_bwd_plan's floats).  L: chunk length (<= 64); scale multiplies q.
 // dtype 0 = float32 (the scalar bodies), 1 = bfloat16 (the tensor-core
 // ones; q, k, v, dh and dq, dk, dv share it).  The wrapper guarantees
-// contiguous 16-byte-aligned tensors, D a multiple of 32 and at most 1024,
+// contiguous 16-byte-aligned tensors, D and Dv multiples of 32 and at most
+// 1024,
 // and the shared memory within the card's 227 KB.  Returns
 // cudaGetLastError() after the launches (0 = success).
 extern "C" int mlstm_bwd(const void* q, const void* k, const void* v, const void* log_i,
@@ -1810,22 +1832,23 @@ extern "C" int mlstm_bwd(const void* q, const void* k, const void* v, const void
                          const void* C_fin, const void* n_fin, const void* dh,
                          const void* dC_fin, const void* dn_fin, const void* dm_fin, void* dq,
                          void* dk, void* dv, void* dlog_i, void* dlog_f, void* dC0, void* dn0,
-                         void* dm0, void* scratch, int B, int S, int H, int D, int L,
+                         void* dm0, void* scratch, int B, int S, int H, int D, int Dv, int L,
                          float scale, int dtype, void* stream) {
-  if (L > kMaxL || D % kCols || D > kWg * kMt * 64) return (int)cudaErrorInvalidValue;
+  if (!valid(D, Dv, L)) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, log_i, log_f, C0, n0, m0, C_fin, n_fin, dh, dC_fin, dn_fin, dm_fin,
                dq, dk, dv, dlog_i, dlog_f, dC0, dn0, dm0, scratch};
-  return launch(a, B, S, H, D, L, scale, dtype, static_cast<cudaStream_t>(stream));
+  return launch(a, B, S, H, D, Dv, L, scale, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // The plan of a call, as mlstm_bwd launches it: out[0] the scratch's
 // floats, then for each of the six launches grid x, y, z, threads and
 // dynamic shared memory (31 values).  ops.py bwd_plan mirrors it.
-extern "C" int mlstm_bwd_plan(int B, int S, int H, int D, int L, int dtype, long long* out) {
-  if (L > kMaxL || D % kCols || D > kWg * kMt * 64) return (int)cudaErrorInvalidValue;
+extern "C" int mlstm_bwd_plan(int B, int S, int H, int D, int Dv, int L, int dtype,
+                              long long* out) {
+  if (!valid(D, Dv, L)) return (int)cudaErrorInvalidValue;
   Launch ls[6];
   size_t n;
-  plan(B, S, H, D, L, dtype, ls, n);
+  plan(B, S, H, D, Dv, L, dtype, ls, n);
   out[0] = (long long)n;
   for (int i = 0; i < 6; ++i) {
     long long* o = out + 1 + 5 * i;

@@ -18,23 +18,26 @@ def wide(dtype):
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def empty_state(B, H, dh, device, dtype=torch.float32):
-    """The start state of a new stream: C = 0, n = 0, m = -1e30."""
-    return (torch.zeros((B, H, dh, dh), dtype=dtype, device=device),
+def empty_state(B, H, dh, device, dtype=torch.float32, dv=None):
+    """The start state of a new stream: C = 0 (dh x dv, ``dv`` default
+    dh), n = 0, m = -1e30."""
+    return (torch.zeros((B, H, dh, dh if dv is None else dv), dtype=dtype, device=device),
             torch.zeros((B, H, dh), dtype=dtype, device=device),
             torch.full((B, H), NEG, dtype=dtype, device=device))
 
 
 def mlstm_ref(q, k, v, log_i, log_f, state=None, *, chunk, scale=1.0):
-    """q, k, v: (B, S, H, dh); log_i, log_f: (B, S, H) float32; state: (C
-    (B, H, dh, dh), n (B, H, dh), m (B, H)) float32 or None (a new
-    stream); chunk: the chunk length L (``min(chunk, S)`` is used).
-    Returns h (B, S, H, dh) in q's dtype and the final (C, n, m) (float32,
-    float64 for float64 inputs)."""
+    """q, k: (B, S, H, dh); v: (B, S, H, dv), dv <= dh (a tensor-parallel
+    rank's value columns of every head: h and C take v's columns, every
+    column is independent of the others given q, k and the gates); log_i,
+    log_f: (B, S, H) float32; state: (C (B, H, dh, dv), n (B, H, dh), m (B,
+    H)) float32 or None (a new stream); chunk: the chunk length L
+    (``min(chunk, S)`` is used).  Returns h (B, S, H, dv) in q's dtype and
+    the final (C, n, m) (float32, float64 for float64 inputs)."""
     ft = wide(q.dtype)
     B, S, H, dh = q.shape
     L = min(chunk, S)
-    C, n, m = (empty_state(B, H, dh, q.device, ft) if state is None
+    C, n, m = (empty_state(B, H, dh, q.device, ft, v.shape[-1]) if state is None
                else (t.to(ft) for t in state))
     hs = []
     for t0 in range(0, S, L):
@@ -128,11 +131,12 @@ def mlstm_tiled(q, k, v, log_i, log_f, state=None, *, chunk, scale=1.0,
     update and the copy of C that q C reads; q n, rowsum and the carried
     state stay float32.  Arguments and results as ``mlstm_ref``."""
     B, S, H, dh = q.shape
+    dv = v.shape[-1]
     L = min(chunk, S)
     (b, m_new, inter, w), m = chunk_gates(
         log_i, log_f, None if state is None else state[2], L)
     boot = state is None and S <= L
-    C, n, _ = (empty_state(B, H, dh, q.device) if state is None
+    C, n, _ = (empty_state(B, H, dh, q.device, dv=dv) if state is None
                else (t.float() for t in state))
     C = C.clone()
     hs = []
@@ -152,7 +156,7 @@ def mlstm_tiled(q, k, v, log_i, log_f, state=None, *, chunk, scale=1.0,
         num = torch.einsum("bsth,bthf->bshf", _operand(att, rounding), vc)
         if boot:
             for e0 in range(0, dh, E_TILE):
-                for f0 in range(0, dh, BOOT_COLS):
+                for f0 in range(0, dv, BOOT_COLS):
                     es, fs = slice(e0, e0 + E_TILE), slice(f0, f0 + BOOT_COLS)
                     C[:, :, es, fs] = torch.einsum("bthe,bthf->bhef", kw_r[..., es],
                                                    vc[..., fs])
@@ -163,7 +167,7 @@ def mlstm_tiled(q, k, v, log_i, log_f, state=None, *, chunk, scale=1.0,
             qn = torch.einsum("bshe,bhe->bsh", qc, n)
             qC = torch.zeros_like(num)
             for e0 in range(0, dh, E_TILE):
-                for f0 in range(0, dh, COLS):
+                for f0 in range(0, dv, COLS):
                     es, fs = slice(e0, e0 + E_TILE), slice(f0, f0 + COLS)
                     tile = C[:, :, es, fs]
                     qC[..., fs] += torch.einsum("bshe,bhef->bshf", qc[..., es],
@@ -262,7 +266,7 @@ def mlstm_bwd_tiled(q, k, v, log_i, log_f, state, dh, dstate=None, *, chunk,
     Q, kf, vf, dhf = (x.to(ft) for x in (q, k, v, dh))
     Q = Q * scale
     spans = [(t0, min(t0 + L, S)) for t0 in range(0, S, L)]
-    C, n, _ = (empty_state(B, H, dh_, dev, ft) if state is None
+    C, n, _ = (empty_state(B, H, dh_, dev, ft, v.shape[-1]) if state is None
                else (t.to(ft) for t in state))
     C0, n0 = C, n
     chunks = []

@@ -20,11 +20,14 @@ path.  Train cells run ``make_sharded_train_step``; prefill and decode
 cells the serving entry points with bf16 weights sharded on 'model' only.
 Both compute each rank's shard over 'model' (``constraints.model_shards``;
 ``distributed/tensor_parallel.py``): its heads, ``d_ff``, experts and
-vocab rows on its batch slice, the recurrent mixers whole; a serving rank
-gathers no weight but a recurrent mixer's, and reads its batch slice of
-the cache with its KV heads as ``cache_shardings`` places them (where KV
-heads are whole on 'model', it holds them all and writes and reads those
-its query heads use).
+vocab rows, a Mamba mixer's heads and an mLSTM's value columns of every
+head, on its batch slice; the sLSTM whole.  A serving rank gathers no
+weight but the sLSTM's (and a Mamba or mLSTM mixer's whose split dim does
+not divide the extent), and reads its batch slice of the cache with its
+KV heads, its Mamba heads' ``h`` and conv channels and its columns of the
+mLSTM's ``C`` and conv channels as ``cache_shardings`` places them (where
+KV heads are whole on 'model', it holds them all and writes and reads
+those its query heads use; the mLSTM's ``n`` and ``m`` are whole).
 
 Per-device argument bytes are the local shards' bytes, exactly; temporary
 bytes are the peak of live tensors the step made (``temp_peak_bytes``).
@@ -46,7 +49,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch import configs
 from repro_torch.distributed import (constraints, sharded_step, sharding,
-                                     trace_analysis)
+                                     tensor_parallel, trace_analysis)
 from repro_torch.distributed.collectives import CARD, roofline_terms
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.lm import LM
@@ -70,6 +73,26 @@ def _cache_spec(cfg, model, shape):
 def _kept(spec, dims) -> sharding.P:
     """``spec`` with every dim but ``dims`` replicated."""
     return sharding.P(*(e if i in dims else None for i, e in enumerate(spec)))
+
+
+# a split mixer's cache leaf -> its dim that holds the rank's share
+_MIXER_DIMS = {"mamba": {"h": 2, "conv": 3}, "mlstm": {"C": 4, "conv": 3}}
+
+
+def _compute_dims(cfg, path, extent) -> tuple:
+    """The dims of a cache leaf that a rank computes on as
+    ``cache_shardings`` places them: its batch slice (dim 1), an attention
+    cache's KV heads (dim 3), a split Mamba mixer's heads of ``h`` and
+    conv channels, a split mLSTM's columns of ``C`` and conv channels;
+    every other dim whole (the sequence, the sLSTM's state, an mLSTM's n
+    and m)."""
+    leaf = path[-1]
+    if leaf in ("k", "v"):
+        return (1, 3)
+    mixer = cfg.pattern[path[0]].mixer
+    if tensor_parallel.mixer_splits(cfg, mixer, extent) and leaf in _MIXER_DIMS.get(mixer, {}):
+        return (1, _MIXER_DIMS[mixer][leaf])
+    return (1,)
 
 
 def build_step(cfg, shape, mesh):
@@ -98,11 +121,9 @@ def build_step(cfg, shape, mesh):
     c_sh = sharding.cache_shardings(scfg, c_spec, mesh, long_ctx=shape.name == "long_500k")
     dp_group = mesh.group(sharding.batch_axes(mesh, shape.global_batch))
     shards = sharded_step.model_shards_of(mesh, scfg)
-    # placements of each cache leaf as a rank computes on it: its batch
-    # slice (dim 1), an attention cache's KV heads (dim 3) as placed,
-    # every other dim whole (a recurrent mixer's state, the sequence)
+    # placements of each cache leaf as a rank computes on it
     compute = sharding.tree_map_with_path(lambda path, s: sharding.placements(
-        _kept(s.spec, (1, 3) if path[-1] in ("k", "v") else (1,)), mesh), c_sh)
+        _kept(s.spec, _compute_dims(scfg, path, shards[2])), mesh), c_sh)
 
     def place(cache):
         """A rank's compute-placed cache -> DTensors in ``c_sh`` (no traffic)."""

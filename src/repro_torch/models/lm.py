@@ -21,12 +21,16 @@ it was given.
 Under ``constraints.model_shards`` (the sharded train step, the dry-run)
 a rank computes its shard over 'model' (``distributed/tensor_parallel.py``):
 its heads, its columns and rows of ``d_ff``, its experts, its vocab rows
-of the embedding and the head; the Mamba, mLSTM and sLSTM mixers whole.
+of the embedding and the head, a Mamba mixer's heads and an mLSTM's value
+columns of every head (where they divide the extent); the sLSTM whole.
 Its logits are then its vocab slice, and a dense cache holds its KV heads
-(all of them, only its own written, where KV heads are whole on 'model').
+(all of them, only its own written, where KV heads are whole on 'model'),
+its Mamba heads' state and conv channels, and its columns of the mLSTM's
+C and its conv channels.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -110,6 +114,26 @@ _RECURRENT = {
 }
 
 
+def _recurrent(cfg, spec) -> _Recurrent:
+    """``spec``'s recurrent mixer's entry points.  Where the model ranks
+    compute it whole (``tensor_parallel.mixer_splits``: the sLSTM, a Mamba
+    or mLSTM mixer whose split dim does not divide the extent) they run
+    as the one rank of one (``model_shards(None, 0, 1)``), on the whole
+    weights ``_layer_slice`` gives them."""
+    entry = _RECURRENT[spec.mixer]
+    if constraints.model().extent == 1 or tp.mixer_splits(cfg, spec.mixer):
+        return entry
+    return _Recurrent(*(_one_rank(fn) for fn in entry))
+
+
+def _one_rank(fn):
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        with constraints.model_shards(None, 0, 1):
+            return fn(*args, **kw)
+    return run
+
+
 def _cache_size(spec, max_len):
     return min(spec.window, max_len) if spec.window else max_len
 
@@ -181,7 +205,7 @@ def layer_prefill(cfg, spec, p, x, positions, max_len, memory=None):
         h, k, v = _cross_prefill(cfg, p["mixer"], h, positions, memory)
         cache = _memory_cache(cfg, k, v)
     else:
-        h, cache = _RECURRENT[spec.mixer].forward(cfg, p["mixer"], h,
+        h, cache = _recurrent(cfg, spec).forward(cfg, p["mixer"], h,
                                                   return_cache=True)
     return _residual(cfg, spec, p, x, h), cache
 
@@ -197,7 +221,7 @@ def layer_forward_full(cfg, spec, p, x, positions, memory=None, aux=None):
     elif spec.mixer == "cross_attn":
         h = _cross_prefill(cfg, p["mixer"], h, positions, memory)[0]
     else:
-        h = _RECURRENT[spec.mixer].forward(cfg, p["mixer"], h)
+        h = _recurrent(cfg, spec).forward(cfg, p["mixer"], h)
     return _residual(cfg, spec, p, x, h, aux)
 
 
@@ -237,7 +261,7 @@ def layer_decode(cfg, spec, p, x, pos, cache, active=None):
             cfg, q, kc, vc, T if active is None else torch.where(active, T, 0))
         h = attention.merge_heads(cfg, p["mixer"], o)
     else:
-        h, new = _RECURRENT[spec.mixer].decode(cfg, p["mixer"], h, cache)
+        h, new = _recurrent(cfg, spec).decode(cfg, p["mixer"], h, cache)
         for n, t in cache.items():
             t.copy_(new[n])
     return _residual(cfg, spec, p, x, h)
@@ -249,7 +273,7 @@ def layer_cache_zeros(cfg, spec, B, max_len, device, T_mem=0):
         shape = (B, size, cfg.n_kv_heads, cfg.d_head)
         return {n: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
                 for n in ("k", "v")}
-    return _RECURRENT[spec.mixer].empty(cfg, B, device)
+    return _recurrent(cfg, spec).empty(cfg, B, device)
 
 
 def cache_slot_write(pool, single, slot):
@@ -370,16 +394,19 @@ def layer_verify_paged(cfg, spec, p, x, pos, arena, page_table, n_tok=None):
     return _mixer_out(cfg, spec, p, x, o)
 
 
-def _layer_slice(tree, r, spec=None, whole=False):
-    """Repeat ``r`` of a stacked params subtree (of a layer of ``spec``);
-    a sharded (DTensor) leaf is gathered here, just before its layer uses
-    it: with its 'model' shard kept (``constraints.gather_tp``), but whole
-    in a recurrent mixer, which every model rank computes whole
-    (``constraints.gather``)."""
+def _layer_slice(tree, r, cfg=None, spec=None, whole=False):
+    """Repeat ``r`` of a stacked params subtree (of a layer of ``spec``
+    in ``cfg``); a sharded (DTensor) leaf is gathered here, just before its
+    layer uses it: with its 'model' shard kept (``constraints.gather_tp``),
+    but whole in a mixer that every model rank computes whole
+    (``constraints.gather``): the sLSTM, and a Mamba or mLSTM mixer whose
+    split dim does not divide the model extent
+    (``tensor_parallel.mixer_splits``)."""
     def one(k, v):
         if isinstance(v, dict):
             return _layer_slice(v, r, whole=whole or (
-                k == "mixer" and spec is not None and spec.mixer in tp.RECURRENT))
+                k == "mixer" and spec is not None
+                and not tp.mixer_splits(cfg, spec.mixer)))
         return (constraints.gather if whole else constraints.gather_tp)(v[r])
     return {k: one(k, v) for k, v in tree.items()}
 
@@ -426,7 +453,7 @@ class LM(nn.Module):
         cfg = self.cfg
         for r in range(cfg.n_repeats):
             for i, spec in enumerate(cfg.pattern):
-                yield (spec, _layer_slice(params["blocks"][i], r, spec),
+                yield (spec, _layer_slice(params["blocks"][i], r, cfg, spec),
                        None if state is None else
                        {n: t[r] for n, t in state[i].items()})
 
@@ -524,7 +551,7 @@ class LM(nn.Module):
             """Repeat ``r`` of the pattern -> (x, its MoE aux losses summed)."""
             aux = [] if collect_aux else None
             for i, spec in enumerate(cfg.pattern):
-                x = layer_forward_full(cfg, spec, _layer_slice(params["blocks"][i], r, spec),
+                x = layer_forward_full(cfg, spec, _layer_slice(params["blocks"][i], r, cfg, spec),
                                        x, positions, memory, aux)
             return x, sum(aux or [], x.new_zeros((), dtype=torch.float32))
 

@@ -14,6 +14,27 @@ per head; its hidden-state feedback makes the prompt a Python loop over
 time (the reference's ``lax.scan``).  Same numerics as the reference: gate
 math and states in float32, sLSTM's ``W x`` a float32 product even when
 serving in bf16.
+
+Under ``constraints.model_shards`` of extent m (where the head width dh
+divides it: ``tensor_parallel.mixer_splits``; the layer runs a mixer that
+stays whole as the one rank of one) an mLSTM rank owns value
+columns [r dh / m, (r + 1) dh / m) of every head (``_cols``), as the
+cache rule splits C: its v, h and C.  h's columns are q C's columns over
+max(|q n|, exp(-m)), and n and m depend only on k and the gates, so the
+rank needs q and k whole: ``xc`` (conv channels chunked flat by the
+rules) and its flat block of q and k (``w_q`` / ``w_k`` columns) are
+gathered over the ranks (``gather_last``); its block of ``xi`` goes to
+its columns of every head as v (``head_columns``), and the normed h back
+to its flat block (``flat_channels``) for the gate z and ``w_down``'s
+rows.  ``w_up``'s x | z columns are regrouped to its block of each
+(``xz_columns``).  The gate product (``w_if`` rows) and the head norm's
+sums of squares are partial over the ranks and summed both ways
+(``all_sum``); the down-projection's partial sums are summed
+(``reduce_out``).  ``if_bias`` and ``head_norm`` are whole on every rank,
+which reads all of the one and its columns of the other: their gradients
+are summed over the ranks (``copy_in``).  Every rank computes the chunk scores q k^T of every
+head whole.  At extent 1 every collective here is the identity: one
+code path serves both.  The sLSTM stays whole on every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +43,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import constraints
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.mlstm import ref as mlstm_ref
 from repro_torch.kernels.mlstm.ops import mlstm_chunkwise
 from repro_torch.models import common
@@ -37,9 +60,12 @@ def mlstm_dims(cfg):
 
 
 def _head_norm(h, scale):
-    """Head-wise RMS norm in float32: h (..., H, dh) -> float32."""
+    """Head-wise RMS norm in float32: h (..., H, the rank's columns of
+    each head) -> float32, the sums of squares summed over the model
+    ranks."""
     hf = h.float()
-    var = hf.square().mean(-1, keepdim=True)
+    m = constraints.model().extent
+    var = tp.all_sum(hf.square().sum(-1, keepdim=True)) / (hf.shape[-1] * m)
     return hf * torch.rsqrt(var + EPS) * scale.float()
 
 
@@ -47,40 +73,58 @@ def _head_norm(h, scale):
 # mLSTM
 # --------------------------------------------------------------------------
 
+def _cols(cfg) -> slice:
+    """The value columns of every head this rank computes: its share over
+    the installed 'model' extent."""
+    dh = mlstm_dims(cfg)[2]
+    ms = constraints.model()
+    n = dh // ms.extent
+    return slice(ms.index * n, (ms.index + 1) * n)
+
+
 def _mlstm_proj(cfg, p, x, conv_state=None):
-    """x: (B, S, d) -> q, k, v (B, S, H, dh) and z (B, S, di) in the
-    compute dtype, log_i, log_f (B, S, H) float32, the new conv state."""
+    """x: (B, S, d) -> q, k (B, S, H, dh), v (B, S, H, the rank's
+    columns) and z (B, S, the rank's channels) in the compute dtype,
+    log_i, log_f (B, S, H) float32, the new conv state."""
     dt = cfg.compute_dtype
     di, H, dh = mlstm_dims(cfg)
-    B, S, _ = x.shape
-    xi, z = (x @ p["w_up"].to(dt)).chunk(2, dim=-1)
+    xi, z = (tp.copy_in(x) @ tp.xz_columns(p["w_up"], di).to(dt)).chunk(2, dim=-1)
     xc, new_conv = common.depthwise_conv(p["conv"].to(dt), xi, conv_state)
     xc = F.silu(xc)
+    # the gate product in the compute dtype, then f32 and the bias
+    # (xlstm.py:76-78): the ranks' partial products of the compute dtype's
+    # operands in f32, summed, rounded once to the compute dtype, as the
+    # whole product's accumulator is (the exponential input gate magnifies
+    # a rounding)
+    gates = tp.all_sum(xc.float() @ p["w_if"].to(dt).float()).to(dt)
+    xc = tp.gather_last(xc)
     # q is scaled in the compute dtype, before the kernel (xlstm.py:72-73):
     # the kernel's own scale stays 1 on the model path
-    q = ((xc @ p["w_q"].to(dt)) * (1.0 / math.sqrt(dh))).reshape(B, S, H, dh)
-    k = (xc @ p["w_k"].to(dt)).reshape(B, S, H, dh)
-    v = xi.reshape(B, S, H, dh)
-    # the gate product in the compute dtype, then f32 and the bias
-    # (xlstm.py:76-78)
-    gates = (xc @ p["w_if"].to(dt)).float() + p["if_bias"].float()
-    log_i, f_raw = gates.chunk(2, dim=-1)
+    q = (xc @ p["w_q"].to(dt)) * (1.0 / math.sqrt(dh))
+    k = xc @ p["w_k"].to(dt)
+    q, k = (tp.gather_last(t).unflatten(-1, (H, dh)) for t in (q, k))
+    v = tp.head_columns(xi, H, dh)
+    log_i, f_raw = (gates.float() + tp.copy_in(p["if_bias"]).float()).chunk(2, dim=-1)
     return q, k, v, log_i, F.logsigmoid(f_raw), z, new_conv
 
 
 def _finish(cfg, p, h, z):
-    """h: (B, S, H, dh) -> (B, S, d): head-wise RMS norm, gate, down-proj."""
+    """h: (B, S, H, the rank's columns) -> (B, S, d): head-wise RMS norm,
+    gate, down-proj."""
     dt = cfg.compute_dtype
-    di = mlstm_dims(cfg)[0]
-    hn = _head_norm(h, p["head_norm"]).to(dt).reshape(h.shape[0], h.shape[1], di)
-    return (hn * F.silu(z)) @ p["w_down"].to(dt)
+    hn = _head_norm(h, tp.copy_in(p["head_norm"])[:, _cols(cfg)]).to(dt)
+    return tp.reduce_out((tp.flat_channels(hn) * F.silu(z)) @ p["w_down"].to(dt))
 
 
 def empty_mlstm_state(cfg, batch, device):
+    """A new stream's state, of the rank's columns of C and conv
+    channels."""
     di, H, dh = mlstm_dims(cfg)
-    C, n, m = mlstm_ref.empty_state(batch, H, dh, device)
+    cols = _cols(cfg)
+    dv = cols.stop - cols.start
+    C, n, m = mlstm_ref.empty_state(batch, H, dh, device, dv=dv)
     return {"C": C, "n": n, "m": m,
-            "conv": torch.zeros((batch, cfg.xlstm.conv_width - 1, di),
+            "conv": torch.zeros((batch, cfg.xlstm.conv_width - 1, di * dv // dh),
                                 dtype=cfg.compute_dtype, device=device)}
 
 

@@ -481,7 +481,8 @@ def test_dense_decode_kernel_one_row_many_splits(card):
 SCAN_SHAPES = [(1, 512, 4, 128, 16, 128), (2, 300, 2, 128, 16, 128),
                (2, 37, 2, 32, 8, 16), (1, 96, 4, 64, 16, 32),
                (3, 5, 2, 128, 16, 128), (1, 8, 64, 128, 16, 128),
-               (2, 8, 64, 128, 16, 128), (1, 1024, 8, 128, 16, 128)]
+               (2, 8, 64, 128, 16, 128), (1, 1024, 8, 128, 16, 128),
+               (1, 2048, 4, 128, 16, 128)]    # a tensor-parallel rank's 4 of jamba's heads
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -565,9 +566,15 @@ def test_mamba_scan_device_kernels_a_call(card, S, with_h0, kernels):
 # and short chunks, the JAX kernel test's dh = 64, the full width (dh =
 # 1024) over a ragged tail, the engine's boot prefill at full width (8
 # tokens, one chunk of 8), and two rows of a 40-token boot (one chunk of
-# 40, its K padded to 48; without a state, the bf16 boot path)
+# 40, its K padded to 48; without a state, the bf16 boot path); then, with
+# a sixth entry dv, v's (and h's and C's) columns narrower than q's and k's:
+# a tensor-parallel rank's share of every head (xlstm's 64 of 1024 at 16
+# ranks, over its training length and on the boot path; 256 at 4 ranks),
+# and 32 columns against a boot block's 64
 MLSTM_SHAPES = [(2, 37, 2, 32, 16), (1, 96, 4, 64, 32),
-                (1, 300, 4, 1024, 64), (1, 8, 4, 1024, 64), (2, 40, 4, 1024, 64)]
+                (1, 300, 4, 1024, 64), (1, 8, 4, 1024, 64), (2, 40, 4, 1024, 64),
+                (1, 2048, 4, 1024, 64, 64), (2, 40, 4, 1024, 64, 64),
+                (1, 300, 4, 1024, 64, 256), (2, 37, 2, 64, 16, 32), (1, 8, 2, 128, 64, 32)]
 # h is a ratio whose denominator cancels (|den| down to exp(-m)), which
 # magnifies the different summation order of the kernel's and cuBLAS's
 # sums over dh: in float32, h is held at the JAX kernel test's 2e-4
@@ -580,16 +587,18 @@ MLSTM_TOL_H = {"float32": dict(atol=2e-4, rtol=2e-4),
 @pytest.mark.parametrize("with_state", [True, False])
 @pytest.mark.parametrize("shape", MLSTM_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_mlstm_kernel_matches_plain(card, dtype, with_state, shape):
-    B, S, H, dh, chunk = shape
+    B, S, H, dh, chunk = shape[:5]
+    dv = shape[5] if len(shape) > 5 else dh
     dt = configs.torch_dtype(dtype)
     rng = np.random.default_rng(14)
     q = (_randn(rng, B, S, H, dh) / dh ** 0.5).to(card, dt)    # the model's scale
-    k, v = (_randn(rng, B, S, H, dh).to(card, dt) for _ in range(2))
+    k = _randn(rng, B, S, H, dh).to(card, dt)
+    v = _randn(rng, B, S, H, dv).to(card, dt)
     log_i = (_randn(rng, B, S, H) * 2).to(card)
     log_f = torch.nn.functional.logsigmoid(_randn(rng, B, S, H) + 4).to(card)
     state = None
     if with_state:
-        state = ((_randn(rng, B, H, dh, dh) * 0.1).to(card),
+        state = ((_randn(rng, B, H, dh, dv) * 0.1).to(card),
                  (_randn(rng, B, H, dh) * 0.1).to(card), _randn(rng, B, H).to(card))
     n0, b0 = mlstm_ops.mlstm_chunkwise.launches, mlstm_ops.mlstm_chunkwise.boot_launches
     h, st = mlstm_ops.mlstm_chunkwise(q, k, v, log_i, log_f, state, chunk=chunk)
@@ -1184,10 +1193,11 @@ BWD_GRAD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MLSTM_BWD_GRAD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # (B, S, H, P, N, L, h0 and the final state's gradient): jamba's training
 # shape, a ragged tail with a state, short chunks, the bf16 boot path, and
-# the training shape with a ragged last chunk (80 steps)
+# the training shape with a ragged last chunk (80 steps), and a
+# tensor-parallel rank's 4 of jamba's 64 heads (16 ranks) at B=1 S=2048
 SCAN_BWD_SHAPES = [(2, 2048, 64, 128, 16, 128, False), (2, 300, 8, 128, 16, 128, True),
                    (2, 37, 2, 32, 8, 16, True), (2, 8, 64, 128, 16, 128, False),
-                   (2, 2000, 64, 128, 16, 128, False)]
+                   (2, 2000, 64, 128, 16, 128, False), (1, 2048, 4, 128, 16, 128, False)]
 
 
 def _grads_close(got, want, dtype, names, tol=BWD_GRAD_TOL):
@@ -1229,12 +1239,17 @@ def test_mamba_scan_bwd_kernel_matches_plain(card, dtype, shape):
 
 
 # (B, S, H, dh, L, a start state and the final state's gradient, q scaled
-# by 1e-3): xlstm's training shape, a ragged tail with a state, the reduced
-# width, exp(-m_new) winning the denominator, and the training shape with a
-# ragged last chunk (40 steps)
+# by 1e-3[, dv]): xlstm's training shape, a ragged tail with a state, the
+# reduced width, exp(-m_new) winning the denominator, and the training
+# shape with a ragged last chunk (40 steps); then v's columns narrower than
+# q's and k's (a tensor-parallel rank's: 64 of 1024 at 16 ranks over B=1
+# S=2048, 256 at 4 with a state, 32 of 64 with a state and small q)
 MLSTM_BWD_SHAPES = [(2, 1024, 4, 1024, 64, False, False), (1, 300, 4, 1024, 64, True, False),
                     (2, 48, 4, 32, 64, False, False), (2, 37, 2, 32, 16, True, True),
-                    (2, 1000, 4, 1024, 64, False, False)]
+                    (2, 1000, 4, 1024, 64, False, False),
+                    (1, 2048, 4, 1024, 64, False, False, 64),
+                    (1, 300, 4, 1024, 64, True, False, 256),
+                    (2, 37, 2, 64, 16, True, True, 32)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1244,19 +1259,21 @@ def test_mlstm_bwd_kernel_matches_plain(card, dtype, shape):
     float32 plain version on the same inputs, q, k, v, log i, log f and
     the start state each within ``MLSTM_BWD_GRAD_TOL`` of its largest
     entry; the backward alone twice gives the same bits."""
-    B, S, H, dh, L, with_state, small_q = shape
+    B, S, H, dh, L, with_state, small_q = shape[:7]
+    dv = shape[7] if len(shape) > 7 else dh
     dt = configs.torch_dtype(dtype)
     rng = np.random.default_rng(33)
     q = (_randn(rng, B, S, H, dh) / dh ** 0.5 * (1e-3 if small_q else 1.0)).to(card, dt)
-    k, v = (_randn(rng, B, S, H, dh).to(card, dt) for _ in range(2))
+    k = _randn(rng, B, S, H, dh).to(card, dt)
+    v = _randn(rng, B, S, H, dv).to(card, dt)
     log_i = (_randn(rng, B, S, H) * 2).to(card)
     log_f = torch.nn.functional.logsigmoid(_randn(rng, B, S, H) + 4).to(card)
     state = dstate = None
     if with_state:
-        state = ((_randn(rng, B, H, dh, dh) * 0.1).to(card),
+        state = ((_randn(rng, B, H, dh, dv) * 0.1).to(card),
                  (_randn(rng, B, H, dh) * 0.1).to(card), _randn(rng, B, H).to(card))
         dstate = tuple(_randn(rng, *t.shape).to(card) for t in state)
-    dhv = _randn(rng, B, S, H, dh).to(card, dt)
+    dhv = _randn(rng, B, S, H, dv).to(card, dt)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v, log_i, log_f)]
     sl = [t.clone().requires_grad_(True) for t in state] if with_state else []
     h, fin = mlstm_ops.mlstm_chunkwise(*leaves, tuple(sl) if sl else None, chunk=L)
@@ -1297,9 +1314,10 @@ def test_mlstm_bwd_plan_mirrors_the_source(card, dtype, shape):
     scratch, the CPU tests' mirror, equal the built source's own plan
     (``mlstm_bwd_plan``), by which the kernels launch."""
     B, S, H, dh, L = shape[:5]
+    dv = shape[7] if len(shape) > 7 else dh
     dt, L = configs.torch_dtype(dtype), min(L, S)
-    mirror = mlstm_ops.bwd_plan(B, S, H, dh, L, dt)
-    assert mlstm_ops.launch_plan(B, S, H, dh, L, dt) == (
+    mirror = mlstm_ops.bwd_plan(B, S, H, dh, L, dt, dv)
+    assert mlstm_ops.launch_plan(B, S, H, dh, L, dt, dv) == (
         mirror["scratch"], tuple((k["grid"], k["threads"], k["dynamic"])
                                  for k in mirror["kernels"]))
 

@@ -16,7 +16,13 @@ the tests hold it against the reference in this process:
 - the step with compute split over 'model' (tensor parallelism) on the
   meshes (2, 4) and (8, 1) too: danube on both, moonshot and gemma2
   (softcaps; 2 KV heads whole on 4 model ranks) on (2, 4), each equal to
-  the reference's unsharded step;
+  the reference's unsharded step; and on (2, 4) every other family: jamba
+  widened to d_model 256 (4 Mamba heads, 1 a model rank; its SSD scan in
+  chunks of 4 in both packages, where the reference's keeps finite
+  gradients; attention and MoE beside them), xlstm (its mLSTM's value
+  columns split, the sLSTM whole), whisper (the encoder, self- and
+  cross-attention; frames as an input) and vision (cross-attention to
+  image embeddings);
 - a rank computes only its shard: rank 0's matmul flops in danube's (2, 4)
   step are within 5% of its (8, 1) step's, B/8 of each split product;
 - the danube step's params saved on (4, 2) restore onto (2, 4), each rank
@@ -56,9 +62,13 @@ TIMEOUT_S = 120
 B, S = 8, 32
 STEP_ARCHS = ["h2o-danube-1.8b", "moonshot-v1-16b-a3b"]
 # more meshes over the same 8 ranks (data, model), and the configs stepped on each
-TP_STEPS = {(2, 4): ["h2o-danube-1.8b", "moonshot-v1-16b-a3b", "gemma2-9b"],
+TP_STEPS = {(2, 4): ["h2o-danube-1.8b", "moonshot-v1-16b-a3b", "gemma2-9b",
+                     "jamba-v0.1-52b", "xlstm-1.3b", "whisper-base", "llama-3.2-vision-11b"],
             (8, 1): ["h2o-danube-1.8b"]}
-ARCHS = STEP_ARCHS + ["gemma2-9b"]
+ARCHS = STEP_ARCHS + TP_STEPS[(2, 4)][2:]
+# widths past the reduced config's: jamba's reduced d_inner 128 is one
+# Mamba head, which splits nothing
+WIDE = {"jamba-v0.1-52b": 256}
 FLOPS_ARCH = "h2o-danube-1.8b"
 MOE_ARCH = "dbrx-132b"
 LR = 1e-3
@@ -67,6 +77,7 @@ WORKER = textwrap.dedent("""
     import dataclasses, sys
     import numpy as np, torch, torch.distributed as dist
     rank, tmp = int(sys.argv[1]), sys.argv[2]
+    torch.set_num_threads(1)      # eight ranks of tiny products share the host's cores
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
                             world_size=8)
     from repro_torch import configs
@@ -78,8 +89,10 @@ WORKER = textwrap.dedent("""
     from torch.distributed.tensor import Shard
 
     def cfg_of(name):
-        return dataclasses.replace(configs.get_config(name).reduced(), d_model=64,
-                                   d_ff=128, vocab=512)
+        cfg = configs.get_config(name).reduced()
+        kw = dict(mamba=dataclasses.replace(cfg.mamba, chunk=4)) if cfg.mamba else {}
+        return dataclasses.replace(cfg, d_model=%(WIDE)r.get(name, 64), d_ff=128, vocab=512,
+                                   **kw)
 
     def key(path):
         return "/".join(map(str, path))
@@ -99,7 +112,7 @@ WORKER = textwrap.dedent("""
         params = sharding.tree_map_with_path(
             lambda p, _: torch.from_numpy(data["p/" + key(p)]),
             LM(cfg, "cpu").param_specs())
-        batch = {k: torch.from_numpy(data[k]) for k in ("tokens", "labels")}
+        batch = {k: torch.from_numpy(data[k]) for k in data if not k.startswith("p/")}
         p_sh = sharding.param_shardings(cfg, params, mesh, train=True)
         params = sharding.distribute(params, p_sh)
         batch = sharding.distribute(batch, sharding.input_shardings(cfg, batch, mesh))
@@ -166,14 +179,16 @@ WORKER = textwrap.dedent("""
     dist.barrier()
     dist.destroy_process_group()
 """) % {"STEP_ARCHS": STEP_ARCHS, "LR": LR, "MOE_ARCH": MOE_ARCH, "B": B,
-        "TP_STEPS": TP_STEPS, "FLOPS_ARCH": FLOPS_ARCH}
+        "TP_STEPS": TP_STEPS, "FLOPS_ARCH": FLOPS_ARCH, "WIDE": WIDE}
 
 
 def _cfgs(name):
-    """(reference, port) config, widened as the reference's test widens it."""
-    kw = dict(d_model=64, d_ff=128, vocab=512)
-    return (dataclasses.replace(base.get_config(name).reduced(), **kw),
-            dataclasses.replace(configs.get_config(name).reduced(), **kw))
+    """(reference, port) config, widened as the reference's test widens it
+    (jamba further, ``WIDE``; its SSD scan in chunks of 4)."""
+    def widen(cfg):
+        kw = dict(mamba=dataclasses.replace(cfg.mamba, chunk=4)) if cfg.mamba else {}
+        return dataclasses.replace(cfg, d_model=WIDE.get(name, 64), d_ff=128, vocab=512, **kw)
+    return widen(base.get_config(name).reduced()), widen(configs.get_config(name).reduced())
 
 
 def _key(path) -> str:
@@ -184,14 +199,21 @@ def _flat(tree) -> dict:
     return {_key(p): np.asarray(x) for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def _batch(seed):
+def _batch(seed, cfg):
     """Tokens and labels, a quarter of the labels ignored (-1), unevenly
-    over the batch rows."""
+    over the batch rows; whisper's frames (S / 2 of them) and vision's
+    image embeddings."""
     g = np.random.default_rng(seed)
     tokens = g.integers(0, 512, (B, S)).astype(np.int32)
     labels = g.integers(0, 512, (B, S)).astype(np.int32)
     labels[g.random((B, S)) < np.linspace(0.0, 0.5, B)[:, None]] = -1
-    return {"tokens": tokens, "labels": labels}
+    aux = {}
+    if cfg.is_encdec:
+        aux["frames"] = g.standard_normal((B, S // 2, cfg.d_model)).astype(np.float32)
+    if cfg.n_image_tokens:
+        aux["image_embeds"] = g.standard_normal(
+            (B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return {"tokens": tokens, "labels": labels, **aux}
 
 
 @pytest.fixture(scope="module")
@@ -202,7 +224,7 @@ def run(tmp_path_factory):
     for i, name in enumerate(ARCHS):
         jcfg, _ = _cfgs(name)
         params = build_model(jcfg).init(jax.random.PRNGKey(i))
-        batch = _batch(i)
+        batch = _batch(i, jcfg)
         np.savez(tmp / f"{name}.npz", **batch,
                  **{f"p/{k}": v for k, v in _flat(params).items()})
         inputs[name] = (params, batch)
@@ -271,10 +293,11 @@ def _check_step(out, prefix, name, params, batch, monkeypatch, dp=4):
 @pytest.mark.parametrize("shape,name", [(s, n) for s, ns in TP_STEPS.items() for n in ns],
                          ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
 def test_tp_step_matches_reference(run, shape, name, monkeypatch):
-    """With compute split over 'model' (heads, d_ff, experts, vocab) on
-    (2, 4), and with none on (8, 1): loss, gradient norm and every leaf of
-    params, mu and nu after one step equal the reference's unsharded step
-    at the tolerances above."""
+    """With compute split over 'model' (heads, d_ff, experts, vocab, the
+    Mamba heads and the mLSTM's value columns) on (2, 4), and with none on
+    (8, 1): loss, gradient norm and every leaf of params, mu and nu after
+    one step equal the reference's unsharded step at the tolerances
+    above."""
     inputs, _, _, out = run
     _check_step(out, f"{shape[0]}x{shape[1]}/{name}", name, *inputs[name], monkeypatch,
                 dp=shape[0])

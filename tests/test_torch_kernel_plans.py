@@ -566,6 +566,65 @@ def test_mlstm_plan_at_the_serving_shapes():
     assert mlstm_ops.warpgroups(32) == (1, 1) and mlstm_ops.warpgroups(1024) == (4, 4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dv", [32, 64, 256, 512])
+def test_mlstm_plan_with_narrow_value_columns(dv, dtype):
+    """v's (and h's and C's) columns narrower than q's and k's (dh = 1024,
+    a tensor-parallel rank's share of every head): the scores kernels'
+    grid is unchanged, the recurrent kernels have dv / 32 column blocks a
+    head, the boot path's blocks cover dv in 64-column tiles, the shared
+    memory is the full width's; dv = dh is the unsplit plan."""
+    for S, L, state in ((2048, 64, False), (2048, 64, True), (40, 64, False), (8, 8, False)):
+        full = mlstm_ops.plan(1, S, 4, 1024, L, dtype, state)
+        p = mlstm_ops.plan(1, S, 4, 1024, L, dtype, state, dv)
+        assert mlstm_ops.plan(1, S, 4, 1024, L, dtype, state, 1024) == full
+        assert p["path"] == full["path"]
+        for kn, kf in zip(p["kernels"], full["kernels"]):
+            assert (kn["name"], kn["threads"], kn["smem"]) == \
+                (kf["name"], kf["threads"], kf["smem"])
+            if kn["name"].startswith("scores"):
+                assert kn["grid"] == kf["grid"]
+            elif kn["name"] == "boot_tc":
+                assert kn["grid"] == (4, -(-dv // 64), kf["grid"][2])
+            else:
+                assert kn["grid"] == (4, dv // 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dv", [32, 64, 256])
+def test_mlstm_bwd_plan_with_narrow_value_columns(dv, dtype):
+    """The backward with dv < dh = 1024 (B=1 S=2048, a rank's training
+    shape): the states and column sweeps have dv / 32 blocks a head, the
+    row sweep dh / 32 (its blocks carry dC's rows over dv columns); the
+    scratch holds the entering C at dh x dv (float32, or bf16 tiles of
+    32 x 64 with the columns past dv zeros), X's shares a column block,
+    dw's, d inter_L's and the final and start states' a row block; the
+    shared memory is the full width's but for the scalar row sweep's,
+    which carries dv + 1 columns; dv = dh is the unsplit plan; a dv that
+    is no multiple of 32, or wider than dh, is refused."""
+    B, S, H, dh, L = 1, 2048, 4, 1024, 64
+    full = mlstm_ops.bwd_plan(B, S, H, dh, L, dtype)
+    assert mlstm_ops.bwd_plan(B, S, H, dh, L, dtype, dh) == full
+    p = mlstm_ops.bwd_plan(B, S, H, dh, L, dtype, dv)
+    nc, nck, ncv = S // L, dh // 32, dv // 32
+    assert [k["grid"] for k in p["kernels"]] == [
+        (nc, 4, 1), (4, ncv, 1), (nc, 4, 1), (4, nck, 1), (4, ncv, 1), (nc, 4, 1)]
+    for kn, kf in zip(p["kernels"], full["kernels"]):
+        if kn["name"] == "reverse_rows":
+            assert kf["smem"] - kn["smem"] == 4 * 32 * (dh - dv)
+        else:
+            assert kn["smem"] == kf["smem"], kn["name"]
+    cst = dh * dv if dtype == torch.float32 else nck * -(-dv // 64) * 32 * 64 // 2
+    assert mlstm_ops.cst_floats(dh, dtype, dv) == cst
+    rec = -(-(9 * L + 3 * L * L) // 4) * 4
+    assert p["scratch"] == B * H * nc * (rec + cst + dh + ncv * L + nck * L + nck) \
+        + 2 * B * H * nck
+    mlstm_ops.check_bwd(dh, L, dtype, dv)
+    for bad in (dv + 16, 2048):
+        with pytest.raises(ValueError):
+            mlstm_ops.check_bwd(dh, L, dtype, bad)
+
+
 # --------------------------------------------------- SSD scan: the kernels' split
 def _scan_inputs(B, S, H, P, N, seed, h0=True):
     """The card tests' distributions, made with numpy: xbar (B, S, H, P),

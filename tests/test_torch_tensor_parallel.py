@@ -21,6 +21,7 @@ inputs' gradients are summed (``emulate``), as ``reduce_out`` and
   ``param_pspec`` / ``kv_axis``.
 """
 import dataclasses
+import functools
 
 import pytest
 
@@ -30,15 +31,18 @@ import numpy as np  # noqa: E402
 from jax.sharding import AbstractMesh  # noqa: E402
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 from repro.configs import base  # noqa: E402
 from repro.distributed import sharding as jsharding  # noqa: E402
+from repro.models import mamba as jmamba  # noqa: E402
+from repro.models import xlstm as jxlstm  # noqa: E402
 from repro.models.lm import build_model  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.distributed import constraints  # noqa: E402
 from repro_torch.distributed import tensor_parallel as tp  # noqa: E402
 from repro_torch.distributed.sharding import tree_map_with_path  # noqa: E402
-from repro_torch.models import common, lm, moe  # noqa: E402
-from repro_torch.params import init_params  # noqa: E402
+from repro_torch.models import common, lm, mamba, moe, xlstm  # noqa: E402
+from repro_torch.params import from_jax_params, init_params  # noqa: E402
 
 B, S, T = 2, 24, 20
 # gradients: float32 sums in another order (the ranks' partial sums)
@@ -292,8 +296,8 @@ def test_layout_at_16_agrees_with_the_reference_rules(arch):
     ``param_pspec`` for ``wq`` and ``kv_axis`` say (16 x 16 mesh); every
     rank's query heads read KV heads of its layout; and every leaf's
     shard (``shard_params``, on meta tensors) has the shape the
-    reference's spec gives it over 'model', but a recurrent mixer's,
-    which stays whole."""
+    reference's spec gives it over 'model', but a mixer's that stays
+    whole (the sLSTM)."""
     jcfg, tcfg = base.get_config(arch), configs.get_config(arch)
     mesh = AbstractMesh((16, 16), ("data", "model"))
     jleaves = {_jpath(p): (p, x) for p, x in jax.tree_util.tree_flatten_with_path(
@@ -328,6 +332,367 @@ def test_layout_at_16_agrees_with_the_reference_rules(arch):
         spec = jsharding.param_pspec(jcfg, jp, jl.shape, mesh, True)
         want = tuple(n // 16 if e == "model" or (isinstance(e, tuple) and "model" in e)
                      else n for n, e in zip(leaf.shape, spec))
-        if tp._recurrent(tcfg, path):
+        if tp._whole(tcfg, path, 16):
             want = tuple(leaf.shape)
         assert tuple(local[path].shape) == want, (path, spec)
+
+
+# --------------------------------------------------------------------------
+# The Mamba and mLSTM mixers split over 'model', against the reference
+# --------------------------------------------------------------------------
+# each tensor's largest error over its largest entry, float32 (the ranks'
+# partial sums run in another order); the mLSTM's h passes a cancelling
+# denominator, yet holds this gate too
+MIXER_GATE = 2e-5
+
+
+def _mixer_cfgs(kind):
+    """(reference, port) configs of a mixer whose split dim divides 2, 4
+    and 8: jamba reduced at d_model 512 (d_inner 1024, eight SSD heads of
+    128; at the reduced d_model 64 its one head splits nothing), scanning
+    in chunks of 4, where the reference's SSD scan keeps finite gradients;
+    xlstm reduced (four heads of width 32)."""
+    if kind == "mamba":
+        def widen(c):
+            return dataclasses.replace(c, d_model=512,
+                                       mamba=dataclasses.replace(c.mamba, chunk=4))
+        name = "jamba-v0.1-52b"
+    else:
+        def widen(c):
+            return c
+        name = "xlstm-1.3b"
+    return widen(base.get_config(name).reduced()), widen(configs.get_config(name).reduced())
+
+
+def _mixer_fns(kind):
+    """(reference forward, port forward), the mLSTM in chunks of 16."""
+    if kind == "mamba":
+        return jmamba.mamba_forward, mamba.mamba_forward
+    return (functools.partial(jxlstm.mlstm_forward, chunk=16),
+            functools.partial(xlstm.mlstm_forward, chunk=16))
+
+
+def _mixer_case(kind, seed):
+    """The reference's params (its own init), the port's copy of them, an
+    input x (B, S, d) and an output gradient dy, float32."""
+    jcfg, tcfg = _mixer_cfgs(kind)
+    init = jmamba.init_mamba if kind == "mamba" else jxlstm.init_mlstm
+    jp = init(jcfg, jax.random.PRNGKey(seed))
+    g = np.random.default_rng(seed)
+    x = g.standard_normal((B, 40, tcfg.d_model)).astype(np.float32)
+    dy = g.standard_normal((B, 40, tcfg.d_model)).astype(np.float32)
+    return jcfg, tcfg, jp, from_jax_params(jax.tree.map(np.asarray, jp), device="cpu"), x, dy
+
+
+def _reference_mixer(kind, jcfg, jp, x, dy):
+    """The reference mixer's output and the gradients of sum(out * dy)
+    with respect to each param leaf (by name) and x."""
+    jf = _mixer_fns(kind)[0]
+    out, vjp = jax.vjp(lambda p, x: jf(jcfg, p, x), jp, jnp.asarray(x))
+    gp, gx = vjp(jnp.asarray(dy))
+    return np.asarray(out), {k: np.asarray(v) for k, v in gp.items()}, np.asarray(gx)
+
+
+def _emulated_mixer(kind, cfg, p, x, m):
+    """The port's mixer on m emulated model ranks, each on its shards."""
+    tf = _mixer_fns(kind)[1]
+    return tp.emulate(lambda r, h: tf(cfg, tp.shard_params(cfg, {"mixer": p}, r, m)["mixer"],
+                                      h), m, x)
+
+
+def _mixer_errs(kind, tcfg, tparams, x, dy, m):
+    """Each tensor's largest error over its largest entry: the emulated
+    port mixer's output and gradients against ``want`` (the reference's
+    output, param gradients by name, and x's gradient)."""
+    pc = {k: v.detach().clone().requires_grad_(True) for k, v in tparams.items()}
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = _emulated_mixer(kind, tcfg, pc, xt, m)
+    (out * torch.from_numpy(dy)).sum().backward()
+    return out.detach(), {k: v.grad for k, v in pc.items()}, xt.grad
+
+
+def _rel(got, want) -> float:
+    want = np.asarray(want)
+    return float(np.abs(got.detach().numpy() - want).max() / np.abs(want).max())
+
+
+def _check_mixer(kind, got, want):
+    out, gp, gx = got
+    jout, jgp, jgx = want
+    errs = {"out": _rel(out, jout), "x": _rel(gx, jgx),
+            **{k: _rel(gp[k], jgp[k]) for k in jgp}}
+    bad = {k: e for k, e in errs.items() if e > MIXER_GATE}
+    assert not bad, (bad, errs)
+    return errs
+
+
+@pytest.mark.parametrize("m", [2, 4, 8])
+@pytest.mark.parametrize("kind", ["mamba", "mlstm"])
+def test_emulated_mixer_ranks_equal_the_reference(kind, m):
+    """The Mamba mixer (its heads split) and the mLSTM (its value columns
+    of every head split) through m emulated model ranks, each on its
+    shards (``shard_params``), with the collectives inside them among the
+    ranks (``xz_columns``, ``all_sum``, ``gather_last``,
+    ``head_columns``, ``flat_channels``): the output and the gradient of
+    every param leaf and of the input equal the reference mixer's
+    (``jax.vjp``), each within ``MIXER_GATE`` of its largest entry.  (The
+    reduced jamba's one head would split nothing: ``_mixer_cfgs`` widens
+    it.)"""
+    jcfg, tcfg, jp, tparams, x, dy = _mixer_case(kind, 5 + m)
+    assert tp.mixer_splits(tcfg, kind, m)
+    got = _mixer_errs(kind, tcfg, tparams, x, dy, m)
+    _check_mixer(kind, got, _reference_mixer(kind, jcfg, jp, x, dy))
+
+
+# Broken copies of the split, each of which a rank's arithmetic must catch:
+# (mixer, what is broken, a patch of tensor_parallel)
+def _flat_xz(w, di):
+    """w_in / w_up as the rules chunk it, taken for x | z of the rank's
+    channels."""
+    return w
+
+
+class _ForwardSumOnly(torch.autograd.Function):
+    """``_EmulatedSum``'s forward, backward each rank's own gradient (the
+    other ranks' reads of the sum dropped)."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        total = tp._f32_sum(xs)
+        return tuple(total.clone() for _ in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return gs
+
+
+def _sum_without_backward(width):
+    """``all_sum`` whose backward is the identity for tensors of last dim
+    ``width``."""
+    real = tp.all_sum
+
+    def all_sum(x):
+        if x.shape[-1] != width:
+            return real(x)
+        return tp._inside(x, None, lambda xs: _ForwardSumOnly.apply(*xs))
+    return all_sum
+
+
+def _sum_skipped(width):
+    """``all_sum`` that leaves tensors of last dim ``width`` as the rank
+    has them."""
+    real = tp.all_sum
+    return lambda x: x if x.shape[-1] == width else real(x)
+
+
+MUTANTS = {
+    "mamba_w_in_chunked_flat": ("mamba", "xz_columns", lambda cfg: _flat_xz),
+    "mamba_no_backward_sum_of_dt_B_C": (
+        "mamba", "all_sum",
+        lambda cfg: _sum_without_backward(mamba.dims(cfg)[1] + 2 * cfg.mamba.d_state)),
+    "mlstm_w_up_chunked_flat": ("mlstm", "xz_columns", lambda cfg: _flat_xz),
+    "mlstm_no_backward_sum_of_the_gates": (
+        "mlstm", "all_sum", lambda cfg: _sum_without_backward(2 * cfg.n_heads)),
+    "mlstm_head_norm_without_the_ranks_sum": ("mlstm", "all_sum", lambda cfg: _sum_skipped(1)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _mutant_case(kind):
+    """The mutants' case (seed 9) and the reference's result on it, once a
+    kind: the whole split passes ``_check_mixer`` on it at m = 4."""
+    jcfg, tcfg, jp, tparams, x, dy = _mixer_case(kind, 9)
+    want = _reference_mixer(kind, jcfg, jp, x, dy)
+    _check_mixer(kind, _mixer_errs(kind, tcfg, tparams, x, dy, 4), want)
+    return tcfg, tparams, x, dy, want
+
+
+@pytest.mark.parametrize("mutant", list(MUTANTS))
+def test_a_broken_split_fails_the_reference_check(mutant, monkeypatch):
+    """Each broken copy of the split (``MUTANTS``: a weight's x | z columns
+    taken as the rules chunk them, a partial sum every head reads summed
+    forward only, the head norm's sums of squares left unsummed) puts some
+    tensor past ``_check_mixer``'s gate at m = 4, where the whole split
+    passes it (``test_emulated_mixer_ranks_equal_the_reference``)."""
+    kind, name, patch = MUTANTS[mutant]
+    tcfg, tparams, x, dy, want = _mutant_case(kind)
+    monkeypatch.setattr(tp, name, patch(tcfg))
+    with pytest.raises(AssertionError):
+        _check_mixer(kind, _mixer_errs(kind, tcfg, tparams, x, dy, 4), want)
+
+
+@pytest.mark.parametrize("kind", ["mamba", "mlstm"])
+def test_emulated_mixer_cache_and_decode_equal_the_reference(kind):
+    """At m = 4: each rank's prefill cache is its shard of the reference's
+    cache (a Mamba rank's heads of ``h`` and conv channels, an mLSTM
+    rank's columns of C and conv channels; the mLSTM's n and m whole on
+    every rank), and one decode step from the ranks' caches gives the
+    reference's output and the next cache's shards."""
+    m = 4
+    jcfg, tcfg, jp, tparams, x, _ = _mixer_case(kind, 3)
+    jf, tf = _mixer_fns(kind)
+    jdec, tdec = (jmamba.mamba_decode, mamba.mamba_decode) if kind == "mamba" \
+        else (jxlstm.mlstm_decode, xlstm.mlstm_decode)
+    jout, jcache = jf(jcfg, jp, jnp.asarray(x), return_cache=True)
+    xt = np.random.default_rng(4).standard_normal((B, 1, tcfg.d_model)).astype(np.float32)
+    jout2, jcache2 = jdec(jcfg, jp, jnp.asarray(xt), jcache)
+    # a leaf's dim that holds each rank's share: concatenated over the ranks
+    dims = {"conv": -1, "h": 1} if kind == "mamba" else {"conv": -1, "C": -1}
+    caches = {}
+
+    def prefill(r, h):
+        out, caches[r] = tf(tcfg, tp.shard_params(tcfg, {"mixer": tparams}, r, m)["mixer"], h,
+                            return_cache=True)
+        return out
+
+    def decode(r, h):
+        out, caches[r] = tdec(tcfg, tp.shard_params(tcfg, {"mixer": tparams}, r, m)["mixer"],
+                              h, caches[r])
+        return out
+    for step, (fn, inp, want, wcache) in enumerate(((prefill, x, jout, jcache),
+                                                    (decode, xt, jout2, jcache2))):
+        with torch.no_grad():
+            out = tp.emulate(fn, m, torch.from_numpy(inp))
+        assert _rel(out, want) <= MIXER_GATE, step
+        for name, w in wcache.items():
+            parts = [caches[r][name] for r in range(m)]
+            got = torch.cat(parts, dims[name]) if name in dims else parts[0]
+            if name not in dims:
+                assert all(torch.equal(t, got) for t in parts), (step, name)
+            assert _rel(got, w) <= MIXER_GATE, (step, name)
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("cols", [(0, 8), (16, 32), (8, 24)])
+def test_narrow_value_columns_equal_the_sliced_mlstm(cols, state):
+    """The mLSTM's plain versions with v's (and so h's and C's) columns
+    narrower than q's and k's (a tensor-parallel rank's share of every
+    head): ``mlstm_ref`` (in float64), ``mlstm_tiled`` (the kernels'
+    split, in float32) and ``mlstm_bwd_tiled`` (the backward's, in
+    float64) on columns [a, b) of v and C equal the same columns of the
+    full-width call; the
+    gradients of q, k, the gates and n0 are the columns' share of the
+    whole: summed over a partition of the columns they give the whole
+    call's."""
+    from repro_torch.kernels.mlstm import ref as mref
+    g = np.random.default_rng(cols[0] + 10 * state)
+    Bq, Sq, H, dh = 2, 50, 2, 32
+    f64 = torch.float64
+    q, k, v, dh_ = (torch.from_numpy(g.standard_normal((Bq, Sq, H, dh))).to(f64)
+                    for _ in range(4))
+    li = torch.from_numpy(g.standard_normal((Bq, Sq, H)))
+    lf = torch.nn.functional.logsigmoid(torch.from_numpy(g.standard_normal((Bq, Sq, H))) + 2)
+    st = None
+    if state:
+        st = (torch.from_numpy(g.standard_normal((Bq, H, dh, dh))) * 0.1,
+              torch.from_numpy(g.standard_normal((Bq, H, dh))) * 0.1,
+              torch.from_numpy(g.standard_normal((Bq, H))))
+    a, b = cols
+    sl = slice(a, b)
+    part_st = None if st is None else (st[0][..., sl].contiguous(), st[1], st[2])
+    for fn in (mref.mlstm_ref, mref.mlstm_tiled):     # float64; float32 (the kernels')
+        h, (C, n, mm) = fn(q, k, v, li, lf, st, chunk=16)
+        hs, (Cs, ns, ms) = fn(q, k, v[..., sl].contiguous(), li, lf, part_st, chunk=16)
+        for got, want in ((hs, h[..., sl]), (Cs, C[..., sl]), (ns, n), (ms, mm)):
+            assert got.dtype == want.dtype
+            torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-6 * want.abs().max())
+    whole = mref.mlstm_bwd_tiled(q, k, v, li, lf, st, dh_, chunk=16)
+    shares = [mref.mlstm_bwd_tiled(q, k, v[..., c].contiguous(), li, lf,
+                                   None if st is None else (st[0][..., c].contiguous(),
+                                                            st[1], st[2]),
+                                   dh_[..., c].contiguous(), chunk=16)
+              for c in (slice(0, a), sl, slice(b, dh)) if c.stop > c.start]
+    mid = shares[1 if a else 0]
+    torch.testing.assert_close(mid[2], whole[2][..., sl], rtol=1e-10, atol=1e-10)   # dv
+    if state:
+        torch.testing.assert_close(mid[5][0], whole[5][0][..., sl], rtol=1e-10, atol=1e-10)
+    for i in (0, 1, 3, 4):                  # dq, dk, dlog_i, dlog_f: summed
+        torch.testing.assert_close(sum(s[i] for s in shares), whole[i], rtol=1e-9, atol=1e-9)
+    if state:                               # dn0, dm0: summed
+        for j in (1, 2):
+            torch.testing.assert_close(sum(s[5][j] for s in shares), whole[5][j], rtol=1e-9,
+                                       atol=1e-9)
+
+
+def test_emulated_ranks_take_turns(monkeypatch):
+    """``emulate``'s ranks run one at a time in rank order between their
+    collectives, each collective handing every rank its share, under a
+    short thread switch interval with more ranks than this host's cores;
+    a rank that raises fails the call with its error, and the others stop
+    (no rank waits for ever).  Each rank runs with its own shards installed
+    (``constraints.model()``), and the caller's are back after the call."""
+    import sys
+    m = 16
+    log = []
+    x = torch.arange(4.0)
+
+    def fn(r, x):
+        log.append((r, 0, constraints.model().index))
+        s = tp.all_sum(x * (r + 1))
+        log.append((r, 1, constraints.model().index))
+        g = tp.gather_last(s[r % 4:r % 4 + 1])
+        log.append((r, 2, constraints.model().index))
+        return g.sum() * 0 + s
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        out = tp.emulate(fn, m, x)
+    finally:
+        sys.setswitchinterval(interval)
+    assert log == [(r, k, r) for k in range(3) for r in range(m)]
+    assert constraints.model() == constraints.ModelShards(None, 0, 1)
+    torch.testing.assert_close(out, m * x * sum(range(1, m + 1)), rtol=0, atol=0)
+
+    def bad(r, x):
+        s = tp.all_sum(x)
+        if r == 3:
+            raise ValueError("rank 3")
+        return tp.all_sum(s)
+    monkeypatch.setattr(tp._Peers, "WAIT_S", 60.0)
+    with pytest.raises(ValueError, match="rank 3"):
+        tp.emulate(bad, m, x)
+
+
+def test_installed_shards_reach_a_backward_on_another_thread():
+    """The autograd engine runs a CUDA graph's backward, and with it the
+    recompute of a checkpointed body (the sharded step's remat), on a
+    thread of its own.  A split layer (reduced gemma2's, rank 2 of 4 on its
+    shards, reading the second of the two KV heads that every rank holds
+    whole) checkpointed under ``model_shards(None, 2, 4)`` and run back
+    from a second thread gives the gradients of its backward run on the
+    calling thread: the recompute computes the same rank's shard."""
+    import threading
+
+    from repro_torch.distributed import remat
+    cfg = configs.get_config("gemma2-9b").reduced()
+    spec = cfg.pattern[0]
+    _, p = _layer(cfg)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32))
+
+    def grads(on_thread):
+        pc = _graded(tp.shard_params(cfg, p, 2, 4))
+        body = remat.wrap(lambda x: lm.layer_forward_full(cfg, spec, pc, x, torch.arange(S)),
+                          "full")
+        with constraints.model_shards(None, 2, 4):
+            assert tp.head_layout(cfg).kv0 == 1
+            out = body(x)
+            run = lambda: out.square().sum().backward()  # noqa: E731
+            if on_thread:
+                errors = []
+                t = threading.Thread(target=lambda: _catching(run, errors))
+                t.start()
+                t.join()
+                assert not errors, errors
+            else:
+                run()
+        return [(path, t.grad) for path, t in _leaves(pc)]
+    for (path, got), (_, want) in zip(grads(True), grads(False)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0, msg=str(path))
+
+
+def _catching(fn, errors):
+    try:
+        fn()
+    except Exception as e:  # handed to the test's thread
+        errors.append(e)
