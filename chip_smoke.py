@@ -64,7 +64,13 @@ it, and drives the port's serving and training paths, each at full width:
   one full-width layer each of ``gentorrent-llama3-8b``, ``granite-20b``,
   ``gemma2-9b`` and ``moonshot-v1-16b-a3b``, its 16 ranks' local attention
   (both flash kernels on each rank's heads) and FFN run one after another
-  on the card and summed, against the unsharded layer in float32 and bf16.
+  on the card and summed, against the unsharded layer in float32 and bf16;
+* the examples: each twin of ``examples/`` (``torch_quickstart``,
+  ``torch_serve_overlay``, ``torch_train_100m``,
+  ``torch_dishonest_detection``) through its own ``main`` on the card at
+  the reference example's size, held to the same twin's run on the CPU
+  (dishonest_detection's committee epochs over the card's own trained
+  weights).
 
 It prints one JSON line per phase.  Every phase must pass: any failure
 ends the run with a nonzero exit.  With no CUDA card it exits nonzero
@@ -4277,6 +4283,170 @@ def tp_emulated_bf16(seed, dev, out):
             "nvidia_smi": smi_line(), "seconds": time.monotonic() - t0}, launches
 
 
+# --------------------------------------------------------------------------
+# the examples' twins (examples/torch_*.py) through their own main()
+# --------------------------------------------------------------------------
+EXAMPLE_KERNELS = ("paged_decode_attention", "paged_flash_attention", "flash_attention",
+                   "flash_attention_bwd", "decode_attention", "chunk_hash")
+TRAIN_EXAMPLE_STEPS = 10       # losses of a training card run held to a CPU run
+EXAMPLE_LOSS_TOL = dict(atol=0, rtol=1e-5)
+DISHONEST_REP_ATOL = 1e-5      # the reputations, card vs CPU on the card's weights
+
+
+def _example(name):
+    """``examples/<name>.py`` (a twin: it imports ``repro_torch`` only)."""
+    import importlib
+    where = str(ROOT / "examples")
+    if where not in sys.path:
+        sys.path.insert(0, where)
+    return importlib.import_module(name)
+
+
+def _run_example(fn, seed, dev):
+    """``fn()`` with ``os.urandom`` and the global ``random`` restarted
+    from ``seed`` (the overlay's path ids and the nodes' first sync
+    delays).  Returns (its printed lines, what it returned, wall seconds
+    to the end of its device work)."""
+    import contextlib
+    import io
+    import random
+    real = os.urandom
+    os.urandom = random.Random(seed).randbytes
+    random.seed(seed)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            t0 = time.monotonic()
+            got = fn()
+            _sync(dev)
+            wall = time.monotonic() - t0
+    finally:
+        os.urandom = real
+    return buf.getvalue().splitlines(), got, wall
+
+
+def examples(seed, dev, out):
+    """Each twin of ``examples/`` through its own ``main([... "--device",
+    "cuda"])``, at the sizes the reference examples define: quickstart (a
+    ``RealEngine`` on the reduced llama: the paged flash entry and the
+    paged decode; the overlay's HR-trees: the chunk hash), serve_overlay at
+    its 150 requests (the chunk hash), train_100m's 200 steps (the flash
+    kernel's forward with its lse and its backward) and
+    dishonest_detection (the GT model's training, its greedy responses on
+    the flash kernel's dense entry and the dense decode, the verifier's
+    ``LM.apply``).  The counts are zeroed before the card runs and read
+    after them.  Then the CPU runs they are held to, float32 with TF32 off:
+    quickstart's tokens, cached tokens, responses, served counts, cache
+    hits and hit rates equal; serve_overlay's report lines equal (the
+    chunk hash is exact, the simulation seeded); train_100m's and the GT
+    model's first ``TRAIN_EXAMPLE_STEPS`` losses within
+    ``EXAMPLE_LOSS_TOL`` of a CPU run of that many steps from the same
+    weights; dishonest_detection's committee epochs run again on the CPU
+    over the card's trained and degraded weights: every greedy response
+    equal and every reputation within ``DISHONEST_REP_ATOL``.  The card's
+    dishonest_detection also passes its own asserts (the cheater
+    untrusted, the honest node trusted)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.training.optimizer import tree_map
+    import tempfile
+    t_phase = time.monotonic()
+    cuda, cpu = ["--device", dev.type], ["--device", "cpu"]
+    ckpt = Path(tempfile.mkdtemp(prefix="examples_ckpt_"))
+    runs = {
+        "quickstart": lambda d: _example("torch_quickstart").main(d),
+        "serve_overlay": lambda d: _example("torch_serve_overlay").main(d),
+        "train_100m": lambda d, steps=None: _example("torch_train_100m").main(
+            [*(["--steps", str(steps)] if steps else []),
+             "--ckpt-dir", str(ckpt / ("cpu" if steps else "card")), *d]),
+        "dishonest_detection": lambda d: _example("torch_dishonest_detection").main(d),
+    }
+    card, wall, launches, by_example = {}, {}, collections.Counter(), {}
+    try:
+        _reset_launches()
+        for name, run in runs.items():
+            before = _launches()
+            card[name] = _run_example(lambda run=run: run(cuda), seed, dev)
+            wall[name] = card[name][2]
+            after = _launches()
+            by_example[name] = {k: after[k] - before[k] for k in EXAMPLE_KERNELS
+                                if after[k] > before[k]}
+        launches.update(_launches())
+        cpu_dev = torch.device("cpu")
+        host = {name: _run_example(lambda run=runs[name]: run(cpu), seed, cpu_dev)
+                for name in ("quickstart", "serve_overlay")}
+        host["train_100m"] = _run_example(
+            lambda: runs["train_100m"](cpu, steps=TRAIN_EXAMPLE_STEPS), seed, cpu_dev)
+        gt = _example("torch_gt_model")
+        host["gt_model"] = _run_example(
+            lambda: gt.trained_gt(steps=TRAIN_EXAMPLE_STEPS, device=cpu_dev), seed, cpu_dev)
+        dd = card["dishonest_detection"][1]
+        cfg = gt.gt_config()
+        host["dishonest_detection"] = _run_example(
+            lambda: _example("torch_dishonest_detection").detect(
+                cfg, LM(cfg, device=cpu_dev), tree_map(torch.Tensor.cpu, dd["params"]),
+                tree_map(torch.Tensor.cpu, dd["bad_params"]), dd["corpus"]), seed, cpu_dev)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    _write(out, "examples.txt", "\n".join(
+        f"== {name} ({side})\n" + "\n".join(runs_[name][0])
+        for side, runs_ in (("card", card), ("cpu", host)) for name in runs_) + "\n")
+    assert card["quickstart"][1] == host["quickstart"][1], \
+        (card["quickstart"][1], host["quickstart"][1])
+    assert card["quickstart"][0] == host["quickstart"][0]
+    assert card["serve_overlay"][0] == host["serve_overlay"][0], \
+        (card["serve_overlay"][0], host["serve_overlay"][0])
+    got = card["train_100m"][1]["losses"][:TRAIN_EXAMPLE_STEPS]
+    want = host["train_100m"][1]["losses"]
+    np.testing.assert_allclose(got, want, **EXAMPLE_LOSS_TOL)
+    assert card["train_100m"][0][0] == host["train_100m"][0][0]     # the param count
+    dishonest, dd_cpu = card["dishonest_detection"][1], host["dishonest_detection"][1]
+    assert dishonest["untrusted"] == ["cheating-node"], dishonest["untrusted"]
+    gt_got = dishonest["losses"][:TRAIN_EXAMPLE_STEPS]
+    gt_want = host["gt_model"][1][4]
+    np.testing.assert_allclose(gt_got, gt_want, **EXAMPLE_LOSS_TOL)
+    mismatched = [(c, h) for c, h in zip(dishonest["responses"], dd_cpu["responses"]) if c != h]
+    assert len(dishonest["responses"]) == len(dd_cpu["responses"]) and not mismatched, \
+        mismatched[:2]
+    assert [sorted(r) for r in dishonest["reputations"]] == \
+        [sorted(r) for r in dd_cpu["reputations"]]
+    rep_err = max(abs(c[n] - h[n]) for c, h in zip(dishonest["reputations"],
+                                                     dd_cpu["reputations"]) for n in c)
+    assert rep_err <= DISHONEST_REP_ATOL, rep_err
+    missed = [k for k in ("flash_attention", "flash_attention_bwd", "decode_attention")
+              if k not in by_example["dishonest_detection"]]
+    assert not missed, f"dishonest_detection launched no {missed}"
+    missing = [k for k in EXAMPLE_KERNELS if not launches[k]]
+    assert not missing, f"the examples launched no {missing}"
+    train = card["train_100m"][1]
+    return {"phase": "examples", "nvidia_smi": smi_line(),
+            "seconds": time.monotonic() - t_phase,
+            "wall_s": wall, "cpu_wall_s": {k: v[2] for k, v in host.items()},
+            "quickstart": {k: card["quickstart"][1][k] for k in (
+                "cached_tokens", "responses", "served", "cache_hits", "token_hit_rates")},
+            "serve_overlay": card["serve_overlay"][0],
+            "train_100m": {"n_params_printed": train["n_params"], "steps": len(train["losses"]),
+                           "first_loss": train["first_loss"], "final_loss": train["final_loss"],
+                           "tokens_per_s": train["tokens_per_s"],
+                           "card_vs_cpu_max_abs_err": float(np.max(np.abs(
+                               np.subtract(got, want))))},
+            "dishonest_detection": {"reputations": dishonest["reputations"],
+                                    "untrusted": dishonest["untrusted"],
+                                    "responses": len(dishonest["responses"]),
+                                    "gt_loss_card_vs_cpu_max_abs_err": float(np.max(np.abs(
+                                        np.subtract(gt_got, gt_want)))),
+                                    "reputation_card_vs_cpu_max_abs_err": rep_err},
+            "tol": {"quickstart": "equal (tokens, cached tokens, responses, served, hits, "
+                                  "hit rates)",
+                    "serve_overlay": "report lines equal",
+                    "train_100m": f"first {TRAIN_EXAMPLE_STEPS} losses rtol=1e-5 vs CPU",
+                    "dishonest_detection": f"GT's first {TRAIN_EXAMPLE_STEPS} losses rtol=1e-5 "
+                                           "vs CPU; on the card's weights, responses equal "
+                                           f"and reputations atol={DISHONEST_REP_ATOL} vs CPU"},
+            "launches_by_example": by_example,
+            "launches": {k: launches[k] for k in EXAMPLE_KERNELS}}, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4405,24 +4575,36 @@ def main():
     tp_line, tp_launches = tp_emulated_bf16(args.seed, dev, args.out)
     emit(tp_line)
     _free()
+    # the examples' twins through their own main(): the paged kernels and
+    # the chunk hash (quickstart, serve_overlay), the flash kernel's
+    # forward and backward (train_100m, the GT model's training), its dense
+    # entry and the dense decode (dishonest_detection's responses and
+    # verifier)
+    line, example_launches = examples(args.seed, dev, args.out)
+    emit(line)
+    _free()
 
     # each kernel's launches on every path that runs it
-    paths = {"paged_decode_attention": {"llama": paged_launches, "families": family_launches},
-             "paged_flash_attention": {"llama": paged_launches, "families": family_launches},
+    paths = {"paged_decode_attention": {"llama": paged_launches, "families": family_launches,
+                                        "examples": example_launches},
+             "paged_flash_attention": {"llama": paged_launches, "families": family_launches,
+                                       "examples": example_launches},
              "flash_attention": {"jamba": dense_launches,
                                  "verification": verification_launches,
                                  "encdec": encdec_launches, "training": train_launches,
-                                 "sharded": sharded_launches, "tp_emulated": tp_launches},
+                                 "sharded": sharded_launches, "tp_emulated": tp_launches,
+                                 "examples": example_launches},
              "flash_attention_bwd": {"training": train_launches, "sharded": sharded_launches,
-                                     "tp_emulated": tp_launches},
-             "decode_attention": {"jamba": dense_launches, "encdec": encdec_launches},
+                                     "tp_emulated": tp_launches, "examples": example_launches},
+             "decode_attention": {"jamba": dense_launches, "encdec": encdec_launches,
+                                  "examples": example_launches},
              "mamba_scan": {"jamba": dense_launches, "training": train_launches,
                             "tp_emulated": tp_launches},
              "mamba_scan_bwd": {"training": train_launches, "tp_emulated": tp_launches},
              "mlstm": {"xlstm": xlstm_launches, "training": train_launches,
                        "tp_emulated": tp_launches},
              "mlstm_bwd": {"training": train_launches, "tp_emulated": tp_launches},
-             "chunk_hash": {"overlay": overlay_launches}}
+             "chunk_hash": {"overlay": overlay_launches, "examples": example_launches}}
     for k in kernels:
         k.pop("errs")
         k.pop("library", None)

@@ -28,7 +28,10 @@ GROUP is one of:
   the scan and the mLSTM with their backwards at one rank's share
   (``TP_SCAN``, ``TP_MLSTM``) and ``tp_emulated_bf16`` (16 model ranks
   of a full-width layer emulated on the card); card tests ``-k sharded``
-  and the kernels at those layouts.
+  and the kernels at those layouts;
+* ``examples``: ``examples``, each twin of ``examples/`` through its own
+  ``main`` on the card, held to the same twin's run on the CPU; card
+  tests of the paged serving, the overlay and the verifier.
 
 Builds the kernels the group runs, prints the card's name and power
 limit, then one JSON line a phase as ``chip_smoke.py`` prints it, with
@@ -104,13 +107,17 @@ def _groups(c, seed, dev, out):
             lambda: c.tp_emulated_bf16(seed, dev, out)],
             "sharded or 1x2x1x2048 or 1x3x1x2048 or 1x1x1x2048 or 2048x4x128 "
             "or 1x2048x4x1024x64"),
+        "examples": (["paged_decode", "flash_attention", "flash_attention_bwd",
+                      "decode_attention", "chunk_hash"], [
+            lambda: c.examples(seed, dev, out)],
+            "test_serving_on_card or overlay_on_card or preprocess_batch or verifier"),
     }
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("group", choices=("privacy", "verification", "families", "training",
-                                      "distributed"))
+                                      "distributed", "examples"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None,
                     help="directory that also receives the phases' lines")
