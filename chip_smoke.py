@@ -64,7 +64,10 @@ it, and drives the port's serving and training paths, each at full width:
   one full-width layer each of ``gentorrent-llama3-8b``, ``granite-20b``,
   ``gemma2-9b`` and ``moonshot-v1-16b-a3b``, its 16 ranks' local attention
   (both flash kernels on each rank's heads) and FFN run one after another
-  on the card and summed, against the unsharded layer in float32 and bf16;
+  on the card and summed, and of ``jamba-v0.1-52b``'s Mamba mixer and
+  ``xlstm-1.3b``'s mLSTM, whose ranks meet inside the mixer, and its sLSTM
+  at extents 16 (its FFN whole on every rank) and 2 (its FFN split),
+  against the unsharded layer in float32 and bf16;
 * the examples: each twin of ``examples/`` (``torch_quickstart``,
   ``torch_serve_overlay``, ``torch_train_100m``,
   ``torch_dishonest_detection``) through its own ``main`` on the card at
@@ -92,6 +95,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -3996,13 +4000,38 @@ def train_sharded_bf16(seed, dev, out):
 # tp_emulated_bf16: one full-width layer of each, at the production mesh's
 # model extent, its ranks emulated on this card
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd")
-# config -> (its TP_LAYOUTS, TP_SCAN or TP_MLSTM entry, its mixer's kernels)
-TP_CONFIGS = {NAME: ("llama", FLASH_KERNELS), "granite-20b": ("granite", FLASH_KERNELS),
-              "gemma2-9b": ("gemma2", FLASH_KERNELS),
-              "moonshot-v1-16b-a3b": ("moonshot", FLASH_KERNELS),
-              "jamba-v0.1-52b": ("jamba", ("mamba_scan", "mamba_scan_bwd")),
-              "xlstm-1.3b": ("xlstm", ("mlstm", "mlstm_bwd"))}
 TP_EXTENT = 16
+
+
+class TpEntry(NamedTuple):
+    """A layer of ``tp_emulated_bf16``: its config, its TP_LAYOUTS, TP_SCAN
+    or TP_MLSTM entry (the sLSTM's: none), its mixer's kernels, its pattern
+    position, the model extent its ranks are emulated at, and its tokens."""
+    config: str
+    layout: str
+    kernels: tuple
+    position: int = 0
+    extent: int = TP_EXTENT
+    seq: int = TP_S
+
+
+# xlstm's sLSTM (pattern position 7) at 16, where its FFN (2730 columns) is
+# whole on every rank, and at 2, where the FFN splits (1365 a rank); S cut
+# to 128: the sLSTM is a host loop of S steps, each a gather of h among the
+# emulated ranks, and at S=512 the two entries took 293 s of this script's
+# 1200 (on an H100 host; 16 emulated ranks ~30 s a forward and backward)
+TP_SLSTM_S = 128
+TP_CONFIGS = {NAME: TpEntry(NAME, "llama", FLASH_KERNELS),
+              "granite-20b": TpEntry("granite-20b", "granite", FLASH_KERNELS),
+              "gemma2-9b": TpEntry("gemma2-9b", "gemma2", FLASH_KERNELS),
+              "moonshot-v1-16b-a3b": TpEntry("moonshot-v1-16b-a3b", "moonshot", FLASH_KERNELS),
+              "jamba-v0.1-52b": TpEntry("jamba-v0.1-52b", "jamba",
+                                        ("mamba_scan", "mamba_scan_bwd")),
+              "xlstm-1.3b": TpEntry("xlstm-1.3b", "xlstm", ("mlstm", "mlstm_bwd")),
+              "xlstm-1.3b slstm x16": TpEntry("xlstm-1.3b", "xlstm_slstm", (), 7, 16,
+                                              TP_SLSTM_S),
+              "xlstm-1.3b slstm x2": TpEntry("xlstm-1.3b", "xlstm_slstm", (), 7, 2,
+                                             TP_SLSTM_S)}
 # the bf16 gate of xlstm's split mLSTM sublayer, against the float32 and
 # the unsharded bf16 sublayers (every other sublayer: 2e-2).  The unsharded
 # bf16 mLSTM is itself 3.387e-2 from the float32 one (x's gradient); the
@@ -4012,15 +4041,18 @@ TP_MLSTM_BF16_GATE = 4e-2
 
 
 def _tp_parts(cfg):
-    """The sublayers of pattern position 0: its mixer, then its FFN unless
-    it has none (xlstm's mLSTM layers)."""
+    """The sublayers of pattern position 0 (the phase cuts a recurrent
+    config's pattern to the position it runs: xlstm's 0 or 7): its mixer,
+    then its FFN unless it has none (xlstm's layers)."""
     return ("mixer",) if cfg.pattern[0].ffn == "none" else ("mixer", "ffn")
 
 
 def _tp_sublayer(cfg, part, q, h, extent=None):
-    """One sublayer of pattern position 0 on its normed input ``h``:
-    ``part`` "mixer" (the attention, the Mamba mixer or the mLSTM) or
-    "ffn" (the dense or MoE FFN), of ``q`` (the layer's ``q[part]``),
+    """One sublayer of pattern position 0 (the phase cuts a recurrent
+    config's pattern to the position it runs) on its normed input ``h``:
+    ``part`` "mixer" (the attention, the Mamba mixer, the mLSTM or the
+    sLSTM with its FFN) or "ffn" (the dense or MoE FFN), of ``q`` (the
+    layer's ``q[part]``),
     whole, or with ``extent`` model ranks emulated
     (``tensor_parallel.emulate``): each rank on its shards
     (``shard_params``), one at a time (the recurrent mixers' ranks meeting
@@ -4094,29 +4126,29 @@ def _tp_sublayer_grads(cfg, part, p, inp, dy, extent):
     return out.detach(), [t.grad for t in _leaves(pc)] + [xc.grad]
 
 
-def _tp_rank_ms(cfg, p, x, dy, r):
+def _tp_rank_ms(cfg, p, x, dy, r, extent=TP_EXTENT, iters=5, warmup=2, tries=3):
     """Device ms of the layer's sublayers forward and backward: rank
-    ``r``'s alone (its shards contiguous, as a rank holds them), the whole
-    layer's (``r`` None), or every rank's emulated together (``r`` "all":
-    a recurrent mixer's rank meets the others inside its sublayer, so it
-    runs only beside them)."""
+    ``r``'s of ``extent`` alone (its shards contiguous, as a rank holds
+    them), the whole layer's (``r`` None), or every rank's emulated
+    together (``r`` "all": a recurrent mixer's rank meets the others inside
+    its sublayer, so it runs only beside them)."""
     from repro_torch.distributed import constraints
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import common
-    extent = TP_EXTENT if r == "all" else None
-    p = _fresh(p if r in (None, "all") else tp.shard_params(cfg, p, r, TP_EXTENT),
+    emulated = extent if r == "all" else None
+    p = _fresh(p if r in (None, "all") else tp.shard_params(cfg, p, r, extent),
                contiguous=True)
     parts = _tp_parts(cfg)
     hs = [common.apply_norm(cfg, p[n], x).detach().requires_grad_(True)
           for n in ("norm1", "norm2")[:len(parts)]]
 
     def step():
-        outs = [_tp_sublayer(cfg, part, p[part], h, extent) for part, h in zip(parts, hs)]
+        outs = [_tp_sublayer(cfg, part, p[part], h, emulated) for part, h in zip(parts, hs)]
         torch.autograd.backward(outs, [dy.to(o.dtype) for o in outs])
     if r in (None, "all"):
-        return time_ms(step, iters=5, warmup=2)
-    with constraints.model_shards(None, r, TP_EXTENT):
-        return time_ms(step, iters=5, warmup=2)
+        return time_ms(step, iters=iters, warmup=warmup, tries=tries)
+    with constraints.model_shards(None, r, extent):
+        return time_ms(step, iters=iters, warmup=warmup, tries=tries)
 
 
 def _leaf_names(tree, prefix=""):
@@ -4134,33 +4166,42 @@ def _max_errs(got, want):
             for a, w in zip(got, want)]
 
 
-def _tp_share(cfg):
-    """What one of ``TP_EXTENT`` model ranks computes of pattern position
-    0's mixer."""
+def _tp_share(cfg, extent=TP_EXTENT):
+    """What one of ``extent`` model ranks computes of pattern position 0's
+    mixer."""
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import mamba, xlstm
     mixer = cfg.pattern[0].mixer
     if mixer == "mamba":
         H = mamba.dims(cfg)[1]
-        return {"mamba_heads": [H // TP_EXTENT, H], "split": tp.mixer_splits(cfg, mixer, TP_EXTENT)}
+        return {"mamba_heads": [H // extent, H], "split": tp.mixer_splits(cfg, mixer, extent)}
     if mixer == "mlstm":
         dh = xlstm.mlstm_dims(cfg)[2]
-        return {"mlstm_value_columns": [dh // TP_EXTENT, dh],
-                "split": tp.mixer_splits(cfg, mixer, TP_EXTENT)}
-    lay = tp.head_layout(cfg, 0, TP_EXTENT)
+        return {"mlstm_value_columns": [dh // extent, dh],
+                "split": tp.mixer_splits(cfg, mixer, extent)}
+    if mixer == "slstm":
+        d, _, dh = xlstm.slstm_dims(cfg)
+        ff = int(cfg.xlstm.proj_factor_slstm * d)
+        return {"slstm_columns": [dh // extent, dh],
+                "ffn_columns": [ff // extent if tp.splits(ff, extent) else ff, ff],
+                "split": tp.mixer_splits(cfg, mixer, extent)}
+    lay = tp.head_layout(cfg, 0, extent)
     return {"rank_heads": [lay.nq, lay.nkv], "kv_split": lay.kv_split}
 
 
 def tp_emulated_bf16(seed, dev, out):
     """Tensor-parallel compute over 'model' at the production mesh's extent
-    16, on one card: for each ``TP_CONFIGS`` config one full-width layer
+    16, on one card: for each ``TP_CONFIGS`` entry one full-width layer
     (pattern position 0: attention on 16 ranks' local heads through both
     flash kernels, then its dense FFN on 16 ranks' columns and rows of
     ``d_ff``, or moonshot's 64 experts, 4 a rank; jamba's Mamba mixer on 4
     of its 64 heads a rank through the scan and its backward, then its
     dense FFN; xlstm's mLSTM on 64 of each head's 1024 value columns a
-    rank, q and k whole, through the mLSTM and its backward), B=1 S=2048,
-    the 16 ranks' local sublayers run one at a time (a recurrent mixer's
+    rank, q and k whole, through the mLSTM and its backward; xlstm's sLSTM,
+    position 7, on 32 of each head's 512 columns a rank with its FFN whole
+    on every rank, and at extent 2 on 256 columns with its FFN's 2730
+    columns split, S=128), B=1 S=2048,
+    the ranks' local sublayers run one at a time (a recurrent mixer's
     ranks meet at its collectives inside the sublayer), their outputs and
     their inputs' gradients summed in float32 as the collectives sum them
     (``_tp_layer``).  The output and every gradient (the ranks' shards'
@@ -4177,33 +4218,34 @@ def tp_emulated_bf16(seed, dev, out):
     ``TP_MLSTM_BF16_GATE``, 4e-2 (the unsharded bf16 mLSTM is itself 3.4%
     from the float32 one in x's gradient).  Then each rank's device ms of its
     sublayers forward and backward beside the whole layer's (a recurrent
-    mixer's ranks: all 16 together).  Returns (line, the wrappers'
-    launches over the phase)."""
+    mixer's ranks: all of them together, and their mean).  Returns (line,
+    the wrappers' launches over the phase)."""
     from repro_torch.models import common, lm
     from repro_torch.params import init_params
     t0 = time.monotonic()
     _reset_launches()
     cfgs, launches_by_layout = {}, {}
-    for name, (layout, kernel_names) in TP_CONFIGS.items():
+    for name, (config, layout, kernel_names, position, extent, seq) in TP_CONFIGS.items():
         before = _launches()
-        pattern = _family(name).pattern
-        recurrent = pattern[0].mixer != "attn"
-        # a recurrent config's pattern cut to its first position (jamba's
+        pattern = _family(config).pattern
+        recurrent = pattern[position].mixer != "attn"
+        # a recurrent config's pattern cut to the position it runs (jamba's
         # other seven hold four MoE layers of 2.8e9 weights each)
-        cfg16 = _family(name, n_layers=1, pattern=pattern[:1], dtype="bfloat16") if recurrent \
-            else _family(name, n_layers=len(pattern), dtype="bfloat16")
+        cfg16 = _family(config, n_layers=1, pattern=pattern[position:position + 1],
+                        dtype="bfloat16") if recurrent \
+            else _family(config, n_layers=len(pattern), dtype="bfloat16")
         cfg32 = dataclasses.replace(cfg16, dtype="float32")
         params = init_params(cfg16, torch.Generator(device=dev).manual_seed(seed), dev)
         p = _fresh(lm._layer_slice(params["blocks"][0], 0))
         del params
         _free()
         g = torch.Generator(device=dev).manual_seed(seed + 1)
-        x = torch.randn(TP_B, TP_S, cfg16.d_model, generator=g, device=dev).to(torch.bfloat16)
-        dy = torch.randn(TP_B, TP_S, cfg16.d_model, generator=g, device=dev)
+        x = torch.randn(TP_B, seq, cfg16.d_model, generator=g, device=dev).to(torch.bfloat16)
+        dy = torch.randn(TP_B, seq, cfg16.d_model, generator=g, device=dev)
         gate32 = MLSTM_BWD_TOL[torch.float32] if cfg16.pattern[0].mixer == "mlstm" \
             else FLASH_BWD_TOL[torch.float32]
         want32 = _tp_grads(cfg32, p, x.float(), dy, None)
-        got32 = _tp_grads(cfg32, p, x.float(), dy, TP_EXTENT)
+        got32 = _tp_grads(cfg32, p, x.float(), dy, extent)
         torch.cuda.synchronize()
         errs32 = _max_errs([got32[0], *got32[1]], [want32[0], *want32[1]])
         assert max(errs32) <= gate32, (name, "float32", errs32)
@@ -4230,7 +4272,7 @@ def tp_emulated_bf16(seed, dev, out):
         for part, inp in inputs.items():
             want = _tp_sublayer_grads(cfg32, part, p, inp.float(), dy, None)
             whole = _tp_sublayer_grads(cfg16, part, p, inp, dy, None)
-            got = _tp_sublayer_grads(cfg16, part, p, inp, dy, TP_EXTENT)
+            got = _tp_sublayer_grads(cfg16, part, p, inp, dy, extent)
             torch.cuda.synchronize()
             e32 = _max_errs([got[0], *got[1]], [want[0], *want[1]])
             e16 = _max_errs([got[0], *got[1]], [whole[0], *whole[1]])
@@ -4254,31 +4296,44 @@ def tp_emulated_bf16(seed, dev, out):
             r = row[f"bfloat16_{part}"]
             assert max(r["by_tensor"]["vs_f32"]) <= r["gate"] and \
                 max(r["by_tensor"]["vs_bf16_unsharded"]) <= r["gate"], (name, part, r)
-        whole_ms = _tp_rank_ms(cfg16, p, x, dy, None)
+        # the sLSTM launches ~60 kernels a step and rank, forward and
+        # backward: one traced call (its shapes ran above), two sessions at
+        # most (at S=2048 a session of 16 ranks' events lost its lead
+        # markers each time, and three sessions a call took minutes)
+        iters = (1, 0, 2) if cfg16.pattern[0].mixer == "slstm" else (5, 2, 3)
+        whole_ms = _tp_rank_ms(cfg16, p, x, dy, None, extent, *iters)
         if recurrent:
-            all_ms = _tp_rank_ms(cfg16, p, x, dy, "all")
+            all_ms = _tp_rank_ms(cfg16, p, x, dy, "all", extent, *iters)
             row["device_ms"] = {"whole_layer": whole_ms, "all_ranks_emulated": all_ms,
+                                "rank_mean": all_ms / extent,
                                 "note": "bf16 sublayers forward and backward; a recurrent "
                                         "mixer's rank runs only beside the others, so the "
-                                        "16 are timed together"}
+                                        "ranks are timed together"}
         else:
-            rank_ms = [_tp_rank_ms(cfg16, p, x, dy, r) for r in range(TP_EXTENT)]
+            rank_ms = [_tp_rank_ms(cfg16, p, x, dy, r, extent) for r in range(extent)]
             row["device_ms"] = {"whole_layer": whole_ms, "ranks": rank_ms,
                                 "sum_of_ranks": sum(rank_ms),
                                 "note": "bf16 attention and FFN forward and backward"}
         del p, x, dy
         _free()
         after = _launches()
-        launches_by_layout[layout] = {k: after[k] - before[k] for k in kernel_names}
-        cfgs[name] = {"layout": layout, **_tp_share(cfg16), **row}
+        if kernel_names:
+            launches_by_layout[layout] = {k: after[k] - before[k] for k in kernel_names}
+        cfgs[name] = {"layout": layout, "position": position, "extent": extent, "seq": seq,
+                      **_tp_share(cfg16, extent), **row}
     launches = _launches()
     for layout, n in launches_by_layout.items():
         # each dtype: the whole layer once and its 16 ranks' shares
         assert all(v >= 2 * (1 + TP_EXTENT) for v in n.values()), (layout, n)
+    assert set(launches_by_layout["xlstm"]) == {"mlstm", "mlstm_bwd"}, launches_by_layout
     return {"phase": "tp_emulated_bf16", "extent": TP_EXTENT, "batch": TP_B, "seq": TP_S,
             "reduced": ["n_layers -> 1 (pattern position 0 of each config; gemma2's "
                         "pattern of 2 built, its first layer run; jamba's and xlstm's "
-                        "patterns cut to their first position)"],
+                        "patterns cut to their first position, xlstm's to position 7 "
+                        "for its sLSTM entries)",
+                        f"seq {TP_S} -> {TP_SLSTM_S} for the sLSTM entries (a host loop "
+                        "of S steps, each a gather of h among the emulated ranks: at 512 "
+                        "the two entries took 293 s of this script's 1200)"],
             "configs": cfgs, "launches_by_layout": launches_by_layout,
             "nvidia_smi": smi_line(), "seconds": time.monotonic() - t0}, launches
 

@@ -3,7 +3,7 @@ subprocess (the fake process group is process-global), resumable: cells
 with an ``ok`` or ``skipped`` record are kept unless FORCE=1.
 
     PYTHONPATH=src python scripts/dryrun_sweep_torch.py [--meshes 1pod|2pod|both] \
-        [--archs ARCH,ARCH]
+        [--archs ARCH,ARCH] [--shapes SHAPE,SHAPE]
 
 Records go to ``results/dryrun_torch/<mesh>/``, a log with each cell's
 status and seconds to ``results/dryrun_torch/sweep.log``; render them with
@@ -42,14 +42,16 @@ def main():
     ap.add_argument("--meshes", default="both", choices=("1pod", "2pod", "both"))
     ap.add_argument("--archs", default=",".join(ARCHS),
                     help="comma-separated configs to run (default: all)")
+    ap.add_argument("--shapes", default=",".join(SHAPES),
+                    help="comma-separated shapes to run (default: all)")
     args = ap.parse_args()
-    archs = args.archs.split(",")
-    unknown = set(archs) - set(ARCHS)
+    archs, shapes = args.archs.split(","), args.shapes.split(",")
+    unknown = (set(archs) - set(ARCHS)) | (set(shapes) - set(SHAPES))
     if unknown:
-        ap.error(f"unknown configs: {sorted(unknown)}")
+        ap.error(f"unknown configs or shapes: {sorted(unknown)}")
     force = os.environ.get("FORCE") == "1"
     pods = {"1pod": (False,), "2pod": (True,), "both": (False, True)}[args.meshes]
-    cells = [(a, s, mp) for mp in pods for a in archs for s in SHAPES]
+    cells = [(a, s, mp) for mp in pods for a in archs for s in shapes]
     t_all = time.time()
     for i, (arch, shape, mp) in enumerate(cells):
         mesh = "pod2x16x16" if mp else "pod16x16"

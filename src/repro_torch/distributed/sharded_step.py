@@ -12,12 +12,13 @@ Each rank computes on plain local tensors: its slice of the batch over
 the DP ranks, and its shard over 'model' (``constraints.model_shards``;
 ``distributed/tensor_parallel.py``): its query heads (and KV heads where
 they divide), its columns and rows of ``d_ff``, its experts, its vocab
-rows of the embedding and the head, a Mamba mixer's heads and an
-mLSTM's value columns of every head, with the sums, gathers and
-all-to-alls that GSPMD inserts in the reference made explicit over the
-model group.  The sLSTM, and whatever the rules leave whole on 'model'
-(yi's 56 query heads at 16; a Mamba or mLSTM mixer whose split dim does
-not divide the extent), are computed whole by every model rank.  Each
+rows of the embedding and the head, a Mamba mixer's heads, an mLSTM's
+value columns and an sLSTM's columns of every head, with the sums,
+gathers and all-to-alls that GSPMD inserts in the reference made explicit
+over the model group.  Whatever the rules leave whole on 'model' (yi's 56
+query heads at 16; a Mamba, mLSTM or sLSTM mixer whose split dim does not
+divide the extent; the sLSTM's FFN where its width does not) is computed
+whole by every model rank.  Each
 stacked weight is all-gathered over the DP axes just before its layer
 uses it, keeping its 'model' shard (``constraints.gather_tp`` in
 ``lm._layer_slice``, ``constraints.gather`` in a mixer computed whole;

@@ -19,10 +19,16 @@ Inside a split sublayer the recurrent mixers meet once more, where the
 compute needs another layout than the rules give its weights:
 ``all_sum`` (the ranks' partial sums summed forward, and their gradients
 summed backward: every rank reads the sum), ``gather_last`` (the ranks'
-blocks of the last dim concatenated; backward, reduce-scattered) and
-``regroup`` (an all-to-all that hands each rank the entries of a dim it
-computes on, e.g. ``xz_columns``' x and z channels of its own heads from
-``w_in``'s flat column chunks).  The sums run in float32 and round once.
+blocks of the last dim concatenated; backward, reduce-scattered: each
+rank's read of the whole is partial, as where it feeds the rank's own
+columns of a product) and ``regroup`` (an all-to-all that hands each rank
+the entries of a dim it computes on, e.g. ``xz_columns``' x and z
+channels of its own heads from ``w_in``'s flat column chunks).  The sums
+run in float32 and round once.  A sublayer's tail that every rank
+computes whole (the sLSTM's FFN where ``d_ff`` does not divide the
+extent) runs under ``repeated``: its input gathered by ``gather_last_own``
+(backward, the rank's own block of a gradient that is already whole on
+every rank), its output the same on every rank.
 
 Each rank's local computation depends only on its shards, its index and
 the extent, and on what those collectives hand it; ``copy_in`` and
@@ -47,10 +53,13 @@ the rows of ``w_dt`` / ``w_B`` / ``w_C`` / ``w_out`` and the columns of
 ``w_in`` as the rules chunk them, the state's heads), else the mixer
 stays whole on every model rank; an mLSTM's value columns of every head
 where its head width does (``xlstm.py``: ``v``, ``h`` and C's columns, as
-the cache rule splits C, with q, k, n and m whole), else it stays whole.
-The sLSTM stays whole on every model rank (``WHOLE``).  A mixer that
-stays whole runs as the one rank of one (``lm._recurrent``), so each
-mixer has one code path.
+the cache rule splits C, with q, k, n and m whole), else it stays whole;
+an sLSTM's columns of every head where its head width does (``W``'s and
+``R``'s last dim, its state's columns, ``h`` gathered at each step; its
+FFN's columns of ``d_ff`` where that divides too, else the FFN whole on
+every rank, ``repeated``), else it stays whole.  A mixer that stays whole
+runs as the one rank of one (``lm._recurrent``), so each mixer has one
+code path.
 """
 from __future__ import annotations
 
@@ -62,8 +71,6 @@ import torch
 from torch.distributed import _functional_collectives as funcol
 
 from repro_torch.distributed import constraints, sharding
-
-WHOLE = ("slstm",)   # mixers every model rank computes whole
 
 
 def _waited(x):
@@ -90,14 +97,14 @@ def mixer_splits(cfg, mixer: str, extent: int = None) -> bool:
     """Whether a layer's ``mixer`` computes its share over ``extent``
     model ranks (default: the installed extent): attention always (its
     heads decide, ``head_layout``); a Mamba mixer where its heads split,
-    an mLSTM where its head width does; never the sLSTM."""
+    an mLSTM or an sLSTM where its head width does."""
     from repro_torch.models import mamba, xlstm    # they import this module
-    if mixer in WHOLE:
-        return False
     if mixer == "mamba":
         return splits(mamba.dims(cfg)[1], extent)
     if mixer == "mlstm":
         return splits(xlstm.mlstm_dims(cfg)[2], extent)
+    if mixer == "slstm":
+        return splits(xlstm.slstm_dims(cfg)[2], extent)
     return True
 
 
@@ -163,6 +170,18 @@ class _GatherLast(torch.autograd.Function):
         y = _waited(funcol.reduce_scatter_tensor(
             g.float().movedim(-1, 0).contiguous(), "sum", 0, ctx.group))
         return y.movedim(0, -1).to(g.dtype), None
+
+
+class _GatherLastOwn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index):
+        ctx.index, ctx.n = index, x.shape[-1]
+        y = _waited(funcol.all_gather_tensor(x.movedim(-1, 0).contiguous(), 0, group))
+        return y.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.index * ctx.n, ctx.n).contiguous(), None, None
 
 
 class _Plan(NamedTuple):
@@ -253,6 +272,34 @@ class _EmulatedGather(torch.autograd.Function):
         return tuple(t.contiguous() for t in _f32_sum(gs).split(ctx.sizes, -1))
 
 
+class _EmulatedGatherOwn(torch.autograd.Function):
+    """``_EmulatedGather``'s forward; backward, each rank's own block of
+    its own gradient."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.sizes = [x.shape[-1] for x in xs]
+        whole = torch.cat(xs, -1)
+        return tuple(whole.clone() for _ in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return tuple(g.split(ctx.sizes, -1)[r].contiguous() for r, g in enumerate(gs))
+
+
+class _EmulatedFirst(torch.autograd.Function):
+    """Rank 0's ``x`` (every rank's is the same) as the ranks' sum: rank 0's
+    forward, zeros for the others; backward, each rank's own gradient."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        return (xs[0].clone(), *(torch.zeros_like(x) for x in xs[1:]))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return gs
+
+
 def all_sum(x):
     """The model ranks' partial sums ``x`` summed (all-reduce, in float32,
     rounded once) forward, where every rank reads the whole sum; backward,
@@ -265,6 +312,35 @@ def gather_last(x):
     order (all-gather); backward, each rank's block of the gradient summed
     over the ranks in float32 (reduce-scatter)."""
     return _inside(x, _GatherLast.apply, lambda xs: _EmulatedGather.apply(*xs))
+
+
+def gather_last_own(x):
+    """The model ranks' blocks of ``x``'s last dim concatenated in rank
+    order (all-gather), for a computation that every rank repeats on the
+    whole (``repeated``): the gradient of the whole is then the same on
+    every rank, so the backward takes the rank's own block of it (a
+    reduce-scatter would count it m times)."""
+    def real(x, group):
+        return _GatherLastOwn.apply(x, group, constraints.model().index)
+    return _inside(x, real, lambda xs: _EmulatedGatherOwn.apply(*xs))
+
+
+def repeated(fn, x, *ws):
+    """``fn(whole x, *ws)``: a sublayer's tail that every model rank
+    computes whole, on whole weights ``ws``, from its block of ``x``'s
+    last dim (``gather_last_own``).  Its output is the same on every rank,
+    and so are the weights' gradients (``constraints.gather_tp`` gives
+    them back ``Replicate`` over 'model').  Among emulated ranks, whose
+    outputs ``emulate`` sums and whose weights are one leaf, rank 0's
+    output counts once and every rank runs back from its own copy of the
+    output's gradient, the ranks past 0 on their weights detached: each
+    weight's gradient counts once, and each rank's block of x gets the
+    whole's gradient as a real rank does."""
+    ms = constraints.model()
+    if ms.peers is not None and ms.index:
+        ws = [w.detach() for w in ws]
+    y = fn(gather_last_own(x), *ws)
+    return _inside(y, lambda y, group: y, lambda ys: _EmulatedFirst.apply(*ys))
 
 
 def regroup(x, have: tuple, want: tuple):

@@ -20,14 +20,17 @@ path.  Train cells run ``make_sharded_train_step``; prefill and decode
 cells the serving entry points with bf16 weights sharded on 'model' only.
 Both compute each rank's shard over 'model' (``constraints.model_shards``;
 ``distributed/tensor_parallel.py``): its heads, ``d_ff``, experts and
-vocab rows, a Mamba mixer's heads and an mLSTM's value columns of every
-head, on its batch slice; the sLSTM whole.  A serving rank gathers no
-weight but the sLSTM's (and a Mamba or mLSTM mixer's whose split dim does
-not divide the extent), and reads its batch slice of the cache with its
-KV heads, its Mamba heads' ``h`` and conv channels and its columns of the
-mLSTM's ``C`` and conv channels as ``cache_shardings`` places them (where
-KV heads are whole on 'model', it holds them all and writes and reads
-those its query heads use; the mLSTM's ``n`` and ``m`` are whole).
+vocab rows, a Mamba mixer's heads, an mLSTM's value columns and an
+sLSTM's columns of every head, on its batch slice.  A serving rank
+gathers no weight but a Mamba, mLSTM or sLSTM mixer's whose split dim does
+not divide the extent, and reads its batch slice of the cache with its
+KV heads, its Mamba heads' ``h`` and conv channels, its columns of the
+mLSTM's ``C`` and conv channels and of the sLSTM's ``h``, ``c``, ``n`` and
+``m`` (where KV heads are whole on 'model', it holds them all and writes
+and reads those its query heads use; the mLSTM's ``n`` and ``m`` are
+whole).  ``cache_shardings`` places the cache: it leaves the sLSTM's
+``n`` whole (the rule for the mLSTM's ``n`` matches it first), so a
+rank's columns of it are gathered into that placement after each step.
 
 Per-device argument bytes are the local shards' bytes, exactly; temporary
 bytes are the peak of live tensors the step made (``temp_peak_bytes``).
@@ -70,22 +73,18 @@ def _cache_spec(cfg, model, shape):
     return model.cache_specs(shape.global_batch, shape.seq_len, T_mem)
 
 
-def _kept(spec, dims) -> sharding.P:
-    """``spec`` with every dim but ``dims`` replicated."""
-    return sharding.P(*(e if i in dims else None for i, e in enumerate(spec)))
-
-
 # a split mixer's cache leaf -> its dim that holds the rank's share
-_MIXER_DIMS = {"mamba": {"h": 2, "conv": 3}, "mlstm": {"C": 4, "conv": 3}}
+_MIXER_DIMS = {"mamba": {"h": 2, "conv": 3}, "mlstm": {"C": 4, "conv": 3},
+               "slstm": {"h": 3, "c": 3, "n": 3, "m": 3}}
 
 
 def _compute_dims(cfg, path, extent) -> tuple:
-    """The dims of a cache leaf that a rank computes on as
-    ``cache_shardings`` places them: its batch slice (dim 1), an attention
-    cache's KV heads (dim 3), a split Mamba mixer's heads of ``h`` and
-    conv channels, a split mLSTM's columns of ``C`` and conv channels;
-    every other dim whole (the sequence, the sLSTM's state, an mLSTM's n
-    and m)."""
+    """The dims of a cache leaf that a rank computes on: its batch slice
+    (dim 1), an attention cache's KV heads (dim 3, as ``cache_shardings``
+    places them), a split Mamba mixer's heads of ``h`` and conv channels,
+    a split mLSTM's columns of ``C`` and conv channels, a split sLSTM's
+    columns of ``h``, ``c``, ``n`` and ``m``; every other dim whole (the
+    sequence, an mLSTM's n and m, a mixer's state that does not split)."""
     leaf = path[-1]
     if leaf in ("k", "v"):
         return (1, 3)
@@ -93,6 +92,17 @@ def _compute_dims(cfg, path, extent) -> tuple:
     if tensor_parallel.mixer_splits(cfg, mixer, extent) and leaf in _MIXER_DIMS.get(mixer, {}):
         return (1, _MIXER_DIMS[mixer][leaf])
     return (1,)
+
+
+def _compute_spec(cfg, path, spec, extent) -> sharding.P:
+    """A cache leaf's spec as a rank computes on it: ``spec`` on the dims
+    of ``_compute_dims``, every other dim replicated, and a split mixer's
+    share on 'model' (also where the rules leave it whole: the sLSTM's
+    ``n``)."""
+    dims = _compute_dims(cfg, path, extent)
+    model = () if path[-1] in ("k", "v") else dims[1:]
+    return sharding.P(*("model" if i in model else e if i in dims else None
+                        for i, e in enumerate(spec)))
 
 
 def build_step(cfg, shape, mesh):
@@ -123,10 +133,11 @@ def build_step(cfg, shape, mesh):
     shards = sharded_step.model_shards_of(mesh, scfg)
     # placements of each cache leaf as a rank computes on it
     compute = sharding.tree_map_with_path(lambda path, s: sharding.placements(
-        _kept(s.spec, _compute_dims(scfg, path, shards[2])), mesh), c_sh)
+        _compute_spec(scfg, path, s.spec, shards[2]), mesh), c_sh)
 
     def place(cache):
-        """A rank's compute-placed cache -> DTensors in ``c_sh`` (no traffic)."""
+        """A rank's compute-placed cache -> DTensors in ``c_sh`` (no traffic
+        but the sLSTM's ``n``, gathered)."""
         return sharding.zip_map(lambda t, sc: DTensor.from_local(
             t, mesh.device_mesh, sc[1], run_check=False).redistribute(
                 mesh.device_mesh, sc[0].placements), cache,

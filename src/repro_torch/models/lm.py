@@ -21,12 +21,13 @@ it was given.
 Under ``constraints.model_shards`` (the sharded train step, the dry-run)
 a rank computes its shard over 'model' (``distributed/tensor_parallel.py``):
 its heads, its columns and rows of ``d_ff``, its experts, its vocab rows
-of the embedding and the head, a Mamba mixer's heads and an mLSTM's value
-columns of every head (where they divide the extent); the sLSTM whole.
-Its logits are then its vocab slice, and a dense cache holds its KV heads
-(all of them, only its own written, where KV heads are whole on 'model'),
-its Mamba heads' state and conv channels, and its columns of the mLSTM's
-C and its conv channels.
+of the embedding and the head, a Mamba mixer's heads, an mLSTM's value
+columns of every head and an sLSTM's columns of every head (where they
+divide the extent).  Its logits are then its vocab slice, and a dense
+cache holds its KV heads (all of them, only its own written, where KV
+heads are whole on 'model'), its Mamba heads' state and conv channels,
+its columns of the mLSTM's C and its conv channels, and its columns of
+the sLSTM's h, c, n and m.
 """
 from __future__ import annotations
 
@@ -116,9 +117,9 @@ _RECURRENT = {
 
 def _recurrent(cfg, spec) -> _Recurrent:
     """``spec``'s recurrent mixer's entry points.  Where the model ranks
-    compute it whole (``tensor_parallel.mixer_splits``: the sLSTM, a Mamba
-    or mLSTM mixer whose split dim does not divide the extent) they run
-    as the one rank of one (``model_shards(None, 0, 1)``), on the whole
+    compute it whole (``tensor_parallel.mixer_splits``: a Mamba, mLSTM or
+    sLSTM mixer whose split dim does not divide the extent) they run as
+    the one rank of one (``model_shards(None, 0, 1)``), on the whole
     weights ``_layer_slice`` gives them."""
     entry = _RECURRENT[spec.mixer]
     if constraints.model().extent == 1 or tp.mixer_splits(cfg, spec.mixer):
@@ -399,9 +400,8 @@ def _layer_slice(tree, r, cfg=None, spec=None, whole=False):
     in ``cfg``); a sharded (DTensor) leaf is gathered here, just before its
     layer uses it: with its 'model' shard kept (``constraints.gather_tp``),
     but whole in a mixer that every model rank computes whole
-    (``constraints.gather``): the sLSTM, and a Mamba or mLSTM mixer whose
-    split dim does not divide the model extent
-    (``tensor_parallel.mixer_splits``)."""
+    (``constraints.gather``): a Mamba, mLSTM or sLSTM mixer whose split
+    dim does not divide the model extent (``tensor_parallel.mixer_splits``)."""
     def one(k, v):
         if isinstance(v, dict):
             return _layer_slice(v, r, whole=whole or (

@@ -33,11 +33,26 @@ sums of squares are partial over the ranks and summed both ways
 (``reduce_out``).  ``if_bias`` and ``head_norm`` are whole on every rank,
 which reads all of the one and its columns of the other: their gradients
 are summed over the ranks (``copy_in``).  Every rank computes the chunk scores q k^T of every
-head whole.  At extent 1 every collective here is the identity: one
-code path serves both.  The sLSTM stays whole on every rank.
+head whole.
+
+An sLSTM rank owns columns [r dh / m, (r + 1) dh / m) of every head, as
+the rules split ``W``'s and ``R``'s last dim and the cache rule its
+state: its columns of W x (x through ``copy_in``), of each gate, and of
+h, c, n and m.  Each step's R h reads every column of h, so h is
+gathered over the ranks before it (``gather_last``: the rank's gradient
+for the whole h is partial, its own columns of R h, and is
+reduce-scattered).  The head norm's sums of squares are summed over the
+ranks (``all_sum``); ``bias`` and ``head_norm`` are whole on every rank,
+which reads its columns of them (``copy_in``).  The normed h is gathered
+once for the whole sequence: where the FFN's width divides the extent,
+into the rank's columns of ``ffn_gate`` / ``ffn_up`` and rows of
+``ffn_down``, the partial sums summed (``reduce_out``); else every rank
+computes the FFN whole (``tensor_parallel.repeated``).  At extent 1
+every collective here is the identity: one code path serves both.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -73,10 +88,10 @@ def _head_norm(h, scale):
 # mLSTM
 # --------------------------------------------------------------------------
 
-def _cols(cfg) -> slice:
-    """The value columns of every head this rank computes: its share over
-    the installed 'model' extent."""
-    dh = mlstm_dims(cfg)[2]
+def _cols(dh: int) -> slice:
+    """The columns of every head of width ``dh`` this rank computes (an
+    mLSTM's value columns, an sLSTM's): its share over the installed
+    'model' extent."""
     ms = constraints.model()
     n = dh // ms.extent
     return slice(ms.index * n, (ms.index + 1) * n)
@@ -112,7 +127,7 @@ def _finish(cfg, p, h, z):
     """h: (B, S, H, the rank's columns) -> (B, S, d): head-wise RMS norm,
     gate, down-proj."""
     dt = cfg.compute_dtype
-    hn = _head_norm(h, tp.copy_in(p["head_norm"])[:, _cols(cfg)]).to(dt)
+    hn = _head_norm(h, tp.copy_in(p["head_norm"])[:, _cols(mlstm_dims(cfg)[2])]).to(dt)
     return tp.reduce_out((tp.flat_channels(hn) * F.silu(z)) @ p["w_down"].to(dt))
 
 
@@ -120,7 +135,7 @@ def empty_mlstm_state(cfg, batch, device):
     """A new stream's state, of the rank's columns of C and conv
     channels."""
     di, H, dh = mlstm_dims(cfg)
-    cols = _cols(cfg)
+    cols = _cols(dh)
     dv = cols.stop - cols.start
     C, n, m = mlstm_ref.empty_state(batch, H, dh, device, dv=dv)
     return {"C": C, "n": n, "m": m,
@@ -172,17 +187,20 @@ def slstm_dims(cfg):
 
 
 def empty_slstm_state(cfg, batch, device):
+    """A new stream's state, of the rank's columns of every head."""
     d, H, dh = slstm_dims(cfg)
-    z = torch.zeros((batch, H, dh), dtype=torch.float32, device=device)
+    cols = _cols(dh)
+    z = torch.zeros((batch, H, cols.stop - cols.start), dtype=torch.float32, device=device)
     return {"h": z, "c": z.clone(), "n": z.clone(),
-            "m": torch.full((batch, H, dh), mlstm_ref.NEG, dtype=torch.float32,
-                            device=device)}
+            "m": torch.full_like(z, mlstm_ref.NEG)}
 
 
 def _slstm_cell(Rf, bias, st, wx):
-    """One step.  wx: (B, 4, H, dh) the float32 W x_t; st: {"h", "c", "n",
-    "m"} (B, H, dh) float32."""
-    rec = torch.einsum("bhe,ghef->bghf", st["h"], Rf)           # (B, 4, H, dh)
+    """One step.  wx: (B, 4, H, the rank's columns) the float32 W x_t; Rf:
+    (4, H, dh, the rank's columns); bias: (4, H, the rank's columns); st:
+    {"h", "c", "n", "m"} (B, H, the rank's columns) float32.  h is
+    gathered over the ranks for R h."""
+    rec = torch.einsum("bhe,ghef->bghf", tp.gather_last(st["h"]), Rf)
     pre = wx + rec + bias[None]
     zt = torch.tanh(pre[:, 0])
     gi = pre[:, 1]
@@ -198,27 +216,32 @@ def _slstm_cell(Rf, bias, st, wx):
 
 
 def _slstm_wx(cfg, p, x):
-    """W x in float32 whatever the compute dtype (xlstm.py:241-242):
-    (B, S, d) -> (B, S, 4, H, dh)."""
-    d, H, dh = slstm_dims(cfg)
-    B, S, _ = x.shape
-    return (x.float() @ p["W"].float().reshape(d, 4 * H * dh)).reshape(
-        B, S, 4, H, dh)
+    """The rank's columns of W x in float32 whatever the compute dtype
+    (xlstm.py:241-242): (B, S, d) -> (B, S, 4, H, the rank's columns)."""
+    B, S, d = x.shape
+    W = p["W"].float()
+    return (tp.copy_in(x).float() @ W.reshape(d, -1)).reshape(B, S, *W.shape[1:])
+
+
+def _slstm_weights(cfg, p):
+    """R's and the bias's float32 columns of this rank (the bias whole on
+    every rank: ``copy_in``)."""
+    return p["R"].float(), tp.copy_in(p["bias"]).float()[..., _cols(slstm_dims(cfg)[2])]
 
 
 def slstm_forward(cfg, p, x, cache=None, return_cache=False):
     """Sequential sLSTM + GeGLU FFN.  x: (B, S, d) -> (B, S, d); cache:
-    {"h", "c", "n", "m"} to continue from."""
+    {"h", "c", "n", "m"} (the rank's columns) to continue from."""
     wx = _slstm_wx(cfg, p, x)
     st = cache if cache is not None else empty_slstm_state(cfg, x.shape[0],
                                                            x.device)
     st = {n: st[n] for n in ("h", "c", "n", "m")}
-    Rf, bias = p["R"].float(), p["bias"].float()
+    Rf, bias = _slstm_weights(cfg, p)
     hs = []
     for t in range(x.shape[1]):
         st = _slstm_cell(Rf, bias, st, wx[:, t])
         hs.append(st["h"])
-    out = _slstm_out(cfg, p, x, torch.stack(hs, dim=1))
+    out = _slstm_out(cfg, p, torch.stack(hs, dim=1))
     if return_cache:
         return out, st
     return out
@@ -226,17 +249,29 @@ def slstm_forward(cfg, p, x, cache=None, return_cache=False):
 
 def slstm_decode(cfg, p, x, cache):
     """Single-token decode.  x: (B, 1, d) -> (out, new cache)."""
-    st = _slstm_cell(p["R"].float(), p["bias"].float(),
+    st = _slstm_cell(*_slstm_weights(cfg, p),
                      {n: cache[n] for n in ("h", "c", "n", "m")},
                      _slstm_wx(cfg, p, x)[:, 0])
-    return _slstm_out(cfg, p, x, st["h"][:, None]), st
+    return _slstm_out(cfg, p, st["h"][:, None]), st
 
 
-def _slstm_out(cfg, p, x, h):
-    """Head-wise norm + GeGLU FFN (proj factor 4/3; tanh gelu).  h: (B, S,
-    H, dh) float32."""
+def _geglu(dt, hn, gate, up, down):
+    """The sLSTM's GeGLU FFN (tanh gelu) on the normed h, (B, S, H, dh)
+    read as (B, S, d), with (a rank's share of) its weights."""
+    hn = hn.flatten(-2)
+    g = F.gelu(hn @ gate.to(dt), approximate="tanh")
+    return (g * (hn @ up.to(dt))) @ down.to(dt)
+
+
+def _slstm_out(cfg, p, h):
+    """Head-wise norm + GeGLU FFN (proj factor 4/3).  h: (B, S, H, the
+    rank's columns) float32 -> (B, S, d): the normed h gathered over the
+    ranks, then the FFN on the rank's columns of ``d_ff`` where it splits,
+    else whole on every rank."""
     dt = cfg.compute_dtype
-    hn = _head_norm(h, p["head_norm"]).to(dt).reshape(x.shape[0], h.shape[1],
-                                                      cfg.d_model)
-    g = F.gelu(hn @ p["ffn_gate"].to(dt), approximate="tanh")
-    return (g * (hn @ p["ffn_up"].to(dt))) @ p["ffn_down"].to(dt)
+    d, _, dh = slstm_dims(cfg)
+    hn = _head_norm(h, tp.copy_in(p["head_norm"])[:, _cols(dh)]).to(dt)
+    w = (p["ffn_gate"], p["ffn_up"], p["ffn_down"])
+    if tp.splits(int(cfg.xlstm.proj_factor_slstm * d)):
+        return tp.reduce_out(_geglu(dt, tp.gather_last(hn), *w))
+    return tp.repeated(functools.partial(_geglu, dt), hn, *w)

@@ -20,9 +20,11 @@ the tests hold it against the reference in this process:
   widened to d_model 256 (4 Mamba heads, 1 a model rank; its SSD scan in
   chunks of 4 in both packages, where the reference's keeps finite
   gradients; attention and MoE beside them), xlstm (its mLSTM's value
-  columns split, the sLSTM whole), whisper (the encoder, self- and
-  cross-attention; frames as an input) and vision (cross-attention to
-  image embeddings);
+  columns split, and its sLSTM's columns with h gathered at each step and
+  its FFN's 85 columns whole on every rank; and widened to d_model 96,
+  ``xlstm-1.3b@96``, where the sLSTM's FFN splits its 128 columns too),
+  whisper (the encoder, self- and cross-attention; frames as an input) and
+  vision (cross-attention to image embeddings);
 - a rank computes only its shard: rank 0's matmul flops in danube's (2, 4)
   step are within 5% of its (8, 1) step's, B/8 of each split product;
 - the danube step's params saved on (4, 2) restore onto (2, 4), each rank
@@ -63,12 +65,15 @@ B, S = 8, 32
 STEP_ARCHS = ["h2o-danube-1.8b", "moonshot-v1-16b-a3b"]
 # more meshes over the same 8 ranks (data, model), and the configs stepped on each
 TP_STEPS = {(2, 4): ["h2o-danube-1.8b", "moonshot-v1-16b-a3b", "gemma2-9b",
-                     "jamba-v0.1-52b", "xlstm-1.3b", "whisper-base", "llama-3.2-vision-11b"],
+                     "jamba-v0.1-52b", "xlstm-1.3b", "whisper-base", "llama-3.2-vision-11b",
+                     "xlstm-1.3b@96"],
             (8, 1): ["h2o-danube-1.8b"]}
 ARCHS = STEP_ARCHS + TP_STEPS[(2, 4)][2:]
-# widths past the reduced config's: jamba's reduced d_inner 128 is one
-# Mamba head, which splits nothing
-WIDE = {"jamba-v0.1-52b": 256}
+# widths past the reduced config's (a case "ARCH@D" is ARCH at d_model D):
+# jamba's reduced d_inner 128 is one Mamba head, which splits nothing;
+# xlstm's sLSTM FFN is 85 columns wide at d_model 64, whole on 4 model
+# ranks, and 128 at 96, where it splits
+WIDE = {"jamba-v0.1-52b": 256, "xlstm-1.3b@96": 96}
 FLOPS_ARCH = "h2o-danube-1.8b"
 MOE_ARCH = "dbrx-132b"
 LR = 1e-3
@@ -89,7 +94,7 @@ WORKER = textwrap.dedent("""
     from torch.distributed.tensor import Shard
 
     def cfg_of(name):
-        cfg = configs.get_config(name).reduced()
+        cfg = configs.get_config(name.split("@")[0]).reduced()
         kw = dict(mamba=dataclasses.replace(cfg.mamba, chunk=4)) if cfg.mamba else {}
         return dataclasses.replace(cfg, d_model=%(WIDE)r.get(name, 64), d_ff=128, vocab=512,
                                    **kw)
@@ -184,11 +189,13 @@ WORKER = textwrap.dedent("""
 
 def _cfgs(name):
     """(reference, port) config, widened as the reference's test widens it
-    (jamba further, ``WIDE``; its SSD scan in chunks of 4)."""
+    (jamba and ``xlstm-1.3b@96`` further, ``WIDE``; jamba's SSD scan in
+    chunks of 4)."""
     def widen(cfg):
         kw = dict(mamba=dataclasses.replace(cfg.mamba, chunk=4)) if cfg.mamba else {}
         return dataclasses.replace(cfg, d_model=WIDE.get(name, 64), d_ff=128, vocab=512, **kw)
-    return widen(base.get_config(name).reduced()), widen(configs.get_config(name).reduced())
+    arch = name.split("@")[0]
+    return widen(base.get_config(arch).reduced()), widen(configs.get_config(arch).reduced())
 
 
 def _key(path) -> str:
@@ -294,7 +301,8 @@ def _check_step(out, prefix, name, params, batch, monkeypatch, dp=4):
                          ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
 def test_tp_step_matches_reference(run, shape, name, monkeypatch):
     """With compute split over 'model' (heads, d_ff, experts, vocab, the
-    Mamba heads and the mLSTM's value columns) on (2, 4), and with none on
+    Mamba heads, the mLSTM's value columns and the sLSTM's columns) on (2,
+    4), and with none on
     (8, 1): loss, gradient norm and every leaf of params, mu and nu after
     one step equal the reference's unsharded step at the tolerances
     above."""

@@ -221,3 +221,35 @@ def test_a_train_cell_split_over_model_counts_its_shard(cells):
     assert specs["wq"][2] == specs["w_up"][2] == specs["embed"][0] == "model"
     (row,) = roofline.build_table(str(cells[1]))
     assert row["status"] == "ok" and 0.4 <= row["useful_flops_ratio"] <= 1.0, row
+
+
+@pytest.mark.parametrize("extent", [16, 32])
+def test_a_split_slstm_computes_on_its_columns_of_the_state(extent):
+    """Reduced xlstm, whose sLSTM (pattern position 7) has heads of width
+    16: at model extent 16, which divides it, a serving rank of the
+    dry-run computes on its columns of h, c, n and m (dim 3 of (R, B, H,
+    dh)), on 'model' also for n, which the rules leave whole (the
+    reference's ``cache_pspec`` meets the mLSTM's rule for n first) and
+    into whose placement the dry-run gathers it; at 32 the state is whole
+    on every rank.  The port's cache rule gives the reference's spec for
+    each leaf."""
+    from types import SimpleNamespace
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as tsharding
+    from repro_torch.launch import dryrun
+    cfg, jcfg = configs.get_config("xlstm-1.3b").reduced(), base.get_config("xlstm-1.3b").reduced()
+    assert cfg.pattern[7].mixer == "slstm" and cfg.d_model // cfg.n_heads == 16
+    sizes = (256 // extent, extent)
+    mesh = AbstractMesh(sizes, ("data", "model"))
+    tmesh = SimpleNamespace(axis_names=("data", "model"), shape=dict(zip(mesh.axis_names, sizes)))
+    split = extent == 16
+    for leaf in ("h", "c", "n", "m"):
+        path, shape = (7, leaf), (1, 32, 4, 16)
+        want = tuple(jsharding.cache_pspec(jcfg, path, shape, mesh, False))
+        spec = tsharding.cache_pspec(cfg, path, shape, tmesh, False)
+        assert tuple(spec) == want, leaf
+        assert want[3] == ("model" if split and leaf != "n" else None), (leaf, want)
+        assert dryrun._compute_dims(cfg, path, extent) == ((1, 3) if split else (1,)), leaf
+        assert tuple(dryrun._compute_spec(cfg, path, spec, extent)) == \
+            (None, "data", None, "model" if split else None), leaf

@@ -19,6 +19,11 @@ inputs' gradients are summed (``emulate``), as ``reduce_out`` and
 - The layout: for all 11 full-width configs at model extent 16, each
   rank's heads (``head_layout``) and shards agree with the reference's
   ``param_pspec`` / ``kv_axis``.
+- The recurrent mixers split over 'model' (the Mamba mixer's heads, the
+  mLSTM's value columns, the sLSTM's columns with its FFN whole or split)
+  on 2, 4 and 8 emulated ranks against the reference's ``jax.vjp``, each
+  rank's cache its shard of the reference's, and broken copies of each
+  split caught.
 """
 import dataclasses
 import functools
@@ -297,7 +302,7 @@ def test_layout_at_16_agrees_with_the_reference_rules(arch):
     rank's query heads read KV heads of its layout; and every leaf's
     shard (``shard_params``, on meta tensors) has the shape the
     reference's spec gives it over 'model', but a mixer's that stays
-    whole (the sLSTM)."""
+    whole (``mixer_splits``)."""
     jcfg, tcfg = base.get_config(arch), configs.get_config(arch)
     mesh = AbstractMesh((16, 16), ("data", "model"))
     jleaves = {_jpath(p): (p, x) for p, x in jax.tree_util.tree_flatten_with_path(
@@ -346,21 +351,26 @@ def test_layout_at_16_agrees_with_the_reference_rules(arch):
 MIXER_GATE = 2e-5
 
 
+# a case of the mixer tests -> the mixer it runs
+MIXER = {"mamba": "mamba", "mlstm": "mlstm", "slstm": "slstm", "slstm_d96": "slstm"}
+
+
 def _mixer_cfgs(kind):
     """(reference, port) configs of a mixer whose split dim divides 2, 4
     and 8: jamba reduced at d_model 512 (d_inner 1024, eight SSD heads of
     128; at the reduced d_model 64 its one head splits nothing), scanning
     in chunks of 4, where the reference's SSD scan keeps finite gradients;
-    xlstm reduced (four heads of width 32)."""
-    if kind == "mamba":
-        def widen(c):
-            return dataclasses.replace(c, d_model=512,
-                                       mamba=dataclasses.replace(c.mamba, chunk=4))
-        name = "jamba-v0.1-52b"
-    else:
-        def widen(c):
+    xlstm reduced (the mLSTM's four heads of width 32, the sLSTM's of 16,
+    its FFN's 85 columns whole on the ranks); ``slstm_d96``: xlstm reduced
+    at d_model 96 (the sLSTM's heads of 24, its FFN's 128 columns split)."""
+    widths = {"mamba": 512, "slstm_d96": 96}
+    name = "jamba-v0.1-52b" if kind == "mamba" else "xlstm-1.3b"
+
+    def widen(c):
+        if kind not in widths:
             return c
-        name = "xlstm-1.3b"
+        kw = dict(mamba=dataclasses.replace(c.mamba, chunk=4)) if c.mamba else {}
+        return dataclasses.replace(c, d_model=widths[kind], **kw)
     return widen(base.get_config(name).reduced()), widen(configs.get_config(name).reduced())
 
 
@@ -368,6 +378,8 @@ def _mixer_fns(kind):
     """(reference forward, port forward), the mLSTM in chunks of 16."""
     if kind == "mamba":
         return jmamba.mamba_forward, mamba.mamba_forward
+    if MIXER[kind] == "slstm":
+        return jxlstm.slstm_forward, xlstm.slstm_forward
     return (functools.partial(jxlstm.mlstm_forward, chunk=16),
             functools.partial(xlstm.mlstm_forward, chunk=16))
 
@@ -376,7 +388,8 @@ def _mixer_case(kind, seed):
     """The reference's params (its own init), the port's copy of them, an
     input x (B, S, d) and an output gradient dy, float32."""
     jcfg, tcfg = _mixer_cfgs(kind)
-    init = jmamba.init_mamba if kind == "mamba" else jxlstm.init_mlstm
+    init = {"mamba": jmamba.init_mamba, "mlstm": jxlstm.init_mlstm,
+            "slstm": jxlstm.init_slstm}[MIXER[kind]]
     jp = init(jcfg, jax.random.PRNGKey(seed))
     g = np.random.default_rng(seed)
     x = g.standard_normal((B, 40, tcfg.d_model)).astype(np.float32)
@@ -427,19 +440,23 @@ def _check_mixer(kind, got, want):
 
 
 @pytest.mark.parametrize("m", [2, 4, 8])
-@pytest.mark.parametrize("kind", ["mamba", "mlstm"])
+@pytest.mark.parametrize("kind", list(MIXER))
 def test_emulated_mixer_ranks_equal_the_reference(kind, m):
-    """The Mamba mixer (its heads split) and the mLSTM (its value columns
-    of every head split) through m emulated model ranks, each on its
-    shards (``shard_params``), with the collectives inside them among the
-    ranks (``xz_columns``, ``all_sum``, ``gather_last``,
-    ``head_columns``, ``flat_channels``): the output and the gradient of
-    every param leaf and of the input equal the reference mixer's
-    (``jax.vjp``), each within ``MIXER_GATE`` of its largest entry.  (The
-    reduced jamba's one head would split nothing: ``_mixer_cfgs`` widens
-    it.)"""
+    """The Mamba mixer (its heads split), the mLSTM (its value columns of
+    every head split) and the sLSTM (its columns of every head split, h
+    gathered at each step; its FFN whole on every rank, ``repeated``, or
+    at d_model 96 its columns of ``d_ff`` split) through m emulated model
+    ranks, each on its shards (``shard_params``), with the collectives
+    inside them among the ranks (``xz_columns``, ``all_sum``,
+    ``gather_last``, ``gather_last_own``, ``head_columns``,
+    ``flat_channels``): the output and the gradient of every param leaf
+    and of the input equal the reference mixer's (``jax.vjp``), each
+    within ``MIXER_GATE`` of its largest entry.  (The reduced jamba's one
+    head would split nothing: ``_mixer_cfgs`` widens it.)"""
     jcfg, tcfg, jp, tparams, x, dy = _mixer_case(kind, 5 + m)
-    assert tp.mixer_splits(tcfg, kind, m)
+    assert tp.mixer_splits(tcfg, MIXER[kind], m)
+    if MIXER[kind] == "slstm":   # the FFN whole at d_model 64, split at 96
+        assert tp.splits(tparams["ffn_gate"].shape[1], m) == (kind == "slstm_d96")
     got = _mixer_errs(kind, tcfg, tparams, x, dy, m)
     _check_mixer(kind, got, _reference_mixer(kind, jcfg, jp, x, dy))
 
@@ -494,6 +511,15 @@ MUTANTS = {
     "mlstm_no_backward_sum_of_the_gates": (
         "mlstm", "all_sum", lambda cfg: _sum_without_backward(2 * cfg.n_heads)),
     "mlstm_head_norm_without_the_ranks_sum": ("mlstm", "all_sum", lambda cfg: _sum_skipped(1)),
+    # the per-step gather of h, whose gradient a rank's R h makes partial,
+    # taking the rank's own block back unsummed (the FFN is whole here)
+    "slstm_h_gather_without_the_backward_sum": (
+        "slstm", "gather_last", lambda cfg: tp.gather_last_own),
+    "slstm_head_norm_without_the_ranks_sum": ("slstm", "all_sum", lambda cfg: _sum_skipped(1)),
+    # the gather before the FFN every rank computes whole, reduce-scattered
+    # back: m times the gradient
+    "slstm_whole_ffn_gather_reduce_scattered": (
+        "slstm", "gather_last_own", lambda cfg: tp.gather_last),
 }
 
 
@@ -511,7 +537,8 @@ def _mutant_case(kind):
 def test_a_broken_split_fails_the_reference_check(mutant, monkeypatch):
     """Each broken copy of the split (``MUTANTS``: a weight's x | z columns
     taken as the rules chunk them, a partial sum every head reads summed
-    forward only, the head norm's sums of squares left unsummed) puts some
+    forward only, the head norm's sums of squares left unsummed, a gather
+    whose backward does not fit who reads the gathered tensor) puts some
     tensor past ``_check_mixer``'s gate at m = 4, where the whole split
     passes it (``test_emulated_mixer_ranks_equal_the_reference``)."""
     kind, name, patch = MUTANTS[mutant]
@@ -521,23 +548,26 @@ def test_a_broken_split_fails_the_reference_check(mutant, monkeypatch):
         _check_mixer(kind, _mixer_errs(kind, tcfg, tparams, x, dy, 4), want)
 
 
-@pytest.mark.parametrize("kind", ["mamba", "mlstm"])
+@pytest.mark.parametrize("kind", list(MIXER))
 def test_emulated_mixer_cache_and_decode_equal_the_reference(kind):
     """At m = 4: each rank's prefill cache is its shard of the reference's
     cache (a Mamba rank's heads of ``h`` and conv channels, an mLSTM
-    rank's columns of C and conv channels; the mLSTM's n and m whole on
-    every rank), and one decode step from the ranks' caches gives the
-    reference's output and the next cache's shards."""
+    rank's columns of C and conv channels, an sLSTM rank's columns of h,
+    c, n and m; the mLSTM's n and m whole on every rank), and one decode
+    step from the ranks' caches gives the reference's output and the next
+    cache's shards."""
     m = 4
     jcfg, tcfg, jp, tparams, x, _ = _mixer_case(kind, 3)
     jf, tf = _mixer_fns(kind)
-    jdec, tdec = (jmamba.mamba_decode, mamba.mamba_decode) if kind == "mamba" \
-        else (jxlstm.mlstm_decode, xlstm.mlstm_decode)
+    jdec, tdec = {"mamba": (jmamba.mamba_decode, mamba.mamba_decode),
+                  "mlstm": (jxlstm.mlstm_decode, xlstm.mlstm_decode),
+                  "slstm": (jxlstm.slstm_decode, xlstm.slstm_decode)}[MIXER[kind]]
     jout, jcache = jf(jcfg, jp, jnp.asarray(x), return_cache=True)
     xt = np.random.default_rng(4).standard_normal((B, 1, tcfg.d_model)).astype(np.float32)
     jout2, jcache2 = jdec(jcfg, jp, jnp.asarray(xt), jcache)
     # a leaf's dim that holds each rank's share: concatenated over the ranks
-    dims = {"conv": -1, "h": 1} if kind == "mamba" else {"conv": -1, "C": -1}
+    dims = {"mamba": {"conv": -1, "h": 1}, "mlstm": {"conv": -1, "C": -1},
+            "slstm": dict.fromkeys(("h", "c", "n", "m"), -1)}[MIXER[kind]]
     caches = {}
 
     def prefill(r, h):
